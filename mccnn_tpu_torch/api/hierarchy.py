@@ -1,0 +1,87 @@
+"""Multi-level point hierarchy built by Poisson-disk sampling
+(port of ``mccnn_tpu/api/hierarchy.py``).
+
+Level 0 is the input cloud; each further level is a Poisson-disk subset of the
+previous one at an increasing radius, padded to a static capacity and masked.
+With ``global_level=True`` a one-point level at the masked centroid closes the
+hierarchy (the classification heads' global pooling level).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from ..core.gather import gather_rows
+from ..core.sampling import SampleSet, poisson_disk
+
+GLOBAL_RADIUS = math.sqrt(3.0) + 0.1  # covers the whole unit cube
+
+
+class HierarchyLevel(NamedTuple):
+    """One level: padded points + mask, and how it was sampled.
+
+    ``sample`` holds indices into the PREVIOUS level (None for level 0 and
+    the global level).
+    """
+
+    points: torch.Tensor  # (B, N_l, 3)
+    mask: torch.Tensor  # (B, N_l)
+    radius: float  # Poisson radius used to build this level (0.0 for level 0)
+    sample: SampleSet | None
+
+
+class PointHierarchy(NamedTuple):
+    levels: tuple[HierarchyLevel, ...]
+
+    def __len__(self) -> int:
+        return len(self.levels)
+
+
+def default_level_caps(n_points: int, radii: Sequence[float]) -> list[int]:
+    """Static per-level capacities (``hierarchy.py:54-68``): the min of a
+    volume and a surface bound on a Poisson-disk set at radius r and the
+    parent capacity, rounded up to a multiple of 8."""
+    caps = []
+    n_prev = n_points
+    for r in radii:
+        vol = (math.sqrt(3.0) / max(r, 1e-6)) ** 3
+        surf = (2.2 / max(r, 1e-6)) ** 2
+        cap = min(n_prev, int(min(vol, surf)) + 8)
+        cap = max(8, (cap + 7) // 8 * 8)
+        caps.append(cap)
+        n_prev = cap
+    return caps
+
+
+def build_hierarchy(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    radii: Sequence[float],
+    *,
+    level_caps: Sequence[int] | None = None,
+    global_level: bool = False,
+) -> PointHierarchy:
+    """Build the Poisson-disk hierarchy of unit-cube ``points (B, N, 3)``."""
+    if level_caps is None:
+        level_caps = default_level_caps(points.shape[1], radii)
+    levels = [HierarchyLevel(points=points, mask=mask, radius=0.0, sample=None)]
+    cur_pts, cur_mask = points, mask
+    for r, cap in zip(radii, level_caps):
+        ss = poisson_disk(cur_pts, cur_mask, r, cap)
+        nxt_pts = torch.where(ss.mask[..., None], gather_rows(cur_pts, ss.idx), 0.0)
+        levels.append(
+            HierarchyLevel(points=nxt_pts, mask=ss.mask, radius=float(r), sample=ss)
+        )
+        cur_pts, cur_mask = nxt_pts, ss.mask
+    if global_level:
+        m = cur_mask[..., None].to(cur_pts.dtype)
+        denom = m.sum(dim=1).clamp_min(1.0)
+        centroid = (cur_pts * m).sum(dim=1, keepdim=True) / denom[:, None, :]
+        any_valid = cur_mask.any(dim=-1, keepdim=True)
+        levels.append(
+            HierarchyLevel(points=centroid, mask=any_valid, radius=GLOBAL_RADIUS, sample=None)
+        )
+    return PointHierarchy(levels=tuple(levels))

@@ -1,0 +1,6 @@
+"""Models (port of ``mccnn_tpu/models``): MCClassS in this slice."""
+
+from .layers import BatchNormReluDropout, FullyConnected, MaskedBatchNorm, MCConv
+from .mcclass_s import MCClassS
+
+__all__ = ["BatchNormReluDropout", "FullyConnected", "MCClassS", "MCConv", "MaskedBatchNorm"]

@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels (``csrc/*.cu``) and their plain PyTorch versions.
+
+Module names follow ``mccnn_tpu/ops/pallas/``. Each public function picks by
+the device of its tensors: CPU -> the plain ``*_reference`` version, CUDA ->
+the kernel (built at first use by ``_build.library()``).
+"""
+
+from .dense_conv import dense_mc_conv
+from .density_kernel import kde_density_dense
+from .poisson_kernel import poisson_sweep
+
+__all__ = ["dense_mc_conv", "kde_density_dense", "poisson_sweep"]

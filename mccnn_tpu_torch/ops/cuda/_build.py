@@ -1,0 +1,152 @@
+"""Builds the package's CUDA kernels and binds them with ``ctypes``.
+
+At first use, ``nvcc`` compiles every ``mccnn_tpu_torch/csrc/*.cu`` for
+``sm_90a`` into one shared library with a plain C interface. The library
+lands in ``mccnn_tpu_torch/build/`` (git-ignored) under a name that carries a
+hash of the sources and flags, so an edited source always rebuilds. It is
+loaded with ``ctypes``: every pointer and the stream are ``c_void_p``, every
+C entry point returns the ``cudaError_t`` of ``cudaGetLastError()`` after its
+launch, and ``check`` raises when that is not 0.
+
+Nothing here runs at import time, and nothing catches a failed build: a
+missing ``nvcc`` or a compile error raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C entry points: name -> argument types (restype is always int).
+SIGNATURES = {
+    "kde_density_launch": [P, P, I, I, F, F, F, P, P],
+    "poisson_sweep_launch": [P, P, P, P, I, I, F, P, P],
+    "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
+    "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P],
+    "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build printed."""
+
+    def __init__(self, path: str, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self._lib = ctypes.CDLL(path)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def __getattr__(self, name: str):
+        if name not in SIGNATURES:
+            raise AttributeError(name)
+        return getattr(self._lib, name)
+
+
+_LOCK = threading.Lock()
+_LIBRARY: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels of mccnn_tpu_torch "
+        "are compiled from csrc/ at first use"
+    )
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIBRARY
+    with _LOCK:
+        if _LIBRARY is not None:
+            return _LIBRARY
+        srcs = _sources()
+        out = os.path.join(BUILD_DIR, f"libmccnn_kernels_{_digest()}.so")
+        log, seconds = "", 0.0
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs],
+                capture_output=True, text=True,
+            )
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            os.replace(tmp, out)
+        _LIBRARY = KernelLibrary(out, seconds, log)
+        return _LIBRARY
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError_t {err}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: every input must be on the same CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

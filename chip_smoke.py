@@ -1,21 +1,35 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch + CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA device; turns TF32 off; prints the card's
    name and power limit (``nvidia-smi``).
-2. Builds the kernels from ``mccnn_tpu_torch/csrc`` and prints the build time
-   and ``ptxas``'s register / shared-memory report.
-3. Holds each kernel (K1 dense MC conv, K3 Poisson sweep, K4 KDE) against its
-   plain PyTorch version on the card, at every shape the MCClassS serving
-   path gives it (B=8 clouds of N=1024 points), and times both with CUDA
-   events.
-4. Builds MCClassS(40, grow=128) with seeded weights and BN statistics and
-   serves request batches of 8, 3 and 1 clouds through ``serve.Predictor``;
-   checks that the logits are finite, agree with the same model on the CPU
-   plain path, and that every kernel's launch counter moved while serving.
-5. Prints one JSON line of kernel results, the card line, and last
+2. Builds the kernels from ``mccnn_tpu_torch/csrc`` (one nvcc per source, in
+   parallel) and prints the build time and ``ptxas``'s register /
+   shared-memory report.
+3. Holds each forward kernel (K1 dense MC conv, K3 Poisson sweep, K4 KDE)
+   against its plain PyTorch version on the card, at every shape the MCClassS
+   serving path (B=8 clouds of N=1024 points) and training path (B=32, the
+   trainer's batch) give it, and times both with CUDA events.
+4. Holds K2 (the dense MC-conv backward) against its plain version at the
+   three conv sites of a B=8 and of a B=32 training batch (N=1024
+   hierarchies: the row splits and partial sums differ with B), checks that
+   two calls give bit-identical gradients, and times both.
+5. Serving: builds MCClassS(40, grow=128) with seeded weights and BN
+   statistics and serves request batches of 8, 3 and 1 clouds through
+   ``serve.Predictor``; checks that the logits are finite, agree with the same
+   model on the CPU plain path, and that K1, K3 and K4 were launched.
+6. One train step of MCClassS at full width (drop_rate 0) on the card against
+   the same step on the CPU plain path, at B=8 and at B=32: loss, every
+   gradient, the updated BN statistics.
+7. Training through the entry point: ``tasks.modelnet.main`` with
+   ``--synthetic --batch 32 --points 1024 --grow 128 --n-classes 40`` for 4
+   steps (default dropout 0.5); requires a finite loss and that K1, K2, K3 and
+   K4 were all launched, and prints the warm time per step.
+8. Prints one JSON line of kernel results at the trainer's batch (B=32; each
+   with its least possible time on the card, ``bound_ms``, from the bytes and
+   operations of this run's inputs), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -25,16 +39,27 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 SEED = 0
-B, N = 8, 1024
+N = 1024
+SERVE_B = 8  # the served request batch
+TRAIN_B = 32  # the trainer's batch: the CLI's default --batch
 N_CLASSES, GROW = 40, 128
+H = 8  # the kernel MLP's hidden width
+
+# The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
+# bandwidth, and the float32 rate outside the tensor cores (every kernel here
+# is fp32 CUDA-core arithmetic).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
 # Tolerances, kernel vs plain version on the card, with their reasons:
 # K4: fp32 sums of up to N positive terms in another order, and the kernel's
@@ -43,10 +68,27 @@ KDE_RTOL = 1e-4
 # K1: fp32 sums over up to N neighbours and (H+1)*C products, in another
 #     order than cuBLAS's (TF32 off), relative to the site's largest output.
 CONV_RTOL = 1e-4
+# K2: d_wf, dW2 and db2 are sums over up to N samples or B*M rows (fp32,
+#     other order): 1e-4 of the tensor's largest value. dW1 and db1 sum over
+#     every pair of the batch (4M at conv_0_1) with cancellation, and a pair
+#     whose pre-activation rounds across 0 differently (the kernel may fuse
+#     a multiply-add the plain matmul rounds twice) moves its term: 1e-3.
+BWD_RTOL = 1e-4
+BWD_W1_RTOL = 1e-3
 # Served logits, card vs the CPU plain path: identical hierarchies (the d2
 #     test is bit-equal), then fp32 sums in other orders through three convs
 #     and three dense layers.
 LOGIT_RTOL = 1e-3
+# Train step, card vs the CPU plain path: the loss as the logits; gradients
+#     through three batch-statistic BNs and the convs, 2e-3 of each tensor's
+#     largest value; the updated BN running statistics 1e-4 of their largest.
+#     The head Dense biases feed a BN that subtracts the batch mean, so their
+#     gradient is 0 up to rounding: both sides must be below 1e-6 of the
+#     largest gradient.
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 2e-3
+STAT_RTOL = 1e-4
+ZERO_GRAD_PARAMS = ("fcs.0.dense.bias", "fcs.1.dense.bias")
 
 
 class SmokeFailure(RuntimeError):
@@ -81,6 +123,23 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the fp32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pair_counts(smp, qmask, src, smask, radius) -> tuple[int, int]:
+    """(valid pairs, valid pairs within the radius) of one site."""
+    from mccnn_tpu_torch.core.grid import pair_d2, radius_sq
+
+    valid = qmask[:, :, None] & smask[:, None, :]
+    inr = valid & (pair_d2(smp, src) <= radius_sq(radius))
+    return int(valid.sum()), int(inr.sum())
+
+
 def request(rng: np.random.Generator, b: int) -> dict:
     from mccnn_tpu_torch.data.datasets import _normalize_np
     from mccnn_tpu_torch.data.synthetic import classification_batch
@@ -90,17 +149,11 @@ def request(rng: np.random.Generator, b: int) -> dict:
     return {"points": pts, "mask": np.ones((b, N), bool)}
 
 
-def check_kernels(dev) -> dict:
-    """Kernel vs plain version at the serving path's shapes."""
-    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS, build_hierarchy
-    from mccnn_tpu_torch.core.mcconv import init_mcconv_params
-    from mccnn_tpu_torch.core.sampling import sweep_cells
-    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+def levels(req: dict, dev) -> list:
+    """The path's levels, built by the plain path on the CPU: the kernels then
+    see exactly the shapes and padding masks they get there."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
 
-    rng = np.random.default_rng(SEED)
-    req = request(rng, B)
-    # The serving path's levels, built by the plain path on the CPU: the
-    # kernels then see exactly the shapes and padding masks they get there.
     hier = build_hierarchy(
         torch.from_numpy(req["points"]), torch.from_numpy(req["mask"]), (0.1, 0.4),
         global_level=True,
@@ -108,9 +161,35 @@ def check_kernels(dev) -> dict:
     lv = [(l.points.to(dev), l.mask.to(dev)) for l in hier.levels]
     print("levels:", [tuple(p.shape[:2]) for p, _ in lv],
           "valid per cloud:", [int(m.sum(1).min()) for _, m in lv], flush=True)
+    return lv
+
+
+def site_params(gen, c, co, dev):
+    from mccnn_tpu_torch.core.mcconv import init_mcconv_params
+
+    params = init_mcconv_params(gen, c, co, device=dev)
+    return params._replace(
+        b1=0.1 * torch.randn(params.b1.shape, generator=gen).to(dev),
+        b2=0.1 * torch.randn(params.b2.shape, generator=gen).to(dev),
+    )
+
+
+def wcat(params, c, co):
+    """[W2; b2] as one ((H+1)*C, CO) matrix: the GEMM operand of K1 and K2."""
+    return torch.cat([params.w2.reshape(H * c, co), params.b2.reshape(c, co)]).contiguous()
+
+
+def check_kernels(dev, b: int) -> dict:
+    """Kernel vs plain version at the shapes a batch of ``b`` clouds gives them."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
+    from mccnn_tpu_torch.core.sampling import sweep_cells
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+
+    rng = np.random.default_rng(SEED + b)
+    lv = levels(request(rng, b), dev)
     results = {"K1": [], "K3": [], "K4": []}
 
-    with torch.inference_mode():
+    with torch.no_grad():
         pdfs = {}
         for lvl, radius in ((0, 0.2), (1, 0.8), (2, GLOBAL_RADIUS)):
             pts, mask = lv[lvl]
@@ -121,11 +200,14 @@ def check_kernels(dev) -> dict:
             rel = float(((got - want).abs() / want.abs()).max())
             ms = time_ms(lambda: density_kernel.kde_density_cuda(pts, mask, radius))
             pms = time_ms(lambda: density_kernel.kde_density_reference(pts, mask, radius))
-            print(f"K4 N={pts.shape[1]} r={radius:.4f}: max_abs_err={err:.3e} "
-                  f"max_rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
+            valid, inr = pair_counts(pts, mask, pts, mask, radius)
+            bms, by = bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4), 8 * valid + 4 * inr)
+            print(f"K4 B={b} N={pts.shape[1]} r={radius:.4f}: max_abs_err={err:.3e} "
+                  f"max_rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"bound_ms={bms:.6f} ({by})", flush=True)
             require(bool(torch.allclose(got, want, rtol=KDE_RTOL, atol=0.0)),
                     f"K4 disagrees with its plain version at N={pts.shape[1]}")
-            results["K4"].append((err, ms, pms))
+            results["K4"].append((err, ms, pms, bms, by, None))
             pdfs[(lvl, radius)] = want
 
         for lvl, radius in ((0, 0.1), (1, 0.4)):
@@ -138,10 +220,13 @@ def check_kernels(dev) -> dict:
             ms = time_ms(lambda: poisson_kernel.poisson_sweep_cuda(pts, mask, cids, colors, radius))
             pms = time_ms(lambda: poisson_kernel.poisson_sweep_reference(
                 pts, mask, cids, colors, radius), iters=5)
-            print(f"K3 N={pts.shape[1]} r={radius}: selected={int(got.sum())} "
-                  f"differing_flags={diff} kernel_ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
+            _, inr = pair_counts(pts, mask, pts, mask, radius)
+            bms, by = bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4 + 4 + 1), 8 * inr)
+            print(f"K3 B={b} N={pts.shape[1]} r={radius}: selected={int(got.sum())} "
+                  f"differing_flags={diff} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"bound_ms={bms:.6f} ({by})", flush=True)
             require(diff == 0, f"K3 selection differs from its plain version at N={pts.shape[1]}")
-            results["K3"].append((float(diff), ms, pms))
+            results["K3"].append((float(diff), ms, pms, bms, by, None))
 
         gen = torch.Generator().manual_seed(SEED)
         sites = [  # (in level, out level, radius, C, CO, main path?)
@@ -154,33 +239,110 @@ def check_kernels(dev) -> dict:
         for k, (i, o, radius, c, co, main) in enumerate(sites):
             mean = k == 4
             (src, smask), (smp, qmask) = lv[i], lv[o]
-            params = init_mcconv_params(gen, c, co, device=dev)
-            params = params._replace(
-                b1=0.1 * torch.randn(params.b1.shape, generator=gen).to(dev),
-                b2=0.1 * torch.randn(params.b2.shape, generator=gen).to(dev),
-            )
-            feats = (torch.ones((B, src.shape[1], 1)) if c == 1 else
-                     torch.randn((B, src.shape[1], c), generator=gen)).to(dev)
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, src.shape[1], 1)) if c == 1 else
+                     torch.randn((b, src.shape[1], c), generator=gen)).to(dev)
             pdf = torch.ones_like(src[..., 0]) if mean else pdfs[(i, radius)]
             args = (params, smp, qmask, src, smask, feats, pdf, radius)
             kw = dict(c_out=co, mean_normalize=mean, with_count=True)
-            got, gcnt = dense_conv.dense_mc_conv_cuda(*args, **kw)
+            got, gcnt = dense_conv.dense_mc_conv(*args, **kw)
             want, wcnt = dense_conv.dense_mc_conv_reference(*args, **kw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            ms = time_ms(lambda: dense_conv.dense_mc_conv_cuda(*args, **kw))
+            ms = time_ms(lambda: dense_conv.dense_mc_conv(*args, **kw))
             pms = time_ms(lambda: dense_conv.dense_mc_conv_reference(*args, **kw))
             mode = "mean" if mean else ("depthwise" if co is None else "full")
-            print(f"K1 conv_{i}_{o} {mode} N={src.shape[1]} M={smp.shape[1]} C={c} "
-                  f"CO={co}: max_abs_err={err:.3e} max_abs_out={scale:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={pms:.4f}", flush=True)
+            line = (f"K1 B={b} conv_{i}_{o} {mode} N={src.shape[1]} M={smp.shape[1]} C={c} "
+                    f"CO={co}: max_abs_err={err:.3e} max_abs_out={scale:.3e} "
+                    f"kernel_ms={ms:.4f} plain_ms={pms:.4f}")
             require(bool(torch.equal(gcnt, wcnt)), f"K1 neighbour counts differ at conv_{i}_{o}")
             require(bool(torch.allclose(got, want, rtol=CONV_RTOL, atol=CONV_RTOL * scale)),
                     f"K1 disagrees with its plain version at conv_{i}_{o} ({mode})")
             if main:
-                results["K1"].append((err, ms, pms))
+                M = smp.shape[1]
+                R, K = b * M, (H + 1) * c
+                valid, inr = pair_counts(smp, qmask, src, smask, radius)
+                nbytes = 4 * (b * M * 3 + b * src.shape[1] * 3 + b * src.shape[1] * c
+                              + 4 * H + K * co + b * M * co + b * M) + b * (M + src.shape[1])
+                flops = (8 * valid + inr * (6 + 6 * H + 2 * (H + 1) * c)
+                         + 2 * int(qmask.sum()) * K * co)
+                bms, by = bound(nbytes, flops)
+                G = torch.randn((R, K), generator=gen).to(dev)
+                W = wcat(params, c, co)
+                lms = time_ms(lambda: torch.matmul(G, W))
+                line += (f" bound_ms={bms:.6f} ({by}) matmul_ms={lms:.4f} "
+                         f"(torch.matmul {R}x{K} @ {K}x{co})")
+                results["K1"].append((err, ms, pms, bms, by, lms))
+            print(line, flush=True)
     return results
+
+
+def check_backward(dev, b: int) -> list:
+    """K2 vs its plain version at the three conv sites of a training batch of
+    ``b`` clouds."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
+
+    rng = np.random.default_rng(SEED + 3 + b)
+    lv = levels(request(rng, b), dev)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = []
+    sites = [(0, 1, 0.2, 1, GROW), (1, 2, 0.8, GROW, 2 * GROW),
+             (2, 3, GLOBAL_RADIUS, 2 * GROW, 8 * GROW)]
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    with torch.no_grad():
+        for i, o, radius, c, co in sites:
+            (src, smask), (smp, qmask) = lv[i], lv[o]
+            M, Ns = smp.shape[1], src.shape[1]
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, Ns, 1)) if c == 1 else
+                     torch.randn((b, Ns, c), generator=gen)).to(dev)
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            wf = dense_conv._weighted_features(feats, pdf, smask)
+            _, cnt, G = dense_conv._forward_reference(params, smp, qmask, src, smask, wf,
+                                                      radius, co, False)
+            dout = torch.randn((b, M, co), generator=gen).to(dev)
+            args = (params, smp, qmask, src, smask, wf, radius, G, cnt, dout)
+            got = dense_conv.dense_mc_conv_backward_cuda(*args, c_out=co)
+            again = dense_conv.dense_mc_conv_backward_cuda(*args, c_out=co)
+            want = dense_conv.dense_mc_conv_backward_reference(*args, c_out=co)
+            torch.cuda.synchronize()
+            err = 0.0
+            parts = []
+            for name, a, a2, w in zip(names, got, again, want):
+                require(tuple(a.shape) == tuple(w.shape), f"K2 {name} shape {tuple(a.shape)}")
+                require(bool(torch.equal(a, a2)),
+                        f"K2 {name} differs between two calls at conv_{i}_{o}")
+                scale = float(w.abs().max())
+                e = float((a - w).abs().max())
+                err = max(err, e)
+                tol = BWD_W1_RTOL if name in ("dw1", "db1") else BWD_RTOL
+                parts.append(f"{name} {e:.3e}/{scale:.3e}")
+                require(bool(torch.allclose(a, w, rtol=tol, atol=tol * scale)),
+                        f"K2 {name} disagrees with its plain version at conv_{i}_{o}")
+            ms = time_ms(lambda: dense_conv.dense_mc_conv_backward_cuda(*args, c_out=co))
+            pms = time_ms(lambda: dense_conv.dense_mc_conv_backward_reference(*args, c_out=co),
+                          iters=5)
+            R, K = b * M, (H + 1) * c
+            valid, inr = pair_counts(smp, qmask, src, smask, radius)
+            nbytes = 4 * (b * M * 3 + b * Ns * 3 + 2 * b * Ns * c + 4 * H + 2 * K * co
+                          + R * K + R + R * co + 4 * H) + b * (M + Ns)
+            # the two GEMMs over the valid samples' rows, then the pairs
+            flops = (4 * int(qmask.sum()) * K * co + 8 * valid
+                     + inr * (6 + 6 * H + 2 * (H + 1) * c + 2 * H * c + 8 * H))
+            bms, by = bound(nbytes, flops)
+            t = dout.reshape(R, co).contiguous()
+            W = wcat(params, c, co)
+            Gf = G.reshape(R, K)
+            lms = time_ms(lambda: (torch.matmul(t, W.T), torch.matmul(Gf.T, t)))
+            print(f"K2 B={b} conv_{i}_{o} N={Ns} M={M} C={c} CO={co} pairs={valid} in_radius={inr}: "
+                  f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
+                  f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) "
+                  f"matmul_ms={lms:.4f} (torch.matmul {R}x{co} @ {co}x{K} and "
+                  f"{K}x{R} @ {R}x{co})", flush=True)
+            rows.append((err, ms, pms, bms, by, lms))
+    return rows
 
 
 def calibrate_bn(model, batch: dict, rng: np.random.Generator) -> None:
@@ -211,25 +373,52 @@ def calibrate_bn(model, batch: dict, rng: np.random.Generator) -> None:
             bn.bias.copy_((0.1 * noise()).float())
 
 
-def serve(dev) -> tuple[dict, list]:
+def same_hierarchy(req: dict, dev) -> bool:
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
-    from mccnn_tpu_torch.models import MCClassS
+
+    with torch.inference_mode():
+        h_gpu = build_hierarchy(torch.from_numpy(req["points"]).to(dev),
+                                torch.from_numpy(req["mask"]).to(dev), (0.1, 0.4))
+        h_cpu = build_hierarchy(torch.from_numpy(req["points"]),
+                                torch.from_numpy(req["mask"]), (0.1, 0.4))
+    return all(
+        torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
+        for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:])
+    )
+
+
+def counters() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
     from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+
+    return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
+            "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches")}
+
+
+def reset_counts() -> None:
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(module, attr) for k, (module, attr) in counters().items()}
+
+
+def serve(dev) -> dict:
+    from mccnn_tpu_torch.models import MCClassS
     from mccnn_tpu_torch.serve import Predictor
 
     rng = np.random.default_rng(SEED + 1)
     model = MCClassS(N_CLASSES, grow=GROW, generator=torch.Generator().manual_seed(SEED))
     model = model.to(dev)
-    calibrate_bn(model, request(rng, B), rng)
+    calibrate_bn(model, request(rng, SERVE_B), rng)
     cpu_model = copy.deepcopy(model).cpu()
-    predictor = Predictor(model, B)
-    cpu_predictor = Predictor(cpu_model, B)
+    predictor = Predictor(model, SERVE_B)
+    cpu_predictor = Predictor(cpu_model, SERVE_B)
     requests = [request(rng, b) for b in (8, 3, 1, 8, 3, 1)]
     torch.cuda.synchronize()
 
-    modules = {"K1": dense_conv, "K3": poisson_kernel, "K4": density_kernel}
-    for m in modules.values():
-        m.launches = 0
+    reset_counts()
     served, latencies = [], []
     for req in requests:
         t0 = time.perf_counter()
@@ -237,25 +426,18 @@ def serve(dev) -> tuple[dict, list]:
         torch.cuda.synchronize()
         latencies.append((len(req["points"]), (time.perf_counter() - t0) * 1e3))
         served.append(logits)
-    launches = {k: m.launches for k, m in modules.items()}
+    launches = read_counts()
     print("launches while serving:", launches, flush=True)
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched while serving")
+    for name in ("K1", "K3", "K4"):
+        require(launches[name] > 0, f"{name} was not launched while serving")
+    require(launches["K2"] == 0, "K2 was launched while serving")
 
     for req, logits, (b, ms) in zip(requests, served, latencies):
         want = cpu_predictor.predict(req)
         got = logits.cpu()
         err = float((got - want).abs().max())
         top = float(want.abs().max())
-        with torch.inference_mode():
-            h_gpu = build_hierarchy(torch.from_numpy(req["points"]).to(dev),
-                                    torch.from_numpy(req["mask"]).to(dev), (0.1, 0.4))
-            h_cpu = build_hierarchy(torch.from_numpy(req["points"]),
-                                    torch.from_numpy(req["mask"]), (0.1, 0.4))
-        same_levels = all(
-            torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
-            for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:])
-        )
+        same_levels = same_hierarchy(req, dev)
         print(f"served batch of {b}: latency_ms={ms:.3f} logits={tuple(got.shape)} "
               f"max_abs_err_vs_cpu={err:.3e} max_abs_logit={top:.3e} "
               f"hierarchy_equal_to_cpu={same_levels}", flush=True)
@@ -264,7 +446,95 @@ def serve(dev) -> tuple[dict, list]:
         require(same_levels, "the card's hierarchy differs from the CPU plain path's")
         require(bool(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_RTOL * top)),
                 "served logits disagree with the CPU plain path")
-    return launches, latencies
+    return launches
+
+
+def check_train_step(dev, b: int) -> None:
+    """One full-width train step of ``b`` clouds on the card against the CPU
+    plain path."""
+    from mccnn_tpu_torch.models import MCClassS
+    from mccnn_tpu_torch.tasks.modelnet import make_loss
+    from mccnn_tpu_torch.train import batch_to_device, init_state, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(SEED + 2 + b)
+    batch = request(rng, b)
+    batch["labels"] = rng.integers(0, N_CLASSES, size=b).astype(np.int32)
+    require(same_hierarchy(batch, dev), "the card's training hierarchy differs from the CPU's")
+    model = MCClassS(N_CLASSES, grow=GROW, drop_rate=0.0,
+                     generator=torch.Generator().manual_seed(SEED))
+
+    def one_step(m, device):
+        m = m.to(device)
+        opt = make_optimizer(m.parameters())
+        init_state(m, opt, SEED)
+        step = make_train_step(m, opt, make_loss("MCClassS"))
+        t0 = time.perf_counter()
+        loss, _ = step(batch_to_device(batch, device))
+        loss = float(loss)  # waits for the device
+        ms = (time.perf_counter() - t0) * 1e3
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        stats = {n: b.detach().cpu() for n, b in m.named_buffers()}
+        return loss, grads, stats, ms
+
+    cpu_loss, cpu_grads, cpu_stats, cpu_ms = one_step(copy.deepcopy(model), "cpu")
+    loss, grads, stats, ms = one_step(model, dev)
+    top = max(float(g.abs().max()) for n, g in cpu_grads.items() if n not in ZERO_GRAD_PARAMS)
+    worst = (0.0, "")
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        if name in ZERO_GRAD_PARAMS:
+            require(float(got.abs().max()) < 1e-6 * top and float(want.abs().max()) < 1e-6 * top,
+                    f"train step: {name} should have a zero gradient")
+            continue
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / scale
+        worst = max(worst, (rel, name))
+        require(bool(torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_RTOL * scale)),
+                f"train step: the gradient of {name} disagrees with the CPU plain path "
+                f"({rel:.3e} of its largest value)")
+    worst_stat = (0.0, "")
+    for name, want in cpu_stats.items():
+        scale = float(want.abs().max())
+        rel = float((stats[name] - want).abs().max()) / max(scale, 1e-30)
+        worst_stat = max(worst_stat, (rel, name))
+        require(bool(torch.allclose(stats[name], want, rtol=STAT_RTOL, atol=STAT_RTOL * scale)),
+                f"train step: BN statistic {name} disagrees with the CPU plain path")
+    print(f"train step B={b}: loss={loss:.6f} cpu_loss={cpu_loss:.6f} "
+          f"worst_grad_rel_err={worst[0]:.3e} ({worst[1]}) "
+          f"worst_bn_stat_rel_err={worst_stat[0]:.3e} ({worst_stat[1]}) "
+          f"first_step_ms card={ms:.1f} cpu={cpu_ms:.1f}", flush=True)
+    require(abs(loss - cpu_loss) <= LOSS_RTOL * abs(cpu_loss), "train-step loss disagrees")
+
+
+def run_trainer() -> dict:
+    """``tasks.modelnet`` through its entry point, at the CLI's batch shape."""
+    from mccnn_tpu_torch.tasks import modelnet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--batch", str(TRAIN_B), "--points", str(N), "--n-classes", "40",
+                "--grow", "128", "--epochs", "1", "--steps-per-epoch", "4",
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck")]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = modelnet.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, "modelnet_MCClassS.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["tag"] == "train"]
+    require(len(train) == 1 and train[0]["steps"] == 4, f"trainer records: {recs}")
+    rec = train[0]
+    print(f"trainer (tasks.modelnet, B={TRAIN_B}, N={N}, grow=128, 40 classes, dropout 0.5): "
+          f"loss={rec['loss']:.6f} acc={rec['acc']:.4f} steps={rec['steps']} "
+          f"epoch_sec={rec['sec']} warm_step_ms={rec['warm_step_ms']:.3f} "
+          f"eval_accuracy={res['best_accuracy']:.4f} total_sec={seconds:.2f} "
+          f"launches={launches}", flush=True)
+    require(bool(np.isfinite(rec["loss"])), "the trainer's loss is not finite")
+    for name, count in launches.items():
+        require(count > 0, f"{name} was not launched while training")
+    return launches
 
 
 def main() -> int:
@@ -289,12 +559,20 @@ def main() -> int:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    results = check_kernels(dev)
-    launches, _ = serve(dev)
+    check_kernels(dev, SERVE_B)
+    results = check_kernels(dev, TRAIN_B)
+    check_backward(dev, SERVE_B)
+    results["K2"] = check_backward(dev, TRAIN_B)
+    serve_launches = serve(dev)
+    for b in (SERVE_B, TRAIN_B):
+        check_train_step(dev, b)
+    train_launches = run_trainer()
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
                "mccnn_tpu/ops/pallas/dense_conv.py:360"),
+        "K2": ("dense_mc_conv_backward", "mccnn_tpu_torch/csrc/dense_conv_bwd.cu",
+               "mccnn_tpu/ops/pallas/dense_conv.py:422"),
         "K3": ("poisson_sweep", "mccnn_tpu_torch/csrc/poisson_kernel.cu",
                "mccnn_tpu/ops/pallas/poisson_kernel.py:41"),
         "K4": ("kde_density", "mccnn_tpu_torch/csrc/density_kernel.cu",
@@ -303,15 +581,23 @@ def main() -> int:
     kernels = []
     for kid, (name, source, replaces) in meta.items():
         rows = results[kid]
+        bound_ms = sum(r[3] for r in rows)
+        by = max(rows, key=lambda r: r[3])[4]
+        lib_ms = [r[5] for r in rows]
         kernels.append({
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[kid],
+            "launches": train_launches[kid],
+            "launches_by_path": {"serve": serve_launches[kid], "train": train_launches[kid]},
+            "batch": TRAIN_B,
             "max_abs_err": max(r[0] for r in rows),
             "ms": sum(r[1] for r in rows),
             "plain_ms": sum(r[2] for r in rows),
+            "bound_ms": bound_ms,
+            "bound_by": by,
+            "library_ms": None if None in lib_ms else sum(lib_ms),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

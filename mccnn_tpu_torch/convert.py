@@ -14,6 +14,10 @@ module names:
 Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights are (out, in),
 so those are transposed. Any flax leaf left unused, and any torch parameter or
 buffer left unset, raises.
+
+``load_flax_train_state`` carries a whole JAX train state across (parameters,
+BN statistics, optax Adam's moments and count, the step), so that a JAX run
+can be resumed in the port.
 """
 
 from __future__ import annotations
@@ -95,3 +99,41 @@ def load_npz_variables(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return out
+
+
+@torch.no_grad()
+def load_flax_train_state(state, flax_state: dict) -> None:
+    """Load a JAX ``TrainState`` into the port's ``train.TrainState`` in place.
+
+    ``flax_state`` holds numpy arrays: ``params`` and ``batch_stats`` (nested
+    as in flax, BN ``count`` included), ``mu`` and ``nu`` (optax Adam's first
+    and second moments, nested like ``params``), ``count`` (Adam's step count)
+    and ``step``. The moments land in ``torch.optim.Adam``'s ``exp_avg`` /
+    ``exp_avg_sq`` of the matching parameters; the dropout generator keeps
+    its own state (``jax.random`` keys have no torch counterpart).
+    """
+    model, optimizer = state.model, state.optimizer
+    load_flax_variables(model, {"params": flax_state["params"],
+                                "batch_stats": flax_state["batch_stats"]})
+    index = {id(p): i for i, p in enumerate(optimizer.params)}
+    named = dict(model.named_parameters())
+    moments: dict[int, dict] = {}
+    for key in ("mu", "nu"):
+        for path, value in _flatten(flax_state[key]):
+            name, transpose = torch_name(path)
+            if name not in named:
+                raise KeyError(f"Adam {key} leaf {path} maps to {name!r}, not a parameter")
+            p = named[name]
+            value = value.T if transpose else value
+            if tuple(p.shape) != value.shape:
+                raise ValueError(f"Adam {key}/{path}: shape {value.shape} does not match "
+                                 f"{name} {tuple(p.shape)}")
+            slot = "exp_avg" if key == "mu" else "exp_avg_sq"
+            moments.setdefault(index[id(p)], {})[slot] = torch.tensor(value, dtype=p.dtype)
+    if len(moments) != len(optimizer.params) or any(len(m) != 2 for m in moments.values()):
+        raise KeyError("Adam moments must cover every parameter")
+    count = float(np.asarray(flax_state["count"]))
+    sd = optimizer.adam.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(count), **m} for i, m in moments.items()}
+    optimizer.adam.load_state_dict(sd)
+    optimizer.count = int(np.asarray(flax_state["step"]))

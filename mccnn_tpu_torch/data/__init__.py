@@ -1,1 +1,2 @@
-"""Host-side numpy helpers the serving path needs (see ``datasets.py``)."""
+"""Host-side numpy data pipeline (port of ``mccnn_tpu/data``): datasets,
+augmentation, sampling protocols, synthetic clouds."""

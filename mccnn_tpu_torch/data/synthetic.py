@@ -1,9 +1,7 @@
-"""Synthetic point clouds for smoke runs, numpy only.
+"""Synthetic point clouds for smoke runs, numpy only
+(port of ``mccnn_tpu/data/synthetic.py:13-72``).
 
-Duplicated from ``mccnn_tpu/data/synthetic.py:13-72`` only until
-``mccnn_tpu/data/datasets.py:33`` drops its JAX import (importing
-``mccnn_tpu.data`` pulls in JAX, which the port must not). Delete this copy
-when that lands.
+The port's own copy: it imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Models (port of ``mccnn_tpu/models``): MCClassS in this slice."""
+"""Models (port of ``mccnn_tpu/models``): MCClassS so far."""
 
 from .layers import BatchNormReluDropout, FullyConnected, MaskedBatchNorm, MCConv
 from .mcclass_s import MCClassS

@@ -1,11 +1,14 @@
 """Network building blocks (port of ``mccnn_tpu/models/layers.py``).
 
-Inference only in this slice: ``MaskedBatchNorm`` applies the running
-statistics with flax's eval formula and raises in training mode (the masked
-batch moments and the running-average update come with the training slice).
-Parameter names follow the flax modules (``kernel_w1`` ... on ``MCConv``,
-``scale`` / ``bias`` / ``mean`` / ``var`` on the BN) so that ``convert.py``
-maps a JAX checkpoint one to one.
+Train and eval follow ``nn.Module.train()`` / ``eval()`` where the flax
+modules take ``train``. Parameter names follow the flax modules
+(``kernel_w1`` ... on ``MCConv``, ``scale`` / ``bias`` / ``mean`` / ``var`` on
+the BN) so that ``convert.py`` maps a JAX checkpoint one to one.
+
+Dropout draws from an explicit ``torch.Generator`` that the trainer sets with
+``set_dropout_generator``; there is no global RNG, and a module in training
+mode with a nonzero rate and no generator raises. The draws differ from
+``jax.random``'s for the same seed (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -70,18 +73,25 @@ class MCConv(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm from running statistics: ``(x - mean) / sqrt(var + eps) * scale + bias``.
+    """BatchNorm over the (batch, point) axes that ignores padded points
+    (``mccnn_tpu/models/layers.py:171-229``).
 
-    Written by hand rather than ``nn.BatchNorm1d``, whose running-variance
-    update (unbiased) differs from the reference's. Serves both the
-    reference's ``MaskedBatchNorm`` and flax ``nn.BatchNorm`` (same eval
-    formula). ``schedule_steps`` adds the reference's ``count`` statistic.
+    Training mode normalises with the masked batch mean and the biased masked
+    variance (two-pass) and updates the running statistics as
+    ``m * running + (1 - m) * batch``, with flax's ``momentum`` convention
+    (0.9 keeps 90% of the old value; torch's ``BatchNorm1d`` would call that
+    0.1 and update with the unbiased variance). ``schedule_steps`` turns on
+    the reference's decaying momentum ``min(0.99, 1 - 0.5 * 0.5^(count /
+    schedule_steps))`` with its ``count`` buffer. Eval mode applies the running
+    statistics, as flax's eval formula.
     """
 
     EPSILON = 1e-5  # the reference's and flax's default
 
-    def __init__(self, num_features: int, schedule_steps: int | None = None):
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 schedule_steps: int | None = None):
         super().__init__()
+        self.momentum, self.schedule_steps = momentum, schedule_steps
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -89,40 +99,120 @@ class MaskedBatchNorm(nn.Module):
         if schedule_steps:
             self.register_buffer("count", torch.zeros(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def batch_moments(self, xf: torch.Tensor, m: torch.Tensor):
+        """Masked mean and biased two-pass variance of ``xf (rows, C)``."""
+        n = m.sum().clamp_min(1.0)
+        mean = (xf * m).sum(0) / n
+        var = ((xf - mean) ** 2 * m).sum(0) / n
+        return mean, var
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm has eval semantics only; training mode comes "
-                "with the training slice"
-            )
-        y = (x - self.mean) / torch.sqrt(self.var + self.EPSILON)
+            c = x.shape[-1]
+            xf = x.reshape(-1, c)
+            if mask is None:
+                m = torch.ones_like(xf[:, :1])
+            else:
+                m = mask.reshape(-1, 1).to(x.dtype)
+            mean, var = self.batch_moments(xf, m)
+            with torch.no_grad():
+                if self.schedule_steps:
+                    mom = torch.clamp(
+                        1.0 - 0.5 * 0.5 ** (self.count / self.schedule_steps), max=0.99
+                    )
+                    self.count.add_(1.0)
+                else:
+                    mom = self.momentum
+                self.mean.copy_(mom * self.mean + (1 - mom) * mean)
+                self.var.copy_(mom * self.var + (1 - mom) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) / torch.sqrt(var + self.EPSILON)
         return y * self.scale + self.bias
 
 
-class BatchNormReluDropout(nn.Module):
-    """BN -> ReLU -> (dropout, a no-op at inference) -> zero the padded points."""
+class HeadBatchNorm(MaskedBatchNorm):
+    """flax ``nn.BatchNorm`` over unpadded rows: the head's BN when no momentum
+    schedule is set (``mccnn_tpu/models/layers.py:253-256``).
 
-    def __init__(self, num_features: int, schedule_steps: int | None = None):
+    flax 0.12 computes the batch variance in one pass, ``mean(x^2) -
+    mean(x)^2`` clamped at 0 (``use_fast_variance``), where the conv BN's
+    ``MaskedBatchNorm`` takes the two-pass ``mean((x - mean)^2)``; the two
+    round differently, so each BN keeps its reference's formula.
+    """
+
+    def batch_moments(self, xf: torch.Tensor, m: torch.Tensor):
+        mean = xf.mean(0)
+        var = (xf.square().mean(0) - mean.square()).clamp_min(0.0)
+        return mean, var
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)``; the identity in eval mode."""
+
+    def __init__(self, rate: float):
         super().__init__()
-        self.bn = MaskedBatchNorm(num_features, schedule_steps=schedule_steps)
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in training mode needs a generator: call "
+                "models.layers.set_dropout_generator(model, generator)"
+            )
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator) -> None:
+    """Point every ``Dropout`` of ``model`` at ``generator`` (on the model's
+    device); the trainer owns and checkpoints it."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class BatchNormReluDropout(nn.Module):
+    """BN -> ReLU -> dropout -> zero the padded points."""
+
+    def __init__(self, num_features: int, drop_rate: float = 0.0, momentum: float = 0.9,
+                 schedule_steps: int | None = None):
+        super().__init__()
+        self.bn = MaskedBatchNorm(num_features, momentum=momentum,
+                                  schedule_steps=schedule_steps)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn(x))
+        x = self.dropout(torch.relu(self.bn(x, mask)))
         return torch.where(mask[..., None], x, 0.0)
 
 
 class FullyConnected(nn.Module):
-    """Dense -> BN -> ReLU head block. The weight is torch's (out, in)
-    layout; ``convert.py`` transposes flax's (in, out) kernels."""
+    """Dense -> BN -> ReLU -> dropout head block. The weight is torch's
+    (out, in) layout; ``convert.py`` transposes flax's (in, out) kernels. The
+    BN is ``HeadBatchNorm`` (flax ``nn.BatchNorm``) without a momentum
+    schedule and ``MaskedBatchNorm`` with one, as in the reference."""
 
-    def __init__(self, in_features: int, features: int, schedule_steps: int | None = None,
+    def __init__(self, in_features: int, features: int, drop_rate: float = 0.0,
+                 momentum: float = 0.9, schedule_steps: int | None = None,
                  *, generator: torch.Generator | None = None):
         super().__init__()
         self.dense = dense_layer(in_features, features, generator)
-        self.bn = MaskedBatchNorm(features, schedule_steps=schedule_steps)
+        if schedule_steps:
+            self.bn = MaskedBatchNorm(features, schedule_steps=schedule_steps)
+        else:
+            self.bn = HeadBatchNorm(features, momentum=momentum)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.dense(x)))
+        return self.dropout(torch.relu(self.bn(self.dense(x))))
 
 
 def dense_layer(in_features: int, features: int, generator=None) -> nn.Linear:

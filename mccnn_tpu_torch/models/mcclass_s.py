@@ -3,7 +3,11 @@
 
 A three-level Poisson hierarchy (radii 0.1 / 0.4 / global), a chain of full
 MC convs (width grow -> 2 grow -> 8 grow) each followed by BN + ReLU, then an
-FC head to the class logits. Inference only in this slice.
+FC head with dropout to the class logits. ``model.train()`` /
+``model.eval()`` take the place of the flax module's ``train`` argument; in
+training the BNs use batch moments and update their running statistics, and
+the head's dropout draws from the generator set by
+``layers.set_dropout_generator``.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ class MCClassS(nn.Module):
     """Constructor fields and defaults follow the flax module. Two differ in
     kind: ``in_features`` (flax infers the input width at init; default 1,
     the all-ones features) and ``generator`` (the seeded initialiser).
-    ``neighbor_k``, ``drop_rate`` and ``bn_momentum`` are K-capacity or
-    training knobs: kept for parity, not read by the dense inference path.
-    ``bn_schedule_steps`` adds the BN ``count`` statistic a checkpoint holds."""
+    ``neighbor_k`` sizes the reference's K-capacity conv, which the port's
+    dense conv does not have: kept for parity, not read. ``drop_rate`` is the
+    head's dropout, ``bn_momentum`` the BNs' running-average momentum, and
+    ``bn_schedule_steps`` the decaying-momentum schedule (with the BN
+    ``count`` statistic a checkpoint holds)."""
 
     def __init__(
         self,
@@ -55,9 +61,10 @@ class MCClassS(nn.Module):
                 c_in, w, use_pdf=use_pdf, generator=generator
             )
             self.bn_relus.append(
-                BatchNormReluDropout(w, schedule_steps=bn_schedule_steps)
+                BatchNormReluDropout(w, momentum=bn_momentum, schedule_steps=bn_schedule_steps)
             )
-        fc_kw = dict(schedule_steps=bn_schedule_steps, generator=generator)
+        fc_kw = dict(drop_rate=drop_rate, momentum=bn_momentum,
+                     schedule_steps=bn_schedule_steps, generator=generator)
         self.fcs = nn.ModuleList(
             [FullyConnected(8 * g, 4 * g, **fc_kw), FullyConnected(4 * g, g, **fc_kw)]
         )

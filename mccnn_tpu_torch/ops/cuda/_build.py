@@ -1,7 +1,8 @@
 """Builds the package's CUDA kernels and binds them with ``ctypes``.
 
 At first use, ``nvcc`` compiles every ``mccnn_tpu_torch/csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface. The library
+``sm_90a`` (one ``nvcc`` process per source, all started together) and links
+the objects into one shared library with a plain C interface. The library
 lands in ``mccnn_tpu_torch/build/`` (git-ignored) under a name that carries a
 hash of the sources and flags, so an edited source always rebuilds. It is
 loaded with ``ctypes``: every pointer and the stream are ``c_void_p``, every
@@ -32,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -47,6 +48,13 @@ SIGNATURES = {
     "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
     "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P],
     "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],
+    "mcconv_bwd_pair_blocks": [I, I, I],
+    "mcconv_bwd_pair_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
+    "mcconv_bwd_dg_full_launch": [P, P, P, I, I, I, I, P, P],
+    "mcconv_bwd_dw2_full_launch": [P, P, I, I, I, I, I, P, P],
+    "mcconv_bwd_dg_depthwise_launch": [P, P, P, I, I, I, P, P],
+    "mcconv_bwd_dw2_depthwise_launch": [P, P, I, I, I, I, I, P, P],
+    "mcconv_bwd_reduce_launch": [P, I, I, P, P],
 }
 
 
@@ -107,26 +115,41 @@ def library() -> KernelLibrary:
     with _LOCK:
         if _LIBRARY is not None:
             return _LIBRARY
-        srcs = _sources()
         out = os.path.join(BUILD_DIR, f"libmccnn_kernels_{_digest()}.so")
         log, seconds = "", 0.0
         if not os.path.exists(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs],
-                capture_output=True, text=True,
-            )
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                log = _compile_and_link(_nvcc(), _sources(), tmp, out)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, out)
         _LIBRARY = KernelLibrary(out, seconds, log)
         return _LIBRARY
+
+
+def _compile_and_link(nvcc: str, srcs: list[str], tmp: str, out: str) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link; every
+    process is waited for before a failure raises. Returns nvcc's output."""
+    objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [s for s, p in zip(srcs, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {[os.path.basename(s) for s in failed]}:\n{log}")
+    lib = os.path.join(tmp, "lib.so")
+    proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    os.replace(lib, out)
+    return log
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

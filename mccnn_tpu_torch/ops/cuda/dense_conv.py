@@ -1,20 +1,28 @@
-"""K1: the dense Monte-Carlo convolution, forward — CUDA wrapper and plain version.
+"""K1 and K2: the dense Monte-Carlo convolution, forward and backward — CUDA
+wrappers, plain versions and the autograd Function that joins them.
 
-Replaces ``mccnn_tpu/ops/pallas/dense_conv.py::_fwd_kernel_b`` (reached
+K1 replaces ``mccnn_tpu/ops/pallas/dense_conv.py::_fwd_kernel_b`` (reached
 through ``_fwd_call_b`` and ``dense_mc_conv``), with the same value as the
 reference's ``dense_mc_conv`` (``dense_conv.py:803-866``): every valid source
-within ``radius`` of a sample contributes, with no neighbour capacity.
+within ``radius`` of a sample contributes, with no neighbour capacity. K2
+replaces its backward, ``_bwd_kernel_b`` (``:422``, called at ``:693`` from the
+``custom_vjp`` at ``:747-792``).
 
-The kernels are ``mccnn_tpu_torch/csrc/dense_conv.cu``. Unlike the TPU
-kernel, which folds W2 into the features before its one wide MXU product,
-they contract over the neighbours first (the bilinear factorisation of
-``mccnn_tpu/core/mcconv.py:98-126``): a pair kernel forms
-``G[b,i,h,c] = sum_j a_h(i,j) f~[b,j,c]`` and a projection kernel applies
-(W2, b2). Stage 1 is bound by pair-plane arithmetic, stage 2 is a small fp32
-GEMM (see the source's header). Everything is fp32.
+The kernels are ``mccnn_tpu_torch/csrc/dense_conv.cu`` (K1) and
+``dense_conv_bwd.cu`` (K2). Unlike the TPU kernel, which folds W2 into the
+features before its one wide MXU product, K1 contracts over the neighbours
+first (the bilinear factorisation of ``mccnn_tpu/core/mcconv.py:98-126``): a
+pair kernel forms ``G[b,i,h,c] = sum_j a_h(i,j) f~[b,j,c]`` and a projection
+kernel applies (W2, b2). The forward keeps G for the backward, whose GEMM
+parts (dG, dW2) and pair parts (d_f~, dW1, db1) split the same way (see the
+sources' headers). Everything is fp32.
 
-Forward only: the backward kernel (K2) comes with the training slice, so the
-CUDA wrapper raises when autograd would have to record it.
+``dense_mc_conv`` routes through ``DenseMCConvFunction`` on both devices:
+K1 / K2 for CUDA tensors, the plain versions for CPU tensors. The Function
+differentiates with respect to the weighted features ``f~ = features / pdf``
+and the kernel MLP; ``features / pdf`` stays outside it, so autograd carries
+``d_f~`` on to the features. Positions, masks and the pdf get no gradient
+through the Function, as the reference's ``_core_bwd`` returns zeros for them.
 """
 
 from __future__ import annotations
@@ -25,11 +33,13 @@ from ...core.grid import pair_d2, radius_sq
 from ...core.mcconv import MCConvParams
 from . import _build
 
-MAX_C = 1024  # the pair kernel keeps TS * C <= 1024 outputs of G per block
-HIDDEN = 8  # the pair kernel's accumulators are unrolled for H = 8
+MAX_C = 1024  # the pair kernels keep TS * C <= 1024 outputs per block
+HIDDEN = 8  # the pair kernels' accumulators are unrolled for H = 8
+_TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
 
-# Launches of the CUDA kernels since the last reset (see density_kernel.py).
+# Launches of K1 and of K2 since the last reset (see density_kernel.py).
 launches = 0
+backward_launches = 0
 
 
 def _weighted_features(features, pdf, source_mask):
@@ -38,9 +48,42 @@ def _weighted_features(features, pdf, source_mask):
 
 
 def _scale(cnt, sample_mask, mean_normalize):
-    """Per-sample output factor: 1/count in mean mode, 0 for masked samples."""
+    """Per-sample output factor: 1/count in mean mode, 0 for masked samples.
+    The backward scales ``dout`` by the same factor (``dense_conv.py:770-773``:
+    ``1/cnt`` where ``cnt >= 1``, and a sample with no neighbour has G = 0)."""
     s = 1.0 / cnt.clamp_min(1.0) if mean_normalize else torch.ones_like(cnt)
     return torch.where(sample_mask, s, 0.0)
+
+
+def _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius):
+    return (
+        (pair_d2(sample_pts, source_pts) <= radius_sq(radius))
+        & source_mask[:, None, :]
+        & sample_mask[:, :, None]
+    )  # (B, M, N)
+
+
+def _offsets(sample_pts, source_pts, radius):
+    return (source_pts[:, None, :, :] - sample_pts[:, :, None, :]) / radius  # (B, M, N, 3)
+
+
+def _forward_reference(params, sample_pts, sample_mask, source_pts, source_mask, wf,
+                       radius, c_out, mean_normalize):
+    """Plain forward from the weighted features: ``(out, cnt, G)``."""
+    H = params.w1.shape[1]
+    inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
+    act = torch.relu(_offsets(sample_pts, source_pts, radius) @ params.w1 + params.b1)
+    a = torch.cat([act, torch.ones_like(act[..., :1])], dim=-1) * inr[..., None]
+    G = torch.einsum("bmnh,bnc->bmhc", a, wf)  # (B, M, H+1, C)
+    cnt = inr.sum(dim=-1).to(wf.dtype)
+    if c_out is None:
+        out = (G[:, :, :H] * params.w2).sum(dim=2) + G[:, :, H] * params.b2
+    else:
+        B, M, _, C = G.shape
+        out = G[:, :, :H].reshape(B, M, H * C) @ params.w2.reshape(H * C, c_out)
+        out = out + G[:, :, H] @ params.b2.reshape(C, c_out)
+    out = out * _scale(cnt, sample_mask, mean_normalize)[..., None]
+    return out, cnt, G
 
 
 def dense_mc_conv_reference(
@@ -57,81 +100,47 @@ def dense_mc_conv_reference(
     mean_normalize: bool = False,
     with_count: bool = False,
 ):
-    """Plain PyTorch version: the same neighbours-first contraction, all pairs.
+    """Plain PyTorch version of K1: the same neighbours-first contraction, all pairs.
 
     Returns ``out (B, M, C | c_out)``, and the in-radius count ``(B, M)`` when
     ``with_count``.
     """
-    H = params.w1.shape[1]
     wf = _weighted_features(features, pdf, source_mask)
-    inr = (
-        (pair_d2(sample_pts, source_pts) <= radius_sq(radius))
-        & source_mask[:, None, :]
-        & sample_mask[:, :, None]
-    )  # (B, M, N)
-    off = (source_pts[:, None, :, :] - sample_pts[:, :, None, :]) / radius
-    act = torch.relu(off @ params.w1 + params.b1)  # (B, M, N, H)
-    a = torch.cat([act, torch.ones_like(act[..., :1])], dim=-1) * inr[..., None]
-    G = torch.einsum("bmnh,bnc->bmhc", a, wf)  # (B, M, H+1, C)
-    cnt = inr.sum(dim=-1).to(features.dtype)
-    if c_out is None:
-        out = (G[:, :, :H] * params.w2).sum(dim=2) + G[:, :, H] * params.b2
-    else:
-        B, M, _, C = G.shape
-        out = G[:, :, :H].reshape(B, M, H * C) @ params.w2.reshape(H * C, c_out)
-        out = out + G[:, :, H] @ params.b2.reshape(C, c_out)
-    out = out * _scale(cnt, sample_mask, mean_normalize)[..., None]
+    out, cnt, _ = _forward_reference(params, sample_pts, sample_mask, source_pts,
+                                     source_mask, wf, radius, c_out, mean_normalize)
     return (out, cnt) if with_count else out
 
 
-def dense_mc_conv_cuda(
-    params: MCConvParams,
-    sample_pts: torch.Tensor,
-    sample_mask: torch.Tensor,
-    source_pts: torch.Tensor,
-    source_mask: torch.Tensor,
-    features: torch.Tensor,
-    pdf: torch.Tensor,
-    radius: float,
-    *,
-    c_out: int | None = None,
-    mean_normalize: bool = False,
-    with_count: bool = False,
-):
-    """Launch K1 (pair kernel + projection kernel) on CUDA tensors."""
+def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
+                  c_out, mean_normalize):
+    """Launch K1 (pair kernel + projection kernel): ``(out, cnt, G)``."""
     global launches
-    tensors = (*params, sample_pts, source_pts, features, pdf)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "dense_mc_conv_cuda is forward only: its backward kernel (K2) comes "
-            "with the training slice. Call it under torch.inference_mode()."
-        )
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
     source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
-    wf = _weighted_features(features, pdf, source_mask).contiguous()
+    wf = wf.contiguous()
     _build.require_cuda(
-        "dense_mc_conv_cuda", sample_pts, sample_mask, source_pts, source_mask, wf,
+        "dense_mc_conv (K1)", sample_pts, sample_mask, source_pts, source_mask, wf,
         w1, b1, w2, b2,
     )
     if any(t.dtype != torch.float32 for t in (sample_pts, source_pts, wf, w1, b1, w2, b2)):
-        raise TypeError("dense_mc_conv_cuda: positions, features and params must be float32")
+        raise TypeError("dense_mc_conv (K1): positions, features and params must be float32")
     B, M, _ = sample_pts.shape
     N = source_pts.shape[1]
     C = wf.shape[-1]
     H = w1.shape[1]
     if H != HIDDEN or C > MAX_C:
         raise NotImplementedError(
-            f"dense_mc_conv_cuda is built for H={HIDDEN} and C<={MAX_C}; got H={H}, C={C}"
+            f"K1 is built for H={HIDDEN} and C<={MAX_C}; got H={H}, C={C}"
         )
     dev = sample_pts.device
     out = torch.zeros((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
     cnt = torch.zeros((B, M), dtype=torch.float32, device=dev)
     if B * M == 0 or N == 0:
-        return (out, cnt) if with_count else out
+        return out, cnt, torch.zeros((B, M, H + 1, C), dtype=torch.float32, device=dev)
+    G = torch.empty((B, M, H + 1, C), dtype=torch.float32, device=dev)
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
-    G = torch.empty((B, M, H + 1, C), dtype=torch.float32, device=dev)
     err = lib.mcconv_pair_launch(
         _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
         _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
@@ -152,15 +161,221 @@ def dense_mc_conv_cuda(
         )
     _build.check(err, "mcconv_project_kernel")
     launches += 1
-    return (out, cnt) if with_count else out
+    return out, cnt, G
+
+
+# ------------------------------------------------------------------ backward
+
+
+def dense_mc_conv_backward_reference(
+    params: MCConvParams,
+    sample_pts: torch.Tensor,
+    sample_mask: torch.Tensor,
+    source_pts: torch.Tensor,
+    source_mask: torch.Tensor,
+    wf: torch.Tensor,
+    radius: float,
+    G: torch.Tensor,
+    cnt: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    c_out: int | None = None,
+    mean_normalize: bool = False,
+):
+    """Plain PyTorch version of K2.
+
+    From the forward's inputs (``wf`` = the weighted features), its ``G (B, M,
+    H+1, C)`` and count, and ``dout (B, M, C | c_out)``, returns ``(d_wf (B, N,
+    C), dw1 (3, H), db1 (H,), dw2, db2)`` in the shapes of ``MCConvParams``.
+    """
+    w1, b1, w2, b2 = params
+    H = w1.shape[1]
+    B, M, H1, C = G.shape
+    t = dout * _scale(cnt, sample_mask, mean_normalize)[..., None]
+    if c_out is None:
+        dG = torch.cat([t[:, :, None, :] * w2, (t * b2)[:, :, None, :]], dim=2)
+        dw2 = (G[:, :, :H] * t[:, :, None, :]).sum(dim=(0, 1))
+        db2 = (G[:, :, H] * t).sum(dim=(0, 1))
+    else:
+        wcat = torch.cat([w2.reshape(H * C, c_out), b2.reshape(C, c_out)])
+        tr = t.reshape(B * M, c_out)
+        dG = (tr @ wcat.T).reshape(B, M, H1, C)
+        dwcat = G.reshape(B * M, H1 * C).T @ tr
+        dw2 = dwcat[: H * C].reshape(w2.shape)
+        db2 = dwcat[H * C :].reshape(b2.shape)
+    inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
+    off = _offsets(sample_pts, source_pts, radius)
+    pre = off @ w1 + b1  # (B, M, N, H)
+    a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
+    d_wf = torch.einsum("bmnh,bmhc->bnc", a, dG)
+    dpre = torch.einsum("bmhc,bnc->bmnh", dG[:, :, :H], wf)
+    dpre = torch.where((pre > 0) & inr[..., None], dpre, 0.0)  # the step at pre == 0 is 0
+    dw1 = torch.einsum("bmnh,bmnk->kh", dpre, off)
+    db1 = dpre.sum(dim=(0, 1, 2))
+    return d_wf, dw1, db1, dw2, db2
+
+
+def _split_rows(R: int, tiles: int) -> tuple[int, int]:
+    """(chunks, rows per chunk) of a row-split reduction: enough blocks to
+    fill the card, at least 128 rows per chunk."""
+    splits = max(1, min(-(-R // 128), -(-_TARGET_BLOCKS // max(tiles, 1))))
+    rchunk = -(-R // splits)
+    rchunk = -(-rchunk // 16) * 16
+    return -(-R // rchunk), rchunk
+
+
+def dense_mc_conv_backward_cuda(
+    params: MCConvParams,
+    sample_pts: torch.Tensor,
+    sample_mask: torch.Tensor,
+    source_pts: torch.Tensor,
+    source_mask: torch.Tensor,
+    wf: torch.Tensor,
+    radius: float,
+    G: torch.Tensor,
+    cnt: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    c_out: int | None = None,
+    mean_normalize: bool = False,
+):
+    """Launch K2 on CUDA tensors; the arguments and outputs of the plain version."""
+    global backward_launches
+    w1, b1, w2, b2 = (t.contiguous() for t in params)
+    sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
+    source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
+    wf, G = wf.contiguous(), G.contiguous()
+    t = (dout * _scale(cnt, sample_mask, mean_normalize)[..., None]).contiguous()
+    _build.require_cuda(
+        "dense_mc_conv_backward_cuda", sample_pts, sample_mask, source_pts, source_mask,
+        wf, w1, b1, w2, b2, G, t,
+    )
+    if any(x.dtype != torch.float32 for x in (sample_pts, source_pts, wf, w1, b1, w2, b2, G, t)):
+        raise TypeError("dense_mc_conv_backward_cuda: positions, features, params, G "
+                        "and dout must be float32")
+    B, M, _ = sample_pts.shape
+    N = source_pts.shape[1]
+    H = w1.shape[1]
+    C = wf.shape[-1]
+    H1 = H + 1
+    CO = C if c_out is None else c_out
+    if H != HIDDEN or C > MAX_C:
+        raise NotImplementedError(
+            f"dense_mc_conv_backward_cuda is built for H={HIDDEN} and C<={MAX_C}; "
+            f"got H={H}, C={C}"
+        )
+    if tuple(G.shape) != (B, M, H1, C) or tuple(t.shape) != (B, M, CO):
+        raise ValueError(f"dense_mc_conv_backward_cuda: G {tuple(G.shape)} / dout "
+                         f"{tuple(t.shape)} do not match B={B}, M={M}, C={C}, CO={CO}")
+    dev = sample_pts.device
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    d_wf = zeros(B, N, C)
+    dw1, db1 = zeros(3, H), zeros(H)
+    dwcat = zeros(H1 * C * CO) if c_out is not None else zeros(H1, C)
+    if B * M == 0 or N == 0:
+        return d_wf, dw1, db1, *_split_wcat(dwcat, H, C, c_out, w2, b2)
+    lib = _build.library()
+    stream = _build.stream_of(sample_pts)
+    R = B * M
+
+    dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
+    if c_out is None:
+        err = lib.mcconv_bwd_dg_depthwise_launch(
+            _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, H, C, _build.ptr(dG), stream)
+        _build.check(err, "mcconv_bwd_dg_depthwise_kernel")
+        splits, rchunk = _split_rows(R, -(-H1 * C // 256))
+        part = dwcat if splits == 1 else torch.empty(
+            (splits, H1, C), dtype=torch.float32, device=dev)
+        err = lib.mcconv_bwd_dw2_depthwise_launch(
+            _build.ptr(G), _build.ptr(t), R, H1, C, splits, rchunk, _build.ptr(part), stream)
+        _build.check(err, "mcconv_bwd_dw2_depthwise_kernel")
+        L = H1 * C
+    else:
+        err = lib.mcconv_bwd_dg_full_launch(
+            _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, CO, H * C, H1 * C,
+            _build.ptr(dG), stream)
+        _build.check(err, "mcconv_bwd_dg_full_kernel")
+        splits, rchunk = _split_rows(R, -(-H1 * C // 64) * -(-CO // 64))
+        part = dwcat if splits == 1 else torch.empty(
+            (splits, H1 * C * CO), dtype=torch.float32, device=dev)
+        err = lib.mcconv_bwd_dw2_full_launch(
+            _build.ptr(G), _build.ptr(t), R, H1 * C, CO, splits, rchunk, _build.ptr(part),
+            stream)
+        _build.check(err, "mcconv_bwd_dw2_full_kernel")
+        L = H1 * C * CO
+    if splits > 1:
+        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), splits, L, _build.ptr(dwcat),
+                                           stream)
+        _build.check(err, "mcconv_bwd_reduce_kernel (dW2)")
+
+    blocks = lib.mcconv_bwd_pair_blocks(N, M, C)
+    if blocks <= 0:
+        raise ValueError(f"dense_mc_conv_backward_cuda: refused shape N={N}, M={M}, C={C}")
+    pair_part = torch.empty((B * blocks, 4, H), dtype=torch.float32, device=dev)
+    err = lib.mcconv_bwd_pair_launch(
+        _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
+        _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
+        _build.ptr(dG), B, M, N, C, H, radius_sq(radius), float(radius), _build.ptr(d_wf),
+        _build.ptr(pair_part), stream,
+    )
+    _build.check(err, "mcconv_bwd_pair_kernel")
+    w1b1 = zeros(4, H)
+    err = lib.mcconv_bwd_reduce_launch(_build.ptr(pair_part), B * blocks, 4 * H,
+                                       _build.ptr(w1b1), stream)
+    _build.check(err, "mcconv_bwd_reduce_kernel (dW1, db1)")
+    backward_launches += 1
+    return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+def _split_wcat(dwcat, H, C, c_out, w2, b2):
+    """(dw2, db2) in the shapes of w2 and b2, from the stacked ``[dW2; db2]``."""
+    if c_out is None:
+        return dwcat[:H].reshape(w2.shape), dwcat[H].reshape(b2.shape)
+    flat = dwcat.reshape(-1)
+    return flat[: H * C * c_out].reshape(w2.shape), flat[H * C * c_out :].reshape(b2.shape)
+
+
+# ------------------------------------------------------------------ autograd
+
+
+class DenseMCConvFunction(torch.autograd.Function):
+    """``(w1, b1, w2, b2, wf) -> (out, cnt)``: K1 forward and K2 backward on
+    CUDA tensors, the plain versions on CPU tensors. ``cnt`` has no gradient."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts, source_mask,
+                radius, c_out, mean_normalize):
+        params = MCConvParams(w1, b1, w2, b2)
+        fwd = _forward_reference if wf.device.type == "cpu" else _forward_cuda
+        out, cnt, G = fwd(params, sample_pts, sample_mask, source_pts, source_mask, wf,
+                          radius, c_out, mean_normalize)
+        ctx.save_for_backward(w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts,
+                              source_mask, G, cnt)
+        ctx.conv = (radius, c_out, mean_normalize)
+        ctx.mark_non_differentiable(cnt)
+        return out, cnt
+
+    @staticmethod
+    def backward(ctx, dout, _dcnt):
+        w1, b1, w2, b2, wf, smp, qmask, src, smask, G, cnt = ctx.saved_tensors
+        radius, c_out, mean = ctx.conv
+        bwd = (dense_mc_conv_backward_reference if wf.device.type == "cpu"
+               else dense_mc_conv_backward_cuda)
+        d_wf, dw1, db1, dw2, db2 = bwd(
+            MCConvParams(w1, b1, w2, b2), smp, qmask, src, smask, wf, radius, G, cnt,
+            dout, c_out=c_out, mean_normalize=mean,
+        )
+        return dw1, db1, dw2, db2, d_wf, None, None, None, None, None, None, None
 
 
 def dense_mc_conv(params, sample_pts, sample_mask, source_pts, source_mask,
                   features, pdf, radius, *, c_out=None, mean_normalize=False,
                   with_count=False):
-    """CPU tensor -> plain version; CUDA tensor -> K1."""
-    fn = dense_mc_conv_reference if sample_pts.device.type == "cpu" else dense_mc_conv_cuda
-    return fn(
-        params, sample_pts, sample_mask, source_pts, source_mask, features, pdf,
-        radius, c_out=c_out, mean_normalize=mean_normalize, with_count=with_count,
+    """The dense MC conv, differentiable: CPU tensor -> plain versions, CUDA
+    tensor -> K1 forward and K2 backward."""
+    wf = _weighted_features(features, pdf, source_mask)
+    out, cnt = DenseMCConvFunction.apply(
+        *params, wf, sample_pts, sample_mask, source_pts, source_mask, float(radius),
+        c_out, mean_normalize,
     )
+    return (out, cnt) if with_count else out

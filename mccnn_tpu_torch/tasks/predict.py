@@ -20,12 +20,11 @@ import os
 import numpy as np
 import torch
 
-from mccnn_tpu.utils import io as pcio  # JAX-free host IO of the reference
-
 from ..convert import load_flax_variables, load_npz_variables
 from ..data.datasets import _normalize_np, pad_points
 from ..models import MCClassS
 from ..serve import Predictor
+from ..utils import io as pcio
 
 
 def read_cloud(path: str) -> np.ndarray:

@@ -1,0 +1,21 @@
+"""Training: losses, optimizer, train state and step, metrics, checkpoints
+(port of ``mccnn_tpu/train``)."""
+
+from .losses import accuracy, classification_loss
+from .state import (
+    TrainState,
+    batch_to_device,
+    init_state,
+    make_optimizer,
+    make_train_step,
+)
+
+__all__ = [
+    "TrainState",
+    "accuracy",
+    "batch_to_device",
+    "classification_loss",
+    "init_state",
+    "make_optimizer",
+    "make_train_step",
+]

@@ -68,24 +68,70 @@ def test_conv_kernel_matches_plain(cuda, c_in, c_out, mean):
     pdf = (torch.rand((2, 200), generator=g) + 0.5).to(cuda)
     args = (params, smp, qmask, src, smask, feats, pdf, 0.3)
     kw = dict(c_out=c_out, mean_normalize=mean, with_count=True)
-    with torch.inference_mode():
-        got, gcnt = dense_conv.dense_mc_conv_cuda(*args, **kw)
+    before = dense_conv.launches
+    with torch.no_grad():
+        got, gcnt = dense_conv.dense_mc_conv(*args, **kw)
         want, wcnt = dense_conv.dense_mc_conv_reference(*args, **kw)
+    assert dense_conv.launches == before + 1
     assert torch.equal(gcnt, wcnt)
     scale = float(want.abs().max())
     # fp32 sums over neighbours and channels in another order than cuBLAS's
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
 
 
+def _k2_inputs(device, c_in, c_out):
+    src, smask = cloud(2, N=200, device=device)
+    smp, qmask = cloud(3, N=70, masked=5, device=device)
+    g = torch.Generator().manual_seed(4)
+    params = init_mcconv_params(g, c_in, c_out, device=device)
+    params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device))
+    feats = torch.randn((2, 200, c_in), generator=g).to(device)
+    pdf = (torch.rand((2, 200), generator=g) + 0.5).to(device)
+    dout = torch.randn((2, 70, c_in if c_out is None else c_out), generator=g).to(device)
+    return params, smp, qmask, src, smask, feats, pdf, dout
+
+
 @pytest.mark.cuda
-def test_conv_kernel_refuses_autograd(cuda):
-    src, smask = cloud(5, N=32, device=cuda)
-    params = init_mcconv_params(torch.Generator().manual_seed(0), 2, 2, device=cuda)
-    params = params._replace(w1=params.w1.requires_grad_())
-    feats = torch.ones((2, 32, 2), device=cuda)
-    with pytest.raises(RuntimeError, match="forward only"):
-        dense_conv.dense_mc_conv_cuda(params, src, smask, src, smask, feats,
-                                      torch.ones_like(feats[..., 0]), 0.3, c_out=2)
+@pytest.mark.parametrize("c_in,c_out,mean", [(1, 16, False), (8, 4, True), (8, None, False),
+                                             (8, None, True), (300, 2, False)])
+def test_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean):
+    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, c_in, c_out)
+    wf = dense_conv._weighted_features(feats, pdf, smask)
+    _, cnt, G = dense_conv._forward_reference(params, smp, qmask, src, smask, wf, 0.3,
+                                              c_out, mean)
+    args = (params, smp, qmask, src, smask, wf, 0.3, G, cnt, dout)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    got = dense_conv.dense_mc_conv_backward_cuda(*args, **kw)
+    again = dense_conv.dense_mc_conv_backward_cuda(*args, **kw)
+    want = dense_conv.dense_mc_conv_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two calls differ"  # no atomics
+        scale = float(w.abs().max())
+        # fp32 sums over pairs and channels in another order than the plain version's
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * scale, msg=name)
+
+
+@pytest.mark.cuda
+def test_conv_autograd_runs_k1_and_k2(cuda):
+    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, 8, 4)
+
+    def grads(device):
+        p = [t.detach().to(device).requires_grad_() for t in params]
+        f = feats.detach().to(device).requires_grad_()
+        out = dense_conv.dense_mc_conv(
+            type(params)(*p), smp.to(device), qmask.to(device), src.to(device),
+            smask.to(device), f, pdf.to(device), 0.3, c_out=4)
+        (out * dout.to(device)).sum().backward()
+        return [t.grad.cpu() for t in (*p, f)]
+
+    before = (dense_conv.launches, dense_conv.backward_launches)
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert (dense_conv.launches, dense_conv.backward_launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, grads("cpu")):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -96,14 +142,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     calls = [
         lambda: density_kernel.kde_density_cuda(pts, mask, 0.2),
         lambda: poisson_kernel.poisson_sweep_cuda(pts, mask, cids, colors, 0.2),
-        lambda: dense_conv.dense_mc_conv_cuda(params, pts, mask, pts, mask, feats,
-                                              feats[..., 0], 0.2, c_out=2),
+        lambda: dense_conv._forward_cuda(params, pts, mask, pts, mask, feats, 0.2, 2, False),
+        lambda: dense_conv.dense_mc_conv_backward_cuda(
+            params, pts, mask, pts, mask, feats, 0.2, torch.zeros((2, 32, 9, 1)),
+            torch.ones((2, 32)), torch.ones((2, 32, 2)), c_out=2),
     ]
-    before = (density_kernel.launches, poisson_kernel.launches, dense_conv.launches)
+    counters = lambda: (density_kernel.launches, poisson_kernel.launches,  # noqa: E731
+                        dense_conv.launches, dense_conv.backward_launches)
+    before = counters()
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):
             call()
-    assert (density_kernel.launches, poisson_kernel.launches, dense_conv.launches) == before
+    assert counters() == before
 
 
 def test_unported_sites_raise():

@@ -6,6 +6,7 @@ seeded, non-trivial BN statistics. ``neighbor_k = N`` makes the JAX model's CPU
 conv (the K-capacity jnp path) lossless like the dense kernel the port runs.
 """
 
+import copy
 import json
 
 import jax
@@ -21,7 +22,7 @@ from mccnn_tpu_torch.convert import load_flax_variables, load_npz_variables, tor
 from mccnn_tpu_torch.data.datasets import _normalize_np
 from mccnn_tpu_torch.data.synthetic import classification_batch
 from mccnn_tpu_torch.models import MCClassS
-from mccnn_tpu_torch.models.layers import MaskedBatchNorm
+from mccnn_tpu_torch.models.layers import MaskedBatchNorm, set_dropout_generator
 from mccnn_tpu_torch.serve import Predictor, make_predict_fn
 from mccnn_tpu_torch.tasks import predict as predict_task
 from parity_utils import boundary_free
@@ -150,14 +151,21 @@ def test_predictor_pads_a_small_request(case):
 
 
 def test_predict_fn_is_eval_and_inference_mode(case):
-    model = case["model"]
+    model = copy.deepcopy(case["model"])
+    args = (torch.from_numpy(case["pts"]), torch.from_numpy(case["mask"]))
+    bn = model.bn_relus[0].bn
+    running = bn.mean.clone()
     model.train()
-    out = make_predict_fn(model)(torch.from_numpy(case["pts"]), torch.from_numpy(case["mask"]))
+    out = make_predict_fn(model)(*args)
     assert not model.training and out.is_inference()
-    model.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.from_numpy(case["pts"]), torch.from_numpy(case["mask"]))
-    model.eval()
+    assert torch.equal(bn.mean, running)  # eval mode reads the running statistics
+    np.testing.assert_allclose(out.numpy(), case["want"], rtol=1e-3,
+                               atol=1e-3 * np.abs(case["want"]).max())
+    model.train()  # training mode: batch moments, and the running statistics move
+    set_dropout_generator(model, torch.Generator().manual_seed(0))
+    logits = model(*args)
+    assert logits.requires_grad and bool(torch.isfinite(logits).all())
+    assert not torch.equal(bn.mean, running)
 
 
 def test_converter_refuses_partial_or_extra_leaves(case):

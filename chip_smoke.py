@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port's serving and training paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch + CUDA port's paths on one NVIDIA GPU: MCClassS serving and
+training, and ScanNet segmentation serving (MCSeg on the z-order tile kernels).
 
     python3 chip_smoke.py
 
@@ -27,10 +28,27 @@
    ``--synthetic --batch 32 --points 1024 --grow 128 --n-classes 40`` for 4
    steps (default dropout 0.5); requires a finite loss and that K1, K2, K3 and
    K4 were all launched, and prints the warm time per step.
-8. Prints one JSON line of kernel results at the trainer's batch (B=32; each
-   with its least possible time on the card, ``bound_ms``, from the bytes and
-   operations of this run's inputs), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. The z-order tile kernels of ScanNet segmentation, on a synthetic block
+   batch of B=8 x 8192 points and a scene padded to 40960: K8 (the tile
+   sampler's cover count) against its plain version at each of the 27 colours
+   of the level-0 sweep, and the sweep's selection against the dense plain
+   sampler; K7 (tile KDE) against its plain version at the two level-0 radii
+   of the whole scene, and against K4 at 8192; K5 (tile MC conv) at the four
+   tile sites of the block batch (stem, enc_0_1, dec_2_1, dec_1_0). Each
+   repeats bit for bit; times, bounds and plain times are printed.
+9. MCSeg (ScanNet defaults: grow 64, radii 0.05 / 0.15 / 0.4, seeded weights
+   and BN statistics) on the card against the CPU plain path at B=2 x 8192
+   (B=8 would keep the CPU for minutes), and the card's B=8 block hierarchy
+   against the CPU's; then a block batch's and a whole scene's forward under
+   torch.profiler (device time, busy share, the top kernels).
+10. Serving through the entry point: ``tasks.scannet.main --synthetic
+   --eval-only`` for block evaluation (B=8, N=8192) and with
+   ``--whole-scene-cap 40960``, with the launch counters of K1, K3, K4, K5,
+   K7 and K8 read over each run; prints the batch and scene latencies.
+11. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+   B=32, K5, K7 and K8 at the ScanNet shapes; each with its least possible
+   time on the card, ``bound_ms``, from the bytes and operations of this
+   run's inputs), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -54,6 +72,10 @@ SERVE_B = 8  # the served request batch
 TRAIN_B = 32  # the trainer's batch: the CLI's default --batch
 N_CLASSES, GROW = 40, 128
 H = 8  # the kernel MLP's hidden width
+
+SEG_B, SEG_N, SEG_CAP = 8, 8192, 40960  # the ScanNet CLI's block batch; whole-scene cap
+SEG_CLASSES, SEG_GROW, SEG_RADII = 8, 64, (0.05, 0.15, 0.4)
+SEG_CPU_B = 2  # MCSeg card vs the CPU plain path (B = 8 would keep the CPU for minutes)
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -85,6 +107,12 @@ LOGIT_RTOL = 1e-3
 #     The head Dense biases feed a BN that subtracts the batch mean, so their
 #     gradient is 0 up to rounding: both sides must be below 1e-6 of the
 #     largest gradient.
+# K5 / K7: as K1 / K4 (fp32 sums over a tile step list's pairs in another
+#     order than the plain version's), relative to the site's largest value.
+TILE_RTOL = 1e-4
+# MCSeg logits, card vs the CPU plain path: identical hierarchies, then fp32
+#     sums in other orders through seven convs and thirteen BNs and dense layers.
+SEG_LOGIT_RTOL = 1e-3
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 2e-3
 STAT_RTOL = 1e-4
@@ -389,10 +417,12 @@ def same_hierarchy(req: dict, dev) -> bool:
 
 def counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
-    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel, tile_conv
 
     return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
-            "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches")}
+            "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches"),
+            "K5": (tile_conv, "launches"), "K7": (tile_conv, "kde_launches"),
+            "K8": (tile_conv, "cover_launches")}
 
 
 def reset_counts() -> None:
@@ -532,8 +562,355 @@ def run_trainer() -> dict:
           f"eval_accuracy={res['best_accuracy']:.4f} total_sec={seconds:.2f} "
           f"launches={launches}", flush=True)
     require(bool(np.isfinite(rec["loss"])), "the trainer's loss is not finite")
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched while training")
+    for name in ("K1", "K2", "K3", "K4"):
+        require(launches[name] > 0, f"{name} was not launched while training")
+    return launches
+
+# ------------------------------------------------------------ ScanNet segmentation
+
+
+def scene_batch(seed: int, b: int) -> dict:
+    """A synthetic ScanNet block batch of ``b`` x SEG_N points (the CLI's source)."""
+    from mccnn_tpu_torch.tasks.scannet import SyntheticSceneSource
+
+    src = SyntheticSceneSource(4, SEG_CLASSES, seed)
+    return next(src.batches(b, SEG_N, np.random.default_rng(seed)))
+
+
+def whole_scene(seed: int):
+    """One synthetic scene normalised and padded to SEG_CAP points, B = 1."""
+    from mccnn_tpu_torch.data.datasets import _normalize_np
+    from mccnn_tpu_torch.tasks.scannet import SyntheticSceneSource
+
+    scene = SyntheticSceneSource(1, SEG_CLASSES, seed)._src.scenes[0]
+    pts = np.zeros((1, SEG_CAP, 3), np.float32)
+    pts[0, : len(scene)] = _normalize_np(scene)
+    return pts, (np.arange(SEG_CAP) < len(scene))[None]
+
+
+def inr_pairs(smp, qmask, src, smask, radius, cand=None) -> int:
+    """Valid pairs within ``radius`` (with a flagged candidate, when given),
+    counted in chunks of samples."""
+    from mccnn_tpu_torch.core.grid import pair_d2, radius_sq
+
+    r2, total = radius_sq(radius), 0
+    ok_src = smask if cand is None else smask & cand
+    for i0 in range(0, smp.shape[1], 1024):
+        d2 = pair_d2(smp[:, i0:i0 + 1024].contiguous(), src)
+        ok = (d2 <= r2) & qmask[:, i0:i0 + 1024, None] & ok_src[:, None, :]
+        total += int(ok.sum())
+    return total
+
+
+def check_cover_sweep(dev, pts, mask, tile_pairs) -> tuple:
+    """K8 at each colour of the level-0 tile sweep, then the sweep's selection
+    against the sampler's own path and the dense plain sampler."""
+    from mccnn_tpu_torch.core import sampling
+    from mccnn_tpu_torch.core.grid import cell_color27, linear_cell_ids
+    from mccnn_tpu_torch.ops.cuda import poisson_kernel, tile_conv
+
+    radius = SEG_RADII[0]
+    B, N, _ = pts.shape
+    coords, res = sampling._sampler_grid(pts, radius)
+    cids, colors = linear_cell_ids(coords, res), cell_color27(coords)
+    order = sampling._cell_hilbert_order(coords, mask, res)
+    sweep = tile_conv.make_cover_sweep(pts, mask, radius, max_pairs=tile_pairs, order=order)
+    lay = sweep.layout
+    rows = sweep.valid.shape[1]
+
+    def sort1(x):
+        s = torch.gather(x, 1, order)
+        return torch.cat([s, s.new_full((B, rows - N), -1)], dim=1)
+
+    s_cids, s_colors, s_mask = sort1(cids), sort1(colors), sweep.valid
+    seg_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                           s_cids[:, 1:] != s_cids[:, :-1]], dim=1)
+    selected = torch.zeros((B, rows), dtype=torch.bool, device=dev)
+    covered = torch.zeros_like(selected)
+    err = ms = pms = bms = 0.0
+    flagged_pairs = 0
+    bounds = []
+    for c in range(27):
+        uncovered = s_mask & ~covered
+        u = uncovered.to(torch.int32)
+        excl = torch.cumsum(u, dim=1, dtype=torch.int32) - u
+        base = torch.cummax(torch.where(seg_start, excl, -1), dim=1).values
+        cand = uncovered & (excl == base) & (s_colors == c)
+        got = tile_conv.cover_counts_cuda(lay, cand, radius)
+        again = tile_conv.cover_counts_cuda(lay, cand, radius)
+        want = tile_conv.cover_counts_reference(lay, cand, radius)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        require(bool(torch.equal(got, want)), f"K8 differs from its plain version at colour {c}")
+        require(bool(torch.equal(got, again)), f"K8 differs between two calls at colour {c}")
+        ms += time_ms(lambda: tile_conv.cover_counts_cuda(lay, cand, radius), iters=5)
+        pms += time_ms(lambda: tile_conv.cover_counts_reference(lay, cand, radius), iters=1)
+        pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius, cand)
+        flagged_pairs += pairs
+        bounds.append(bound(B * rows * (12 + 1 + 1 + 4), 8 * pairs))
+        bms += bounds[-1][0]
+        selected |= cand
+        covered |= got > 0
+    sel = torch.empty((B, N), dtype=torch.bool, device=dev)
+    sel.scatter_(1, order, selected[:, :N])
+    path, ovf = sampling._poisson_tiles(pts, mask, coords, cids, colors, radius, res, tile_pairs)
+    dense = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
+    torch.cuda.synchronize()
+    print(f"K8 B={B} N={N} r={radius} S={lay.S} (27 colours): max_abs_err={err:.1f} "
+          f"bit_equal=True "
+          f"bitwise_repeatable=True selected={int(sel.sum())} "
+          f"equal_to_the_sampler_path={bool(torch.equal(sel, path & mask))} "
+          f"equal_to_the_dense_plain_sampler={bool(torch.equal(sel, dense))} "
+          f"overflow={int(ovf.max())} flagged_in_radius_pairs={flagged_pairs} "
+          f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} (per sweep, summed)",
+          flush=True)
+    require(bool(torch.equal(sel, path & mask)), "the tile sampler's path differs from the "
+            "per-colour replay")
+    require(bool(torch.equal(sel, dense)), "the tile sweep differs from the dense plain sampler")
+    require(int(ovf.max()) == 0, "the level-0 sampler overflowed its auto-sized capacity")
+    return (err, ms, pms, bms, max(bounds)[1], None)
+
+
+def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
+    """K7 at the whole scene's two level-0 radii, and K7 against K4 at 8192."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+
+    pts, mask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 6))
+    err = ms = pms = bms = 0.0
+    by = "operations"
+    for radius in (SEG_RADII[0], SEG_RADII[0] * 2.0):
+        lay = tile_conv.self_layout(pts, mask, radius, max_pairs=tile_pairs_whole)
+        got = tile_conv.tile_kde_sums_cuda(lay, radius)
+        again = tile_conv.tile_kde_sums_cuda(lay, radius)
+        want = tile_conv.tile_kde_sums_reference(lay, radius)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(got, again)), f"K7 differs between two calls at r={radius}")
+        e = float((got - want).abs().max())
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30))[lay.valid].max())
+        require(bool(torch.allclose(got, want, rtol=TILE_RTOL, atol=0.0)),
+                f"K7 disagrees with its plain version at r={radius}")
+        k_ms = time_ms(lambda: tile_conv.tile_kde_sums_cuda(lay, radius))
+        p_ms = time_ms(lambda: tile_conv.tile_kde_sums_reference(lay, radius), iters=2)
+        pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius)
+        b_ms, by = bound(SEG_CAP * (12 + 1 + 4), 12 * pairs)
+        print(f"K7 B=1 N={SEG_CAP} (valid {int(mask.sum())}) r={radius} S={lay.S}: "
+              f"max_abs_err={e:.3e} max_rel_err={rel:.3e} bitwise_repeatable=True "
+              f"in_radius_pairs={pairs} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.6f} ({by})", flush=True)
+        err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
+    bp, bm = block
+    for radius in (SEG_RADII[0], SEG_RADII[0] * 2.0):
+        tile = tile_conv.tile_kde(bp, bm, radius, max_pairs=1 << 30)
+        dense = density_kernel.kde_density_cuda(bp, bm, radius)
+        torch.cuda.synchronize()
+        rel = float(((tile - dense).abs() / dense).max())
+        print(f"K7 vs K4 B={bp.shape[0]} N={bp.shape[1]} r={radius}: max_rel_err={rel:.3e}",
+              flush=True)
+        require(bool(torch.allclose(tile, dense, rtol=TILE_RTOL, atol=0.0)),
+                f"K7 and K4 disagree at N={bp.shape[1]}, r={radius}")
+    return (err, ms, pms, bms, by, None)
+
+
+def check_tile_conv(dev, hier, tile_pairs) -> tuple:
+    """K5 at the four tile sites of the block batch's MCSeg."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    g = SEG_GROW
+    sites = [("stem", 0, 0, SEG_RADII[0], 1, g), ("enc_0_1", 0, 1, 2 * SEG_RADII[0], g, None),
+             ("dec_2_1", 2, 1, 2 * SEG_RADII[1], 6 * g, None),
+             ("dec_1_0", 1, 0, 2 * SEG_RADII[0], 4 * g, None)]
+    err = ms = pms = bms = 0.0
+    by = "operations"
+    with torch.no_grad():
+        for name, i, o, radius, c, co in sites:
+            (src, smask), (smp, qmask) = hier[i], hier[o]
+            b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, N, 1)) if c == 1 else
+                     torch.randn((b, N, c), generator=gen)).to(dev)
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            max_pairs = tile_pairs if 0 in (i, o) else 1 << 30
+            lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=max_pairs)
+            wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+            kw = dict(c_out=co)
+            got, gcnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+            again, _ = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+            want, wcnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, radius, **kw)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            require(bool(torch.equal(got, again)), f"K5 differs between two calls at {name}")
+            require(bool(torch.equal(gcnt, wcnt)), f"K5 neighbour counts differ at {name}")
+            require(bool(torch.allclose(got, want, rtol=TILE_RTOL, atol=TILE_RTOL * scale)),
+                    f"K5 disagrees with its plain version at {name}")
+            require(int(lay.overflow.max()) == 0, f"K5 overflowed at {name}")
+            k_ms = time_ms(lambda: tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw),
+                           iters=10)
+            p_ms = time_ms(lambda: tile_conv.tile_conv_sorted_reference(params, lay, wf, radius,
+                                                                        **kw), iters=1)
+            CO = c if co is None else co
+            H1 = H + 1
+            pairs = inr_pairs(smp, qmask, src, smask, radius)
+            nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
+                           * (co or 1) + b * M * CO + b * M) + b * (M + N))
+            flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
+            if co is not None:
+                flops += 2 * int(qmask.sum()) * H1 * c * co
+            b_ms, by = bound(nbytes, flops)
+            steps = int((lay.steps.j_ids != lay.steps.n_minor).sum())
+            print(f"K5 B={b} {name} N={N} M={M} C={c} CO={co}: S={lay.S} candidate_minors={steps} "
+                  f"in_radius_pairs={pairs} max_abs_err={e:.3e} max_abs_out={scale:.3e} "
+                  f"bitwise_repeatable=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={b_ms:.6f} ({by})", flush=True)
+            err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
+    return (err, ms, pms, bms, by, None)
+
+
+def check_tile_kernels(dev) -> dict:
+    """K8, K7 and K5 against their plain versions at the ScanNet shapes."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
+
+    batch = scene_batch(SEED + 5, SEG_B)
+    pts, mask = (torch.from_numpy(batch[k]).to(dev) for k in ("points", "mask"))
+    tile_pairs = auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+    wpts, wmask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 6))
+    tile_pairs_whole = auto_tile_pairs(wpts, wmask, 2 * SEG_RADII[0])
+    print(f"tile capacities: block B={SEG_B} N={SEG_N} tile_pairs={tile_pairs}; whole scene "
+          f"N={SEG_CAP} tile_pairs={tile_pairs_whole}", flush=True)
+    with torch.no_grad():
+        results = {"K8": check_cover_sweep(dev, pts, mask, tile_pairs)}
+        results["K7"] = check_tile_kde(dev, tile_pairs_whole, (pts, mask))
+        hier = build_hierarchy(pts, mask, SEG_RADII, tile_pairs=tile_pairs)
+        lv = [(l.points, l.mask) for l in hier.levels]
+        print("MCSeg levels:", [tuple(p.shape[:2]) for p, _ in lv], "valid per cloud:",
+              [int(m.sum(1).min()) for _, m in lv], flush=True)
+        results["K5"] = check_tile_conv(dev, lv, tile_pairs)
+    return results
+
+
+def check_mcseg(dev) -> None:
+    """MCSeg at the ScanNet defaults on the card against the CPU plain path, and
+    the card's block hierarchy against the CPU's."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.tasks.common import maybe_auto_tile_pairs
+
+    rng = np.random.default_rng(SEED + 8)
+    blocks = scene_batch(SEED + 8, SEG_B)
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+    maybe_auto_tile_pairs(model, blocks, dev)
+    with torch.inference_mode():
+        h_gpu = build_hierarchy(*(torch.from_numpy(blocks[k]).to(dev) for k in ("points", "mask")),
+                                SEG_RADII, tile_pairs=model.tile_pairs, tile_steps=model.tile_steps)
+        t0 = time.perf_counter()
+        h_cpu = build_hierarchy(*(torch.from_numpy(blocks[k]) for k in ("points", "mask")),
+                                SEG_RADII, tile_pairs=model.tile_pairs, tile_steps=model.tile_steps)
+        cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
+               for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:]))
+    print(f"MCSeg block hierarchy B={SEG_B} N={SEG_N}: equal_to_cpu={same} "
+          f"valid per level={[int(l.mask.sum()) for l in h_gpu.levels]} cpu_s={cpu_s:.1f}",
+          flush=True)
+    require(same, "the card's block hierarchy differs from the CPU plain path's")
+
+    batch = {k: blocks[k][:SEG_CPU_B] for k in ("points", "mask")}
+    calibrate_bn(model, batch, rng)
+    cpu_model = copy.deepcopy(model).cpu()
+    args = [torch.from_numpy(batch[k]) for k in ("points", "mask")]
+    with torch.inference_mode():
+        got, ovf = model(*(a.to(dev) for a in args), with_overflow=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, cpu_ovf = cpu_model(*args, with_overflow=True)
+        cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    print(f"MCSeg B={SEG_CPU_B} N={SEG_N} grow={SEG_GROW} card vs CPU plain path: "
+          f"logits={tuple(got.shape)} max_abs_err={err:.3e} max_abs_logit={top:.3e} "
+          f"overflow card={int(ovf)} cpu={int(cpu_ovf)} cpu_forward_s={cpu_s:.1f}", flush=True)
+    require(bool(torch.isfinite(got).all()), "non-finite MCSeg logits")
+    require(int(ovf) == 0 and int(cpu_ovf) == 0, "MCSeg overflowed its auto-sized capacities")
+    require(bool(torch.allclose(got, want, rtol=SEG_LOGIT_RTOL, atol=SEG_LOGIT_RTOL * top)),
+            "MCSeg logits on the card disagree with the CPU plain path")
+
+
+def profile_forward(model, pts, mask, what: str, reps: int = 3) -> None:
+    """``reps`` eval forwards under torch.profiler, after one warm-up: wall
+    and device time a forward, the device's busy share, the device events a
+    forward and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(pts, mask, with_overflow=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(pts, mask, with_overflow=True)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / reps
+    events = sum(e.count for e in device) / reps
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile {what}: wall_ms={wall_ms:.3f} device_ms={device_ms:.3f} "
+          f"busy_share={device_ms / wall_ms:.4f} device_events={events:.0f} top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / reps:.3f} ms"
+                      for e in top), flush=True)
+
+
+def profile_mcseg(dev) -> None:
+    """Where a block batch's and a whole scene's forward spend their time."""
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.tasks.common import auto_tile_steps, maybe_auto_tile_pairs
+    from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
+
+    blocks = scene_batch(SEED + 9, SEG_B)
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    maybe_auto_tile_pairs(model, blocks, dev)
+    pts, mask = (torch.from_numpy(blocks[k]).to(dev) for k in ("points", "mask"))
+    profile_forward(model, pts, mask, f"block batch B={SEG_B} N={SEG_N}")
+    wpts, wmask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 9))
+    model.tile_pairs = auto_tile_pairs(wpts, wmask, 2 * SEG_RADII[0])
+    model.tile_steps = auto_tile_steps(model, wpts, wmask)
+    profile_forward(model, wpts, wmask, f"whole scene N={SEG_CAP} (valid {int(wmask.sum())})")
+
+
+def run_scannet(whole: bool) -> dict:
+    """``tasks.scannet`` through its entry point: block evaluation at B=8 x
+    8192, or one pass per whole scene at the 40960 cap."""
+    from mccnn_tpu_torch.tasks import scannet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--eval-only", "--batch", str(SEG_B), "--points", str(SEG_N),
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck")]
+        if whole:
+            argv += ["--whole-scene-cap", str(SEG_CAP)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = scannet.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, "scannet_mcseg.metrics.jsonl")) as f:
+            resizes = [json.loads(line) for line in f if '"resize"' in line]
+    kind = "whole scenes" if whole else "blocks"
+    lat = res["scene_ms_all"] if whole else res["batch_ms_all"]
+    print(f"scannet eval ({kind}): point_accuracy={res['point_accuracy']:.4f} "
+          f"mIoU={res['mIoU']:.4f} latencies_ms={[round(x, 3) for x in lat]} "
+          f"resizes={len(resizes)} total_sec={seconds:.2f} launches={launches}", flush=True)
+    path = ("K1", "K3", "K4", "K5", "K7", "K8") if whole else ("K1", "K3", "K4", "K5", "K8")
+    for name in path:
+        require(launches[name] > 0, f"{name} was not launched in ScanNet eval ({kind})")
+    require(launches["K2"] == 0, "K2 was launched in evaluation")
     return launches
 
 
@@ -567,6 +944,11 @@ def main() -> int:
     for b in (SERVE_B, TRAIN_B):
         check_train_step(dev, b)
     train_launches = run_trainer()
+    tile_results = check_tile_kernels(dev)
+    check_mcseg(dev)
+    profile_mcseg(dev)
+    seg_launches = {"scannet_blocks": run_scannet(whole=False),
+                    "scannet_whole": run_scannet(whole=True)}
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
@@ -577,26 +959,39 @@ def main() -> int:
                "mccnn_tpu/ops/pallas/poisson_kernel.py:41"),
         "K4": ("kde_density", "mccnn_tpu_torch/csrc/density_kernel.cu",
                "mccnn_tpu/ops/pallas/density_kernel.py:34"),
+        "K5": ("tile_mc_conv", "mccnn_tpu_torch/csrc/tile_conv.cu",
+               "mccnn_tpu/ops/pallas/tile_conv.py:525"),
+        "K7": ("tile_kde", "mccnn_tpu_torch/csrc/tile_sweep.cu",
+               "mccnn_tpu/ops/pallas/tile_conv.py:1401"),
+        "K8": ("tile_cover_counts", "mccnn_tpu_torch/csrc/tile_sweep.cu",
+               "mccnn_tpu/ops/pallas/tile_conv.py:1553"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
-        rows = results[kid]
-        bound_ms = sum(r[3] for r in rows)
-        by = max(rows, key=lambda r: r[3])[4]
+        if kid in tile_results:  # the ScanNet slice's kernels: its eval paths
+            rows = [tile_results[kid]]
+            by_path = {k: v[kid] for k, v in seg_launches.items()}
+            batch = SEG_B
+        else:
+            rows = results[kid]
+            by_path = {"serve": serve_launches[kid], "train": train_launches[kid],
+                       **{k: v[kid] for k, v in seg_launches.items()}}
+            batch = TRAIN_B
         lib_ms = [r[5] for r in rows]
         kernels.append({
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": train_launches[kid],
-            "launches_by_path": {"serve": serve_launches[kid], "train": train_launches[kid]},
-            "batch": TRAIN_B,
+            "launches": (sum(v[kid] for v in seg_launches.values()) if kid in tile_results
+                         else train_launches[kid]),
+            "launches_by_path": by_path,
+            "batch": batch,
             "max_abs_err": max(r[0] for r in rows),
             "ms": sum(r[1] for r in rows),
             "plain_ms": sum(r[2] for r in rows),
-            "bound_ms": bound_ms,
-            "bound_by": by,
+            "bound_ms": sum(r[3] for r in rows),
+            "bound_by": max(rows, key=lambda r: r[3])[4],
             "library_ms": None if None in lib_ms else sum(lib_ms),
         })
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,9 @@ its plain PyTorch version instead, which is what the parity tests hold
 against the JAX package.
 
 It covers MCClassS inference (the serving path) and training
-(``tasks/modelnet.py``). Importing the package needs neither ``nvcc`` nor a
-GPU.
+(``tasks/modelnet.py``), and ScanNet segmentation serving: MCSeg on the
+z-order tile kernels (``tasks/scannet.py --eval-only``). Importing the
+package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"

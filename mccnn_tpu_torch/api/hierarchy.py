@@ -63,14 +63,25 @@ def build_hierarchy(
     *,
     level_caps: Sequence[int] | None = None,
     global_level: bool = False,
+    tile_pairs: int | None = None,
+    tile_steps: dict | None = None,
 ) -> PointHierarchy:
-    """Build the Poisson-disk hierarchy of unit-cube ``points (B, N, 3)``."""
+    """Build the Poisson-disk hierarchy of unit-cube ``points (B, N, 3)``.
+
+    ``tile_pairs`` sends levels of more than ``TILE_SAMPLER_MIN_N`` points to
+    the tile sampler; ``tile_steps`` holds measured step budgets under keys
+    ``("sweep", source_level, round(radius, 6))`` (``hierarchy.py:107-180``).
+    """
     if level_caps is None:
         level_caps = default_level_caps(points.shape[1], radii)
     levels = [HierarchyLevel(points=points, mask=mask, radius=0.0, sample=None)]
     cur_pts, cur_mask = points, mask
-    for r, cap in zip(radii, level_caps):
-        ss = poisson_disk(cur_pts, cur_mask, r, cap)
+    for lvl, (r, cap) in enumerate(zip(radii, level_caps)):
+        max_steps = None
+        if tile_steps:
+            max_steps = tile_steps.get(("sweep", lvl, round(float(r), 6)))
+        ss = poisson_disk(cur_pts, cur_mask, r, cap, tile_pairs=tile_pairs,
+                          max_steps=max_steps)
         nxt_pts = torch.where(ss.mask[..., None], gather_rows(cur_pts, ss.idx), 0.0)
         levels.append(
             HierarchyLevel(points=nxt_pts, mask=ss.mask, radius=float(r), sample=ss)

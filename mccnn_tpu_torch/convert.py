@@ -11,6 +11,13 @@ module names:
   FullyConnected_k/{BatchNorm_0,MaskedBatchNorm_0}/*   -> fcs.k.bn.*
   logits/{kernel,bias}                                 -> logits.{weight,bias}
 
+and, for MCSeg's explicit names:
+
+  {stem,enc_i_j,dec_i_j}/kernel_*                      -> convs.<name>.kernel_*
+  {stem_bn,enc_bn_k,enc_mix_bn_k,dec_bn_k,dec_mix_bn_k}/MaskedBatchNorm_0/*
+                                                       -> bns.<name>.bn.*
+  {enc,dec}_mix_k/Dense_0/{kernel,bias}                -> mixes.<name>.{weight,bias}
+
 Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights are (out, in),
 so those are transposed. Any flax leaf left unused, and any torch parameter or
 buffer left unset, raises.
@@ -36,6 +43,12 @@ _RULES = [
     (r"FullyConnected_(\d+)/Dense_0/bias", r"fcs.\1.dense.bias", False),
     (r"FullyConnected_(\d+)/(?:BatchNorm_0|MaskedBatchNorm_0)/(scale|bias|mean|var|count)",
      r"fcs.\1.bn.\2", False),
+    # MCSeg's explicit names (mccnn_tpu/models/mcseg.py:66-139)
+    (r"(stem|enc_\d+_\d+|dec_\d+_\d+)/(kernel_(?:w1|b1|w2|b2))", r"convs.\1.\2", False),
+    (r"((?:stem|enc|enc_mix|dec|dec_mix)_bn(?:_\d+)?)/MaskedBatchNorm_0/"
+     r"(scale|bias|mean|var|count)", r"bns.\1.bn.\2", False),
+    (r"((?:enc|dec)_mix_\d+)/Dense_0/kernel", r"mixes.\1.weight", True),
+    (r"((?:enc|dec)_mix_\d+)/Dense_0/bias", r"mixes.\1.bias", False),
     (r"logits/kernel", "logits.weight", True),
     (r"logits/bias", "logits.bias", False),
 ]

@@ -6,10 +6,18 @@ A maximal Poisson-disk selection in 27 colour steps: cells of edge
 lowest-index uncovered point of the current colour at once (see the
 reference's module docstring for the argument).
 
-The sweep is ``ops/cuda/poisson_kernel.py``: the K3 kernel for a CUDA tensor,
-the plain ``_poisson_dense`` twin for a CPU tensor. The reference's tile
-sweep (N > 2048 with a tile capacity) and neighbour-list sweep (N > 4096)
-are not ported yet and raise.
+Two of the reference's sweeps are ported, routed as there
+(``sampling.py:129-150``):
+
+* N > ``TILE_SAMPLER_MIN_N`` with a tile capacity: ``_poisson_tiles``, the
+  cell-Hilbert tile sweep, whose per-colour "newly covered" query is the K8
+  cover count (``ops/cuda/tile_conv.py::TileCoverSweep``);
+* N <= ``DENSE_SAMPLER_MAX_N``: the dense sweep, K3
+  (``ops/cuda/poisson_kernel.py``).
+
+Each runs its kernel for a CUDA tensor and its plain version for a CPU
+tensor. The neighbour-list sweep (larger N without a tile capacity) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -19,11 +27,18 @@ from typing import NamedTuple
 import torch
 
 from ..ops.cuda.poisson_kernel import poisson_sweep
+from ..ops.cuda.tile_conv import (
+    DEFAULT_COVER_CHUNK,
+    count_self_steps,
+    hilbert_code,
+    make_cover_sweep,
+)
 from .grid import cell_color27, cell_coords, grid_res_for_radius, linear_cell_ids
 
 _SQRT3 = 3.0**0.5
 _BIG_I32 = 2**30
 DENSE_SAMPLER_MAX_N = 4096  # mccnn_tpu/core/sampling.py:74
+TILE_SAMPLER_MIN_N = 2048  # mccnn_tpu/core/sampling.py:79
 
 
 class SampleSet(NamedTuple):
@@ -33,37 +48,55 @@ class SampleSet(NamedTuple):
       idx: ``(B, S)`` int64 indices into the input point axis (0 where masked).
       mask: ``(B, S)`` bool — True for real selections.
       selected: ``(B, N)`` bool — dense selection flags over the inputs.
+      overflow: ``(B,)`` dropped tile steps of the tile sweep (None on the
+        dense sweep). Nonzero means coverage queries missed pairs.
     """
 
     idx: torch.Tensor
     mask: torch.Tensor
     selected: torch.Tensor
+    overflow: torch.Tensor | None = None
+
+
+def _sampler_grid(points: torch.Tensor, radius: float):
+    """Integer cell coordinates and the grid resolution (``sampling.py:123-125``)."""
+    cell_edge = float(radius) / _SQRT3
+    res = grid_res_for_radius(radius, cell_scale=1.0 / _SQRT3)
+    return cell_coords(points, cell_edge, res), res
 
 
 def sweep_cells(points: torch.Tensor, radius: float):
     """Sampler cell ids and 27-colours of each point (``sampling.py:123-127``)."""
-    cell_edge = float(radius) / _SQRT3
-    res = grid_res_for_radius(radius, cell_scale=1.0 / _SQRT3)
-    coords = cell_coords(points, cell_edge, res)
+    coords, res = _sampler_grid(points, radius)
     return linear_cell_ids(coords, res), cell_color27(coords)
 
 
 def poisson_disk(
-    points: torch.Tensor, mask: torch.Tensor, radius: float, max_samples: int
+    points: torch.Tensor, mask: torch.Tensor, radius: float, max_samples: int, *,
+    tile_pairs: int | None = None, max_steps: int | None = None,
 ) -> SampleSet:
     """Maximal Poisson-disk subset with min pairwise distance ``radius``.
 
     ``points`` lie in the unit cube; selections beyond ``max_samples`` are
-    dropped in index order.
+    dropped in index order. ``tile_pairs`` (with ``max_steps``, a measured
+    step budget) routes N > ``TILE_SAMPLER_MIN_N`` to the tile sweep.
     """
     B, N, _ = points.shape
-    if N > DENSE_SAMPLER_MAX_N:
+    coords, res = _sampler_grid(points, radius)
+    cids, colors = linear_cell_ids(coords, res), cell_color27(coords)
+    overflow = None
+    if tile_pairs is not None and N > TILE_SAMPLER_MIN_N:
+        selected, overflow = _poisson_tiles(points, mask, coords, cids, colors, radius, res,
+                                            tile_pairs, max_steps)
+    elif N <= DENSE_SAMPLER_MAX_N:
+        selected = poisson_sweep(points, mask, cids, colors, radius)
+    else:
         raise NotImplementedError(
-            f"poisson_disk: N={N} > {DENSE_SAMPLER_MAX_N} takes the reference's "
-            "tile or neighbour-list sampler, ported with the big-scene slice"
+            f"poisson_disk: N={N} > {DENSE_SAMPLER_MAX_N} without a tile capacity takes "
+            "the reference's neighbour-list sampler, ported with core/neighbors.py "
+            "(ROADMAP queue 1)"
         )
-    cids, colors = sweep_cells(points, radius)
-    selected = poisson_sweep(points, mask, cids, colors, radius) & mask
+    selected = selected & mask
 
     # Compact the flags into (B, S) indices in ascending index order.
     point_index = torch.arange(N, device=points.device).expand(B, N)
@@ -71,4 +104,62 @@ def poisson_disk(
     order = torch.argsort(sort_key, dim=-1, stable=True)[:, :max_samples]
     out_mask = torch.gather(sort_key, 1, order) < _BIG_I32
     idx = torch.where(out_mask, order, 0)
-    return SampleSet(idx=idx, mask=out_mask, selected=selected)
+    return SampleSet(idx=idx, mask=out_mask, selected=selected, overflow=overflow)
+
+
+def _cell_hilbert_order(coords, mask, res):
+    """Stable point order by the Hilbert index of each point's sampler cell
+    (``sampling.py:201``): every cell becomes one contiguous run, in
+    ascending original index."""
+    bits = max(1, (res - 1).bit_length())
+    assert bits * 3 <= 30, f"sampler cell grid too fine: res={res}"
+    code = hilbert_code(coords.clamp(0, (1 << bits) - 1).to(torch.int32), bits)
+    code = torch.where(mask, code, _BIG_I32)
+    return torch.argsort(code, dim=-1, stable=True)
+
+
+def count_poisson_sweep_steps(points, mask, radius) -> torch.Tensor:
+    """(B,) chunked-step demand of the tile sampler's cover sweeps on these
+    inputs: the exact lossless ``max_steps`` (``sampling.py:216``)."""
+    coords, res = _sampler_grid(points, radius)
+    order = _cell_hilbert_order(coords, mask, res)
+    return count_self_steps(points, mask, radius, order, chunk=DEFAULT_COVER_CHUNK)
+
+
+def _poisson_tiles(points, mask, coords, cids, colors, radius, res, tile_pairs,
+                   max_steps=None):
+    """The cell-run tile 27-colour sweep (``sampling.py:247``).
+
+    Points are sorted by the Hilbert index of their sampler cell, so each cell
+    is one run in ascending original index; a colour's candidates are then
+    the first uncovered point of each run (a cumsum and a running max, all in
+    sorted order), and "newly covered" is one cover count per colour (K8)."""
+    B, N, _ = points.shape
+    order = _cell_hilbert_order(coords, mask, res)
+    sweep = make_cover_sweep(points, mask, radius, max_pairs=tile_pairs, order=order,
+                             max_steps=max_steps)
+    nt_rows = sweep.valid.shape[1]
+
+    def sort1(x):
+        s = torch.gather(x, 1, order)
+        return torch.cat([s, s.new_full((B, nt_rows - N), -1)], dim=1)
+
+    s_cids = sort1(cids)  # padding joins no real run
+    s_colors = sort1(colors)  # padding matches no colour
+    s_mask = sweep.valid
+    seg_start = torch.cat(
+        [torch.ones((B, 1), dtype=torch.bool, device=points.device),
+         s_cids[:, 1:] != s_cids[:, :-1]], dim=1)
+    selected = torch.zeros((B, nt_rows), dtype=torch.bool, device=points.device)
+    covered = torch.zeros_like(selected)
+    for c in range(27):
+        uncovered = s_mask & ~covered
+        u = uncovered.to(torch.int32)
+        excl = torch.cumsum(u, dim=1, dtype=torch.int32) - u  # uncovered strictly before
+        base = torch.cummax(torch.where(seg_start, excl, -1), dim=1).values
+        cand = uncovered & (excl == base) & (s_colors == c)
+        selected = selected | cand
+        covered = covered | (sweep.counts(cand) > 0)
+    out = torch.empty((B, N), dtype=torch.bool, device=points.device)
+    out.scatter_(1, order, selected[:, :N])
+    return out, sweep.overflow

@@ -20,4 +20,21 @@ __device__ __forceinline__ float pair_d2_rn(float ax, float ay, float az, float 
   return __fsub_rn(__fadd_rn(asq, bsq), __fmul_rn(2.0f, dot));
 }
 
+// The kernel MLP's first layer at one (sample q, source p) pair, as the dense
+// forward (K1), the dense backward (K2) and the tile forward (K5) all form it:
+// the offset o = (p - q) / r per axis, then
+// pre_h = ((o_x w1[0][h] + o_y w1[1][h]) + o_z w1[2][h]) + b1[h],
+// with every rounding written out so the three kernels agree bit for bit on
+// the a_h = relu(pre_h) plane (``w1`` is (3, H) row-major, ``b1`` (H,)).
+__device__ __forceinline__ float mc_offset(float p, float q, float radius) {
+  return __fdiv_rn(__fsub_rn(p, q), radius);
+}
+
+__device__ __forceinline__ float mc_preact(float ox, float oy, float oz,
+                                           const float* w1, const float* b1, int H,
+                                           int h) {
+  return __fadd_rn(__fmaf_rn(oz, w1[2 * H + h], __fmaf_rn(oy, w1[H + h], __fmul_rn(ox, w1[h]))),
+                   b1[h]);
+}
+
 #define MCCNN_LAUNCH_RETURN() return static_cast<int>(cudaGetLastError())

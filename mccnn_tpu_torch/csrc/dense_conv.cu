@@ -121,11 +121,12 @@ __global__ void mcconv_pair_kernel(const float* __restrict__ smp,
       const float qx = qpos[4 * s], qy = qpos[4 * s + 1], qz = qpos[4 * s + 2];
       const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * s + 3], px, py, pz, spos[4 * j + 3]);
       const bool in = qvalid[s] && svalid[j] && d2 <= r2;
-      const float ox = (px - qx) / radius, oy = (py - qy) / radius, oz = (pz - qz) / radius;
+      const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
+                  oz = mc_offset(pz, qz, radius);
       float* pl = plane + (size_t)j * H1 * TS + s;
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        float pre = ox * sw1[h] + oy * sw1[H + h] + oz * sw1[2 * H + h] + sb1[h];
+        const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
         pl[h * TS] = in ? fmaxf(pre, 0.f) : 0.f;
       }
       pl[H * TS] = in ? 1.f : 0.f;

@@ -292,11 +292,12 @@ __global__ void mcconv_bwd_pair_kernel(const float* __restrict__ smp,
       const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * i + 3], px, py, pz, spos[4 * j + 3]);
       const bool in = qvalid[i] && svalid[j] && d2 <= r2;
       // the offsets and pre-activations exactly as K1's pair kernel forms them
-      const float ox = (px - qx) / radius, oy = (py - qy) / radius, oz = (pz - qz) / radius;
+      const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
+                  oz = mc_offset(pz, qz, radius);
       float* pl = plane + (size_t)i * H1 * TJ + j;
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        float pre = ox * sw1[h] + oy * sw1[H + h] + oz * sw1[2 * H + h] + sb1[h];
+        const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
         pl[h * TJ] = in ? fmaxf(pre, 0.f) : 0.f;
       }
       pl[H * TJ] = in ? 1.f : 0.f;
@@ -326,9 +327,9 @@ __global__ void mcconv_bwd_pair_kernel(const float* __restrict__ smp,
         const float* f = sfeat + (size_t)j * Cs;
         float d = 0.f;
         for (int c = 0; c < C; ++c) d += g[c] * f[c];
-        gx += d * ((spos[4 * j] - qpos[4 * i]) / radius);
-        gy += d * ((spos[4 * j + 1] - qpos[4 * i + 1]) / radius);
-        gz += d * ((spos[4 * j + 2] - qpos[4 * i + 2]) / radius);
+        gx += d * mc_offset(spos[4 * j], qpos[4 * i], radius);
+        gy += d * mc_offset(spos[4 * j + 1], qpos[4 * i + 1], radius);
+        gz += d * mc_offset(spos[4 * j + 2], qpos[4 * i + 2], radius);
         gb += d;
       }
     }

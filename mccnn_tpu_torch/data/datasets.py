@@ -1,5 +1,6 @@
-"""Host-side cloud preparation and the ModelNet40 classification source, numpy
-only (port of ``mccnn_tpu/data/datasets.py:38-170``).
+"""Host-side cloud preparation, the ModelNet40 classification source and the
+ScanNet scene source, numpy only (port of ``mccnn_tpu/data/datasets.py:38-170``
+and ``:304-414``).
 
 The port's own copy: it imports nothing of the JAX package. Every batch is a
 dict of numpy arrays, ``points (B, N, 3)`` normalised to the unit cube, ``mask
@@ -129,3 +130,86 @@ def load_modelnet40(root: str, split: str = "train") -> ClassificationSource:
         labels=np.asarray(labels, np.int32),
         class_names=class_names,
     )
+
+
+@dataclass
+class SceneSegSource:
+    """ScanNet-style scene segmentation: big scenes chopped into blocks
+    (port of ``datasets.py:304-389``, its numpy branch).
+
+    A block is a random xy column of ``block_size`` around a random scene
+    point, resampled to ``n_points`` and normalised to the unit cube. The
+    reference's default goes through its native host pipe, whose random
+    stream differs; that host code is still to port (ROADMAP queue 1)."""
+
+    scenes: list  # list of (n_i, 3) float32
+    labels: list  # list of (n_i,) int32
+    n_classes: int
+    block_size: float = 1.5
+
+    def batches(
+        self,
+        batch_size: int,
+        n_points: int,
+        rng: np.random.Generator,
+        *,
+        shuffle: bool = True,
+        train_augment: bool = False,
+        protocol: str = "uniform",
+        drop_remainder: bool = True,
+        blocks_per_epoch: int | None = None,
+    ) -> Iterator[dict]:
+        n_blocks = blocks_per_epoch or max(len(self.scenes), batch_size)
+        scene_ids = rng.integers(0, len(self.scenes), size=n_blocks)
+        for start in range(0, n_blocks, batch_size):
+            chunk = scene_ids[start : start + batch_size]
+            if len(chunk) < batch_size and drop_remainder:
+                return
+            pts_b, lab_b, mask_b = [], [], []
+            for si in chunk:
+                pts, lab = self.scenes[si], self.labels[si]
+                for _ in range(10):  # retry until a non-empty block
+                    center = pts[rng.integers(0, len(pts)), :2]
+                    half = self.block_size / 2.0
+                    sel = np.nonzero(
+                        (np.abs(pts[:, 0] - center[0]) <= half)
+                        & (np.abs(pts[:, 1] - center[1]) <= half)
+                    )[0]
+                    if len(sel) >= 32:
+                        break
+                p, m, idx = pad_points(pts[sel], n_points, rng)
+                if train_augment:
+                    p = augment.rotate_z(p, rng)
+                    p = augment.jitter(p, rng, sigma=0.005, clip=0.02)
+                pts_b.append(_normalize_np(p))
+                lab_b.append(lab[sel][idx])
+                mask_b.append(m)
+            yield {
+                "points": np.stack(pts_b),
+                "mask": np.stack(mask_b),
+                "labels": np.stack(lab_b).astype(np.int32),
+            }
+
+
+def load_scannet(root: str, split: str = "train") -> SceneSegSource:
+    """``scannet_{split}.npz`` with object arrays ``scenes`` and ``labels``."""
+    path = os.path.join(root, f"scannet_{split}.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"ScanNet not found at {path} — expected scannet_{{split}}.npz with object "
+            "arrays 'scenes' and 'labels'. Use --synthetic for smoke runs without data."
+        )
+    data = np.load(path, allow_pickle=True)
+    scenes = list(data["scenes"])
+    labels = list(data["labels"])
+    n_classes = int(max(int(l.max()) for l in labels)) + 1
+    return SceneSegSource(scenes=scenes, labels=labels, n_classes=n_classes)
+
+
+def class_weights_from(labels: list, n_classes: int) -> np.ndarray:
+    """Inverse-log-frequency class weights (``datasets.py:406``)."""
+    counts = np.zeros(n_classes, np.int64)
+    for l in labels:
+        counts += np.bincount(l, minlength=n_classes)
+    freq = counts / max(counts.sum(), 1)
+    return (1.0 / np.log(1.2 + freq + 1e-12)).astype(np.float32)

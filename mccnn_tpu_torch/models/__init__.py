@@ -1,6 +1,8 @@
-"""Models (port of ``mccnn_tpu/models``): MCClassS so far."""
+"""Models (port of ``mccnn_tpu/models``): MCClassS and MCSeg so far."""
 
-from .layers import BatchNormReluDropout, FullyConnected, MaskedBatchNorm, MCConv
+from .layers import BatchNormReluDropout, Conv1x1, FullyConnected, MaskedBatchNorm, MCConv
 from .mcclass_s import MCClassS
+from .mcseg import MCSeg
 
-__all__ = ["BatchNormReluDropout", "FullyConnected", "MCClassS", "MCConv", "MaskedBatchNorm"]
+__all__ = ["BatchNormReluDropout", "Conv1x1", "FullyConnected", "MCClassS", "MCConv",
+           "MCSeg", "MaskedBatchNorm"]

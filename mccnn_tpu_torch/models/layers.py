@@ -19,6 +19,7 @@ from torch import nn
 from ..api.builder import SpatialCache
 from ..core.mcconv import KERNEL_HIDDEN, MCConvParams
 from ..ops.cuda.dense_conv import dense_mc_conv
+from ..ops.cuda.tile_conv import tile_mc_conv
 from ..ops.dispatch import pick_backend
 
 
@@ -55,21 +56,62 @@ class MCConv(nn.Module):
 
     def forward(self, cache: SpatialCache, in_level: int, out_level: int, radius: float,
                 features: torch.Tensor) -> torch.Tensor:
+        """Route by shape (``ops/dispatch.py``), as ``layers.py:70-107``:
+        ``dense`` or ``tile`` (a ``bucket`` site when the cache holds a tile
+        capacity). A tile site reports its dropped steps to the cache."""
         src = cache.hierarchy.levels[in_level]
         dst = cache.hierarchy.levels[out_level]
+        backend = pick_backend(
+            src.points.shape[1], radius, self.c_in, self.c_out,
+            n_samples=dst.points.shape[1], mode=cache.conv_backend,
+        )
+        if backend == "bucket" and cache.tile_pairs is not None:
+            backend = "tile"  # z-order tiles beat buckets at big-scene scale
+        if backend == "bucket":
+            raise NotImplementedError(
+                f"conv site N={src.points.shape[1]} -> M={dst.points.shape[1]}, r={radius}: "
+                "the cell-bucket conv (K9, mccnn_tpu/ops/pallas/mcconv_kernel.py:293) is "
+                "not ported; give the model a tile capacity (tile_pairs) instead"
+            )
+        if backend == "jnp":
+            raise NotImplementedError(
+                f"conv site N={src.points.shape[1]}, r={radius}: the K-capacity conv "
+                "(mccnn_tpu/core/mcconv.py:87) comes with core/neighbors.py (ROADMAP queue 1)"
+            )
+        if backend == "tile" and cache.tile_pairs is None:
+            raise ValueError("the tile backend needs SpatialCache(tile_pairs=...): size it "
+                             "with ops.cuda.tile_conv.auto_tile_pairs on representative data")
         if self.use_pdf:
             pdf = cache.pdf(in_level, radius)
         else:
             pdf = torch.ones_like(src.mask, dtype=features.dtype)
-        pick_backend(
-            src.points.shape[1], radius, self.c_in, self.c_out,
-            n_samples=dst.points.shape[1], device=features.device,
-        )  # "dense" or NotImplementedError
-        out = dense_mc_conv(
-            self.params(), dst.points, dst.mask, src.points, src.mask, features, pdf,
-            radius, c_out=self.c_out, mean_normalize=not self.use_pdf,
-        )
+        args = (self.params(), dst.points, dst.mask, src.points, src.mask, features, pdf,
+                radius)
+        if backend == "tile":
+            # the capacity is sized for the level-0 sites; deeper sites run lossless
+            max_pairs = cache.tile_pairs if 0 in (in_level, out_level) else 1 << 30
+            out, overflow = tile_mc_conv(
+                *args, max_pairs=max_pairs,
+                max_steps=cache.site_steps("conv", in_level, out_level, radius),
+                c_out=self.c_out, mean_normalize=not self.use_pdf, with_overflow=True,
+            )
+            cache.report_tile_overflow(overflow)
+        else:
+            out = dense_mc_conv(*args, c_out=self.c_out, mean_normalize=not self.use_pdf)
         return torch.where(dst.mask[..., None], out, 0.0)
+
+
+class Conv1x1(nn.Linear):
+    """Per-point feature mixing (``mccnn_tpu/models/layers.py:134``): flax
+    ``Dense`` over the last axis, with its init (lecun_normal, zero bias)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 *, generator: torch.Generator | None = None):
+        super().__init__(in_features, features, bias=use_bias)
+        with torch.no_grad():
+            _truncated_normal_(self.weight, in_features, 1.0, generator)
+            if use_bias:
+                self.bias.zero_()
 
 
 class MaskedBatchNorm(nn.Module):
@@ -217,8 +259,4 @@ class FullyConnected(nn.Module):
 
 def dense_layer(in_features: int, features: int, generator=None) -> nn.Linear:
     """``nn.Linear`` with flax ``Dense``'s init (lecun_normal kernel, zero bias)."""
-    layer = nn.Linear(in_features, features)
-    with torch.no_grad():
-        _truncated_normal_(layer.weight, in_features, 1.0, generator)
-        layer.bias.zero_()
-    return layer
+    return Conv1x1(in_features, features, generator=generator)

@@ -55,6 +55,10 @@ SIGNATURES = {
     "mcconv_bwd_dg_depthwise_launch": [P, P, P, I, I, I, P, P],
     "mcconv_bwd_dw2_depthwise_launch": [P, P, I, I, I, I, I, P, P],
     "mcconv_bwd_reduce_launch": [P, I, I, P, P],
+    "tile_conv_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, I,
+                         P, P, P],
+    "tile_kde_launch": [P, P, P, P, I, I, I, I, I, F, F, P, P],
+    "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, F, P, P],
 }
 
 

@@ -70,20 +70,25 @@ def _offsets(sample_pts, source_pts, radius):
 def _forward_reference(params, sample_pts, sample_mask, source_pts, source_mask, wf,
                        radius, c_out, mean_normalize):
     """Plain forward from the weighted features: ``(out, cnt, G)``."""
-    H = params.w1.shape[1]
     inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
     act = torch.relu(_offsets(sample_pts, source_pts, radius) @ params.w1 + params.b1)
     a = torch.cat([act, torch.ones_like(act[..., :1])], dim=-1) * inr[..., None]
     G = torch.einsum("bmnh,bnc->bmhc", a, wf)  # (B, M, H+1, C)
     cnt = inr.sum(dim=-1).to(wf.dtype)
+    return project_reference(params, G, cnt, sample_mask, c_out, mean_normalize), cnt, G
+
+
+def project_reference(params, G, cnt, sample_mask, c_out, mean_normalize):
+    """The plain projection of ``G (B, M, H+1, C)`` by (W2, b2), scaled per
+    sample (the dense and the tile conv share it)."""
+    H = params.w1.shape[1]
     if c_out is None:
         out = (G[:, :, :H] * params.w2).sum(dim=2) + G[:, :, H] * params.b2
     else:
         B, M, _, C = G.shape
         out = G[:, :, :H].reshape(B, M, H * C) @ params.w2.reshape(H * C, c_out)
         out = out + G[:, :, H] @ params.b2.reshape(C, c_out)
-    out = out * _scale(cnt, sample_mask, mean_normalize)[..., None]
-    return out, cnt, G
+    return out * _scale(cnt, sample_mask, mean_normalize)[..., None]
 
 
 def dense_mc_conv_reference(

@@ -1,0 +1,703 @@
+"""The z-order tile machinery and its three kernels (port of
+``mccnn_tpu/ops/pallas/tile_conv.py``): K5, the tile MC-conv forward; K7, the
+tile KDE; K8, the tile cover count of the big-scene Poisson sampler.
+
+Points are sorted along a 3-D Hilbert curve and cut into fixed tiles of
+``T = 128`` consecutive points (the majors) and ``Tm = 32`` (the minors). A
+sample tile and a candidate minor form a pair when their boxes, dilated by the
+radius, touch and each side holds a point near the other's box
+(``_refined_adjacency``, a conservative test: no in-radius pair is lost). The
+pairs become a chunked step list: step ``k`` of cloud ``b`` is one sample tile
+``i_ids[b, k]`` (non-decreasing) and up to ``G = chunk * T / Tm`` of its
+candidate minors ``j_ids[b, :, k]`` (``n_minor`` = none). A static step
+budget ``S`` bounds the list; steps beyond it are dropped and counted as
+overflow, as in the reference. All of this host-side machinery is integer and
+boolean tensor code that equals the JAX package's exactly; it runs on the
+tensors' device.
+
+The kernels (``csrc/tile_conv.cu`` for K5, ``csrc/tile_sweep.cu`` for K7 and
+K8) give one block to each (cloud, sample tile), K5 also to each channel
+block, and walk that tile's contiguous run of steps (``run[b, t]`` to
+``run[b, t + 1]``, built with ``searchsorted``): every output row has one
+writer and the sums run in step order, so two calls are bit-identical. Each
+kernel has a plain PyTorch version that walks the same step list, so it drops
+exactly what the kernel drops when the budget is short. The public functions
+(``tile_mc_conv``, ``tile_kde``, ``TileCoverSweep.counts``) pick by device:
+CPU tensor -> plain version, CUDA tensor -> kernel.
+
+Invalid rows are masked explicitly. The reference parks them at a far
+``SENTINEL`` coordinate, where the expanded d2 of two sentinels cancels to
+about 0, an "in-radius" pair that only later masking hides; here positions of
+invalid and padding rows are 0 and a validity flag rides beside them. The
+reference's environment-switched variants (Morton order, box-only adjacency,
+other minor sizes, packed records, probes) are not ported: the port takes
+their defaults (Hilbert, refined adjacency, Tm = 32).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...core.gather import batched_gather
+from ...core.grid import pair_d2, radius_sq
+from ...core.mcconv import MCConvParams
+from . import _build, dense_conv
+
+DEFAULT_TILE = 128
+DEFAULT_CHUNK = 8
+DEFAULT_MINOR = 32
+DEFAULT_COVER_CHUNK = 8
+MORTON_BITS = 8  # 256 curve cells per axis
+_BIG_I32 = 2**30
+STEP_CHUNK = 8  # steps per pass of the plain versions
+
+# Launches of each kernel since the last reset (see density_kernel.py).
+launches = 0  # K5
+kde_launches = 0  # K7
+cover_launches = 0  # K8
+
+
+# ---------------------------------------------------------------- curve order
+
+
+def hilbert_code(c: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer coords ``(..., 3)`` in ``[0, 2**bits)`` -> 3-D Hilbert index
+    (int32; ``3 * bits <= 30``): Skilling's transform, as ``tile_conv.py:133``."""
+    assert 3 * bits <= 30, bits
+    X = [c[..., 0], c[..., 1], c[..., 2]]
+    n = 3
+    M = 1 << (bits - 1)
+    Q = M
+    while Q > 1:
+        P = Q - 1
+        for i in range(n):
+            t = (X[i] & Q) != 0
+            X[0] = torch.where(t, X[0] ^ P, X[0])
+            tt = (X[i] & Q) == 0
+            tmp = (X[0] ^ X[i]) & P
+            X[0] = torch.where(tt, X[0] ^ tmp, X[0])
+            X[i] = torch.where(tt, X[i] ^ tmp, X[i])
+        Q >>= 1
+    for i in range(1, n):  # Gray encode
+        X[i] = X[i] ^ X[i - 1]
+    t = torch.zeros_like(X[0])
+    Q = M
+    while Q > 1:
+        t = torch.where((X[n - 1] & Q) != 0, t ^ (Q - 1), t)
+        Q >>= 1
+    X = [x ^ t for x in X]
+    code = torch.zeros_like(X[0])
+    for b in range(bits - 1, -1, -1):
+        for i in range(n):
+            code = (code << 1) | ((X[i] >> b) & 1)
+    return code
+
+
+def hilbert_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) stable argsort of the Hilbert index; invalid points sort last."""
+    res = 1 << MORTON_BITS
+    c = (points * res).to(torch.int32).clamp(0, res - 1)
+    code = torch.where(mask, hilbert_code(c, MORTON_BITS), _BIG_I32)
+    return torch.argsort(code, dim=-1, stable=True)
+
+
+def curve_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The ordering every tile function shares: Hilbert (the reference's
+    default; its ``MCCNN_TILE_ORDER=morton`` is not ported)."""
+    return hilbert_order(points, mask)
+
+
+def tile_minor(tile: int = DEFAULT_TILE) -> int:
+    """Candidate-side minor tile: ``min(tile, 32)`` (``tile_conv.py:387``)."""
+    return min(tile, DEFAULT_MINOR)
+
+
+# ---------------------------------------------------------------- tiles
+
+
+def _sorted_rows(points, mask, order, n_rows):
+    """Positions (B, n_rows, 3) and validity (B, n_rows) in ``order``, padded
+    with invalid rows; invalid rows hold 0."""
+    B, N, _ = points.shape
+    p = torch.gather(points, 1, order[..., None].expand(B, N, 3))
+    v = torch.gather(mask, 1, order)
+    p = torch.where(v[..., None], p, 0.0)
+    pad = n_rows - N
+    if pad:
+        p = torch.cat([p, p.new_zeros((B, pad, 3))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad))], dim=1)
+    return p, v
+
+
+def _tile_boxes(p, v, T):
+    """Per-tile boxes of the valid points: ``mn``, ``mx`` (B, n_rows // T, 3),
+    +inf / -inf for a tile with none (``_sorted_tiles``, ``tile_conv.py:195``)."""
+    B, n_rows, _ = p.shape
+    nt = n_rows // T
+    mn = torch.where(v[..., None], p, math.inf).reshape(B, nt, T, 3).amin(dim=2)
+    mx = torch.where(v[..., None], p, -math.inf).reshape(B, nt, T, 3).amax(dim=2)
+    return mn, mx
+
+
+def _tile_adjacency(mn_i, mx_i, mn_j, mx_j, radius):
+    """(B, n_i, n_j): box i dilated by ``radius`` meets box j (``:217``)."""
+    lo = mn_i[:, :, None, :] - radius <= mx_j[:, None, :, :]
+    hi = mx_i[:, :, None, :] + radius >= mn_j[:, None, :, :]
+    return (lo & hi).all(dim=-1)
+
+
+def _points_near_boxes(p, v, mn, mx, T, radius):
+    """(B, n_rows // T, n_boxes): some valid point of tile a lies within
+    ``radius`` of box b, with the reference's 1e-5 relative slack (``:226``)."""
+    B, n_rows, _ = p.shape
+    ntb = mn.shape[1]
+    d2 = p.new_zeros((B, n_rows, ntb))
+    for d in range(3):
+        x = p[..., d][..., None]
+        lo = (mn[:, None, :, d] - x).clamp_min(0.0)
+        hi = (x - mx[:, None, :, d]).clamp_min(0.0)
+        s = lo + hi
+        d2 = d2 + s * s
+    thr = float(np.float32(float(radius) * float(radius) * (1.0 + 1e-5)))
+    near = (d2 <= thr) & v[..., None]
+    return near.reshape(B, n_rows // T, T, ntb).any(dim=2)
+
+
+def _refined_adjacency(smp, smp_v, mn_i, mx_i, src, src_v, mn_j, mx_j, T, radius, Tm):
+    """Box-box adjacency of sample majors (``T``) and source minors (``Tm``),
+    intersected with the point-near-box test both ways (``:254``)."""
+    nts, ntp = mn_i.shape[1], mn_j.shape[1]
+    adj = _tile_adjacency(mn_i, mx_i, mn_j, mx_j, radius)
+    near_ij = _points_near_boxes(smp[:, : nts * T], smp_v[:, : nts * T], mn_j, mx_j, T, radius)
+    near_ji = _points_near_boxes(src[:, : ntp * Tm], src_v[:, : ntp * Tm], mn_i, mx_i, Tm,
+                                 radius)
+    return adj & near_ij & near_ji.transpose(1, 2)
+
+
+def _chunked_pair_lists(adj, S_steps, G, pad_major, sentinel_minor):
+    """Chunked step list over ``adj`` (B, n_major, n_minor): ``major`` (B, S)
+    non-decreasing, padded with ``pad_major``, and ``minors`` (B, G, S), padded
+    with ``sentinel_minor`` (``:276``). Each step holds one major and up to G
+    of its true minors, in ascending id order; the list is padded to
+    ``S_steps`` with inert steps and never truncated below it."""
+    B, n_major, n_minor = adj.shape
+    dev = adj.device
+    order = torch.argsort((~adj).to(torch.int32), dim=-1, stable=True).to(torch.int32)
+    cnt = adj.sum(dim=-1)
+    rank = torch.arange(n_minor, device=dev)
+    minors_full = torch.where(rank < cnt[..., None], order, sentinel_minor)
+    n_chunks = -(-n_minor // G)
+    pad = n_chunks * G - n_minor
+    if pad:
+        minors_full = torch.cat(
+            [minors_full, minors_full.new_full((B, n_major, pad), sentinel_minor)], dim=-1)
+    chunks = minors_full.reshape(B, n_major * n_chunks, G)
+    occ = torch.arange(n_chunks, device=dev) * G < cnt[..., None]
+    occ_flat = occ.reshape(B, n_major * n_chunks)
+    sel = torch.argsort((~occ_flat).to(torch.int32), dim=-1, stable=True)[:, :S_steps]
+    real = torch.gather(occ_flat, 1, sel)
+    major = torch.where(real, sel // n_chunks, pad_major).to(torch.int32)
+    idx = torch.where(real, sel, 0)
+    minors = torch.gather(chunks, 1, idx[..., None].expand(*idx.shape, G))
+    minors = torch.where(real[..., None], minors, sentinel_minor).to(torch.int32)
+    L = major.shape[1]
+    if L < S_steps:
+        major = torch.cat([major, major.new_full((B, S_steps - L), pad_major)], dim=1)
+        minors = torch.cat(
+            [minors, minors.new_full((B, S_steps - L, G), sentinel_minor)], dim=1)
+    return major.contiguous(), minors.transpose(1, 2).contiguous()
+
+
+def _steps_for_pairs(max_pairs, G, n_major, n_minor):
+    """Static step budget that holds any ``max_pairs`` pairs (``:329``)."""
+    full = -(-max_pairs // G) + n_major
+    return min(full, n_major * (-(-n_minor // G)))
+
+
+def _needed_steps(adj, G):
+    """(B,) steps the chunked list needs to hold every pair of ``adj`` (``:336``)."""
+    cnt = adj.sum(dim=-1)
+    return ((cnt + G - 1) // G).sum(dim=-1)
+
+
+def _count_adjacency(sample_pts, sample_mask, src_pts, src_mask, radius, tile, minor):
+    """The adjacency one list direction sees: sample majors x source minors."""
+    M, N = sample_pts.shape[1], src_pts.shape[1]
+    nts, ntp = -(-M // tile), -(-N // minor)
+    smp, smp_v = _sorted_rows(sample_pts, sample_mask, curve_order(sample_pts, sample_mask),
+                              nts * tile)
+    src, src_v = _sorted_rows(src_pts, src_mask, curve_order(src_pts, src_mask), ntp * minor)
+    mn_i, mx_i = _tile_boxes(smp, smp_v, tile)
+    mn_j, mx_j = _tile_boxes(src, src_v, minor)
+    return _refined_adjacency(smp, smp_v, mn_i, mx_i, src, src_v, mn_j, mx_j, tile, radius,
+                              minor)
+
+
+def count_tile_pairs(sample_pts, sample_mask, src_pts, src_mask, radius,
+                     tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """(B,) surviving tile-pair count, the max over both list directions (``:419``)."""
+    minor = tile_minor(tile)
+    fwd = _count_adjacency(sample_pts, sample_mask, src_pts, src_mask, radius, tile,
+                           minor).sum(dim=(1, 2))
+    if minor == tile:
+        return fwd
+    bwd = _count_adjacency(src_pts, src_mask, sample_pts, sample_mask, radius, tile,
+                           minor).sum(dim=(1, 2))
+    return torch.maximum(fwd, bwd)
+
+
+def count_tile_steps(sample_pts, sample_mask, src_pts, src_mask, radius,
+                     tile: int = DEFAULT_TILE, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """(B,) chunked-step demand, the max over both list directions: the exact
+    lossless ``max_steps`` of ``tile_mc_conv`` on these inputs (``:446``)."""
+    minor = tile_minor(tile)
+    gm = chunk * (tile // minor)
+    fwd = _count_adjacency(sample_pts, sample_mask, src_pts, src_mask, radius, tile, minor)
+    bwd = (fwd.transpose(1, 2) if minor == tile else
+           _count_adjacency(src_pts, src_mask, sample_pts, sample_mask, radius, tile, minor))
+    return torch.maximum(_needed_steps(fwd, gm), _needed_steps(bwd, gm))
+
+
+def auto_tile_pairs(pts, mask, radius: float, *, tile: int = DEFAULT_TILE,
+                    chunk: int = DEFAULT_CHUNK, headroom: float = 1.3,
+                    multiple: int = 256) -> int:
+    """Static ``max_pairs`` sized from a representative batch's measured step
+    demand (``:344``): the batch max of ``count_tile_steps`` against itself,
+    times ``headroom``, with the step formula inverted and rounded up to
+    ``multiple``."""
+    N = pts.shape[1]
+    nt = -(-N // tile)
+    need = int(count_tile_steps(pts, mask, pts, mask, radius, tile, chunk).max())
+    target_s = int(need * headroom) + 1
+    gm = chunk * (tile // tile_minor(tile))
+    n = max(gm * (target_s - nt), gm)
+    return -(-n // multiple) * multiple
+
+
+# ---------------------------------------------------------------- step lists
+
+
+class StepList(NamedTuple):
+    """A chunked step list and the per-tile runs the kernels walk."""
+
+    i_ids: torch.Tensor  # (B, S) int32, non-decreasing sample-tile ids
+    j_ids: torch.Tensor  # (B, G, S) int32 candidate-minor ids (n_minor = none)
+    run: torch.Tensor  # (B, n_major + 1) int32: tile t walks steps run[t]:run[t+1]
+    n_minor: int  # the sentinel minor id
+    need: torch.Tensor  # (B,) steps this direction needs for every pair
+
+
+def _step_list(adj, S, G) -> StepList:
+    B, n_major, n_minor = adj.shape
+    i_ids, j_ids = _chunked_pair_lists(adj, S, G, n_major - 1, n_minor)
+    tiles = torch.arange(n_major + 1, device=adj.device, dtype=torch.int32)
+    run = torch.searchsorted(i_ids, tiles.expand(B, n_major + 1).contiguous())
+    return StepList(i_ids, j_ids, run.to(torch.int32).contiguous(), n_minor,
+                    _needed_steps(adj, G))
+
+
+def _walk_steps(steps: StepList, T: int, Tm: int):
+    """Yield, per chunk of steps of the plain versions: the sample rows (B, Sc,
+    T), the candidate rows (B, Sc, G*Tm), whether each candidate row is a
+    real minor's (B, Sc, G*Tm), and the flat (b, tile) index of each step."""
+    B, G, S = steps.j_ids.shape
+    n_major = steps.run.shape[1] - 1
+    dev = steps.i_ids.device
+    ar_t = torch.arange(T, device=dev)
+    ar_m = torch.arange(Tm, device=dev)
+    base = torch.arange(B, device=dev)[:, None] * n_major
+    for k0 in range(0, S, STEP_CHUNK):
+        ii = steps.i_ids[:, k0:k0 + STEP_CHUNK].long()
+        jj = steps.j_ids[:, :, k0:k0 + STEP_CHUNK].long().transpose(1, 2)  # (B, Sc, G)
+        # a step's real minors come first: drop the columns no step fills
+        jj = jj[..., : max(1, int((jj != steps.n_minor).sum(-1).max()))]
+        real = (jj != steps.n_minor)[..., None].expand(*jj.shape, Tm)
+        cand = (jj.clamp(max=steps.n_minor - 1)[..., None] * Tm + ar_m)
+        smp_rows = ii[..., None] * T + ar_t
+        yield (smp_rows, cand.flatten(2), real.flatten(2), (base + ii).reshape(-1))
+
+
+# ---------------------------------------------------------------- K5: tile conv
+
+
+class ConvLayout(NamedTuple):
+    """Sorted sample and source rows and the forward step list of one site."""
+
+    order_s: torch.Tensor  # (B, M) sample curve order
+    order_p: torch.Tensor  # (B, N) source curve order
+    smp: torch.Tensor  # (B, nts*T, 3) sorted sample positions (invalid rows 0)
+    smp_valid: torch.Tensor  # (B, nts*T)
+    src: torch.Tensor  # (B, ntp_m*Tm, 3) sorted source positions
+    src_valid: torch.Tensor  # (B, ntp_m*Tm)
+    steps: StepList  # forward list: sample majors x source minors
+    S: int
+    overflow: torch.Tensor  # (B,) dropped steps, max over both directions
+
+
+def conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius: float, *,
+                max_pairs: int, max_steps: int | None = None, tile: int = DEFAULT_TILE,
+                chunk: int = DEFAULT_CHUNK) -> ConvLayout:
+    """The layout ``tile_mc_conv`` builds (``tile_conv.py:1265-1342``): both
+    curve orders, the forward (sample-major) and backward (source-major)
+    adjacencies, one static step budget ``S`` for both and the forward list."""
+    T = tile
+    Tm = tile_minor(T)
+    Gm = chunk * (T // Tm)
+    M, N = sample_pts.shape[1], src_pts.shape[1]
+    nts, ntp = -(-M // T), -(-N // T)
+    nts_m, ntp_m = -(-M // Tm), -(-N // Tm)
+    order_s = curve_order(sample_pts, sample_mask)
+    order_p = curve_order(src_pts, src_mask)
+    smp, smp_v = _sorted_rows(sample_pts, sample_mask, order_s, nts * T)
+    src, src_v = _sorted_rows(src_pts, src_mask, order_p, ntp * T)
+    mn_i, mx_i = _tile_boxes(smp, smp_v, T)
+    mn_j, mx_j = _tile_boxes(src, src_v, T)
+    mn_i_m, mx_i_m = _tile_boxes(smp[:, : nts_m * Tm], smp_v[:, : nts_m * Tm], Tm)
+    mn_j_m, mx_j_m = _tile_boxes(src[:, : ntp_m * Tm], src_v[:, : ntp_m * Tm], Tm)
+    adj_f = _refined_adjacency(smp, smp_v, mn_i, mx_i, src, src_v, mn_j_m, mx_j_m, T, radius,
+                               Tm)
+    adj_b = _refined_adjacency(src, src_v, mn_j, mx_j, smp, smp_v, mn_i_m, mx_i_m, T, radius,
+                               Tm)
+    cap_f = min(max_pairs, nts * ntp_m)
+    cap_b = min(max_pairs, ntp * nts_m)
+    S = max(_steps_for_pairs(cap_f, Gm, nts, ntp_m), _steps_for_pairs(cap_b, Gm, ntp, nts_m))
+    if max_steps is not None:
+        S = min(S, max(int(max_steps), 1))
+    steps = _step_list(adj_f, S, Gm)
+    need = torch.maximum(steps.need, _needed_steps(adj_b, Gm))
+    return ConvLayout(order_s, order_p, smp.contiguous(), smp_v.contiguous(),
+                      src[:, : ntp_m * Tm].contiguous(), src_v[:, : ntp_m * Tm].contiguous(),
+                      steps, S, (need - S).clamp_min(0))
+
+
+def _sorted_weighted_features(lay: ConvLayout, features, pdf):
+    """``features / pdf`` in source curve order, 0 on invalid rows (B, ntp_m*Tm, C)."""
+    wf = features / pdf[..., None]
+    B, N, C = wf.shape
+    wf = torch.gather(wf, 1, lay.order_p[..., None].expand(B, N, C))
+    pad = lay.src.shape[1] - N
+    if pad:
+        wf = torch.cat([wf, wf.new_zeros((B, pad, C))], dim=1)
+    return torch.where(lay.src_valid[..., None], wf, 0.0)
+
+
+def tile_conv_sorted_reference(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                               radius: float, *, c_out=None, mean_normalize=False):
+    """Plain version of K5 on the sorted layout: ``(out (B, nts*T, C | c_out),
+    cnt (B, nts*T))``, scaled and 0 on invalid sample rows. It walks the step
+    list like the kernel and projects G as the dense conv's plain version."""
+    w1, b1 = params.w1, params.b1
+    H = w1.shape[1]
+    B, NS, _ = lay.smp.shape
+    C = wf.shape[-1]
+    T = DEFAULT_TILE
+    Tm = tile_minor(T)
+    nts = NS // T
+    r2 = radius_sq(radius)
+    G = wf.new_zeros((B * nts, T, H + 1, C))
+    cnt = wf.new_zeros((B * nts, T))
+    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T, Tm):
+        Sc = smp_rows.shape[1]
+        q = batched_gather(lay.smp, smp_rows).reshape(B * Sc, T, 3)
+        qv = batched_gather(lay.smp_valid, smp_rows).reshape(B * Sc, T)
+        p = batched_gather(lay.src, cand_rows).reshape(B * Sc, -1, 3)
+        pv = (batched_gather(lay.src_valid, cand_rows) & real).reshape(B * Sc, -1)
+        f = batched_gather(wf, cand_rows).reshape(B * Sc, -1, C)
+        inr = (pair_d2(q, p) <= r2) & qv[:, :, None] & pv[:, None, :]
+        off = (p[:, None, :, :] - q[:, :, None, :]) / radius
+        act = torch.relu(off @ w1 + b1)
+        a = torch.cat([act, torch.ones_like(act[..., :1])], dim=-1) * inr[..., None]
+        G.index_add_(0, tiles, torch.einsum("stnh,snc->sthc", a, f))
+        cnt.index_add_(0, tiles, inr.sum(dim=-1).to(wf.dtype))
+    G = G.reshape(B, NS, H + 1, C)
+    cnt = cnt.reshape(B, NS)
+    out = dense_conv.project_reference(params, G, cnt, lay.smp_valid, c_out, mean_normalize)
+    return out, cnt
+
+
+def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                          radius: float, *, c_out=None, mean_normalize=False):
+    """Launch K5 on the sorted layout; the outputs of the plain version."""
+    global launches
+    w1, b1, w2, b2 = (t.contiguous() for t in params)
+    wf = wf.contiguous()
+    st = lay.steps
+    _build.require_cuda("tile_mc_conv (K5)", lay.smp, lay.smp_valid, lay.src, lay.src_valid,
+                        wf, st.j_ids, st.run, w1, b1, w2, b2)
+    if any(t.dtype != torch.float32 for t in (lay.smp, lay.src, wf, w1, b1, w2, b2)):
+        raise TypeError("tile_mc_conv (K5): positions, features and params must be float32")
+    B, NS, _ = lay.smp.shape
+    NP = lay.src.shape[1]
+    C = wf.shape[-1]
+    H = w1.shape[1]
+    if H != dense_conv.HIDDEN or C > dense_conv.MAX_C:
+        raise NotImplementedError(f"K5 is built for H={dense_conv.HIDDEN} and "
+                                  f"C<={dense_conv.MAX_C}; got H={H}, C={C}")
+    T = DEFAULT_TILE
+    nts = NS // T
+    S = st.i_ids.shape[1]
+    Gm = st.j_ids.shape[1]
+    dev = wf.device
+    CO = C if c_out is None else c_out
+    cnt = torch.empty((B, NS), dtype=torch.float32, device=dev)
+    out = torch.empty((B, NS, CO), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    depthwise = c_out is None
+    G = None if depthwise else torch.empty((B, NS, H + 1, C), dtype=torch.float32, device=dev)
+    err = lib.tile_conv_launch(
+        _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
+        _build.ptr(lay.src_valid), _build.ptr(wf), _build.ptr(st.j_ids), _build.ptr(st.run),
+        _build.ptr(w1), _build.ptr(b1), _build.ptr(w2), _build.ptr(b2),
+        B, NS, NP, C, H, S, Gm, nts, st.n_minor, radius_sq(radius), float(radius),
+        int(mean_normalize), int(depthwise),
+        _build.ptr(out) if depthwise else _build.ptr(G), _build.ptr(cnt), stream,
+    )
+    _build.check(err, "tile_conv_kernel")
+    if not depthwise:
+        scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize).contiguous()
+        err = lib.mcconv_project_full_launch(
+            _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
+            B * NS, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
+        )
+        _build.check(err, "mcconv_project_full_kernel (K5)")
+    launches += 1
+    return out, cnt
+
+
+class TileMCConvFunction(torch.autograd.Function):
+    """K5 forward on CUDA tensors; its backward is K6, not ported yet."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, wf, lay, radius, c_out, mean_normalize):
+        out, _ = tile_conv_sorted_cuda(MCConvParams(w1, b1, w2, b2), lay, wf, radius,
+                                       c_out=c_out, mean_normalize=mean_normalize)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            "the tile conv's backward is K6 (mccnn_tpu/ops/pallas/tile_conv.py:658), "
+            "ported with ScanNet training (ROADMAP queue 2); train big scenes on the "
+            "CPU plain path or wait for that slice"
+        )
+
+
+def _unsort(rows_sorted, order):
+    """Rows in curve order (B, >= N, F) -> the caller's order (B, N, F)."""
+    B, N = order.shape
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(N, device=order.device).expand(B, N).contiguous())
+    return torch.gather(rows_sorted, 1, inv[..., None].expand(B, N, rows_sorted.shape[-1]))
+
+
+def tile_mc_conv(params: MCConvParams, sample_pts, sample_mask, src_pts, src_mask, features,
+                 pdf, radius: float, *, max_pairs: int, max_steps: int | None = None,
+                 c_out: int | None = None, mean_normalize: bool = False,
+                 with_overflow: bool = False):
+    """Monte-Carlo conv over Hilbert tile pairs (``tile_conv.py:1207``): every
+    valid in-radius source that the step list reaches contributes. Returns
+    ``out (B, M, C | c_out)`` and, with ``with_overflow``, the (B,) dropped
+    step count (nonzero means missing neighbours: raise the budget). CPU
+    tensors run the plain version (differentiable by autograd); CUDA tensors
+    run K5 through ``TileMCConvFunction``."""
+    lay = conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius,
+                      max_pairs=max_pairs, max_steps=max_steps)
+    wf = _sorted_weighted_features(lay, features, pdf)
+    if wf.device.type == "cpu":
+        out_sorted, _ = tile_conv_sorted_reference(params, lay, wf, radius, c_out=c_out,
+                                                   mean_normalize=mean_normalize)
+    else:
+        out_sorted = TileMCConvFunction.apply(*params, wf, lay, float(radius), c_out,
+                                              mean_normalize)
+    out = _unsort(out_sorted, lay.order_s)
+    out = torch.where(sample_mask[..., None], out, 0.0)
+    return (out, lay.overflow) if with_overflow else out
+
+
+# ---------------------------------------------------------------- K7 and K8
+
+
+class SelfLayout(NamedTuple):
+    """One point set against itself: sorted rows, the step list, its overflow."""
+
+    order: torch.Tensor  # (B, N)
+    pts: torch.Tensor  # (B, nt*T, 3) sorted positions (invalid rows 0)
+    valid: torch.Tensor  # (B, nt*T)
+    steps: StepList  # sample majors (T) x candidate minors (Tm) of the same rows
+    S: int
+    overflow: torch.Tensor  # (B,)
+
+
+def self_adjacency(points, mask, radius: float, order: torch.Tensor):
+    """One point set against itself in ``order``: the sorted rows (B, nt*T, 3),
+    their validity and the refined sample-tile (T) x candidate-minor (Tm)
+    adjacency (B, nt, nt_m)."""
+    T = DEFAULT_TILE
+    Tm = tile_minor(T)
+    N = points.shape[1]
+    nt, nt_m = -(-N // T), -(-N // Tm)
+    p, v = _sorted_rows(points, mask, order, nt * T)
+    mn, mx = _tile_boxes(p, v, T)
+    mn_m, mx_m = _tile_boxes(p[:, : nt_m * Tm], v[:, : nt_m * Tm], Tm)
+    return p, v, _refined_adjacency(p, v, mn, mx, p, v, mn_m, mx_m, T, radius, Tm)
+
+
+def count_self_steps(points, mask, radius: float, order: torch.Tensor,
+                     chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """(B,) chunked-step demand of one point set against itself in ``order``."""
+    _, _, adj = self_adjacency(points, mask, radius, order)
+    return _needed_steps(adj, chunk * (DEFAULT_TILE // tile_minor()))
+
+
+def self_layout(points, mask, radius: float, *, max_pairs: int, max_steps: int | None = None,
+                chunk: int = DEFAULT_CHUNK, order: torch.Tensor | None = None) -> SelfLayout:
+    """The layout of ``tile_kde`` and ``make_cover_sweep`` (``:1470-1483``,
+    ``:1676-1697``)."""
+    if order is None:
+        order = curve_order(points, mask)
+    p, v, adj = self_adjacency(points, mask, radius, order)
+    nt, nt_m = adj.shape[1], adj.shape[2]
+    Gm = chunk * (DEFAULT_TILE // tile_minor())
+    S = _steps_for_pairs(min(max_pairs, nt * nt_m), Gm, nt, nt_m)
+    if max_steps is not None:
+        S = min(S, max(int(max_steps), 1))
+    steps = _step_list(adj, S, Gm)
+    return SelfLayout(order, p.contiguous(), v.contiguous(), steps, S,
+                      (steps.need - S).clamp_min(0))
+
+
+def _self_sums_reference(lay: SelfLayout, radius: float, weigh, dtype, flags=None):
+    """Per sorted row, the sum of ``weigh(d2, in_radius)`` over the candidates
+    the step list reaches (only ``flags`` rows when given); 0 on invalid rows."""
+    B, NR, _ = lay.pts.shape
+    T = DEFAULT_TILE
+    r2 = radius_sq(radius)
+    acc = torch.zeros((B * (NR // T), T), dtype=dtype, device=lay.pts.device)
+    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T, tile_minor(T)):
+        Sc = smp_rows.shape[1]
+        q = batched_gather(lay.pts, smp_rows).reshape(B * Sc, T, 3)
+        p = batched_gather(lay.pts, cand_rows).reshape(B * Sc, -1, 3)
+        pv = batched_gather(lay.valid, cand_rows) & real
+        if flags is not None:
+            pv = pv & batched_gather(flags, cand_rows)
+        d2 = pair_d2(q, p)
+        acc.index_add_(0, tiles, weigh(d2, (d2 <= r2) & pv.reshape(B * Sc, 1, -1)))
+    acc = acc.reshape(B, NR)
+    return torch.where(lay.valid, acc, torch.zeros_like(acc))
+
+
+def _kde_constants(radius: float, kde_window: float):
+    h = kde_window * float(radius)
+    return -0.5 / (h * h), 1.0 / ((h**3) * (2.0 * math.pi) ** 1.5)
+
+
+def tile_kde_sums_reference(lay: SelfLayout, radius: float, kde_window: float = 0.25):
+    """Plain version of K7: per sorted row, the unnormalised kernel sum."""
+    neg_half_inv_h2, _ = _kde_constants(radius, kde_window)
+
+    def weigh(d2, inr):
+        return torch.where(inr, torch.exp(d2.clamp_min(0.0) * neg_half_inv_h2), 0.0).sum(-1)
+
+    return _self_sums_reference(lay, radius, weigh, torch.float32)
+
+
+def tile_kde_sums_cuda(lay: SelfLayout, radius: float, kde_window: float = 0.25):
+    """Launch K7; the output of the plain version."""
+    global kde_launches
+    st = lay.steps
+    _build.require_cuda("tile_kde (K7)", lay.pts, lay.valid, st.j_ids, st.run)
+    B, NR, _ = lay.pts.shape
+    neg_half_inv_h2, _ = _kde_constants(radius, kde_window)
+    out = torch.empty((B, NR), dtype=torch.float32, device=lay.pts.device)
+    lib = _build.library()
+    err = lib.tile_kde_launch(
+        _build.ptr(lay.pts), _build.ptr(lay.valid), _build.ptr(st.j_ids), _build.ptr(st.run),
+        B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor, radius_sq(radius),
+        neg_half_inv_h2, _build.ptr(out), _build.stream_of(lay.pts),
+    )
+    _build.check(err, "tile_kde_kernel")
+    kde_launches += 1
+    return out
+
+
+def tile_kde(points, mask, radius: float, *, max_pairs: int, max_steps: int | None = None,
+             kde_window: float = 0.25, with_overflow: bool = False):
+    """Exact Gaussian-KDE density over tile pairs (``tile_conv.py:1436``): the
+    dense KDE's estimator, every in-radius neighbour the step list reaches,
+    masked points 1. CPU -> plain version, CUDA -> K7."""
+    lay = self_layout(points, mask, radius, max_pairs=max_pairs, max_steps=max_steps)
+    sums = (tile_kde_sums_reference if points.device.type == "cpu" else
+            tile_kde_sums_cuda)(lay, radius, kde_window)
+    _, norm = _kde_constants(radius, kde_window)
+    dens = _unsort((norm * sums)[..., None], lay.order)[..., 0]
+    out = torch.where(mask, dens, 1.0)
+    return (out, lay.overflow) if with_overflow else out
+
+
+def cover_counts_reference(lay: SelfLayout, flags: torch.Tensor, radius: float):
+    """Plain version of K8: per sorted row, the flagged valid candidates within
+    the radius (int32), 0 on invalid rows."""
+
+    def weigh(_d2, inr):
+        return inr.sum(-1).to(torch.int32)
+
+    return _self_sums_reference(lay, radius, weigh, torch.int32, flags)
+
+
+def cover_counts_cuda(lay: SelfLayout, flags: torch.Tensor, radius: float):
+    """Launch K8; the output of the plain version."""
+    global cover_launches
+    st = lay.steps
+    flags = flags.contiguous()
+    _build.require_cuda("cover_counts (K8)", lay.pts, lay.valid, flags, st.j_ids, st.run)
+    if flags.dtype != torch.bool:
+        raise TypeError("cover_counts (K8): flags must be bool")
+    B, NR, _ = lay.pts.shape
+    out = torch.empty((B, NR), dtype=torch.int32, device=lay.pts.device)
+    lib = _build.library()
+    err = lib.tile_cover_launch(
+        _build.ptr(lay.pts), _build.ptr(lay.valid), _build.ptr(flags), _build.ptr(st.j_ids),
+        _build.ptr(st.run), B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor,
+        radius_sq(radius), _build.ptr(out), _build.stream_of(lay.pts),
+    )
+    _build.check(err, "tile_cover_kernel")
+    cover_launches += 1
+    return out
+
+
+class TileCoverSweep(NamedTuple):
+    """Reusable tile machinery for the 27 cover queries of one point set
+    (``tile_conv.py:1565``): build once with ``make_cover_sweep``."""
+
+    layout: SelfLayout
+    radius: float
+
+    @property
+    def valid(self):
+        return self.layout.valid
+
+    @property
+    def overflow(self):
+        return self.layout.overflow
+
+    def counts(self, flags: torch.Tensor) -> torch.Tensor:
+        """flags (B, nt*T) bool over SORTED rows -> in-radius flagged-neighbour
+        counts (B, nt*T) int32, self included. CPU -> plain, CUDA -> K8."""
+        if flags.device.type == "cpu":
+            return cover_counts_reference(self.layout, flags, self.radius)
+        return cover_counts_cuda(self.layout, flags, self.radius)
+
+
+def make_cover_sweep(points, mask, radius: float, *, max_pairs: int,
+                     max_steps: int | None = None, order: torch.Tensor | None = None
+                     ) -> TileCoverSweep:
+    """``order`` overrides the curve order (the sampler passes its cell-Hilbert
+    order); the chunk is ``DEFAULT_COVER_CHUNK`` (``:1654``)."""
+    lay = self_layout(points, mask, radius, max_pairs=max_pairs, max_steps=max_steps,
+                      chunk=DEFAULT_COVER_CHUNK, order=order)
+    return TileCoverSweep(lay, float(radius))

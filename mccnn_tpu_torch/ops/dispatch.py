@@ -1,16 +1,23 @@
 """Backend dispatch for the MC convolution (port of ``mccnn_tpu/ops/dispatch.py``).
 
-This slice has one backend, ``dense`` (``ops/cuda/dense_conv.py``): the CUDA
-kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor. A CUDA
-conv site outside ``dense_fits`` would need the bucket or tile kernels, which
-are not ported yet, so it raises. No environment variable switches backends.
+Routing is by shape and is the same on every device, as ``pick_backend``
+routes on the TPU (``dispatch.py:63-79``): ``dense`` when the site fits the
+dense envelope, else ``bucket`` when ``ceil(1/r) >= 4``, else ``jnp`` (the
+reference's K-capacity conv). The conv layer promotes ``bucket`` to ``tile``
+when the cache holds a tile capacity. The device then picks kernel or plain
+version inside each backend. Ported backends: ``dense`` (K1 / K2) and
+``tile`` (K5); ``bucket`` (K9) and ``jnp`` (the K-capacity conv) raise where
+they are reached (``models/layers.py``). ``mode`` forces a backend, as the
+reference's ``MCCNN_TPU_CONV_BACKEND`` variable does; the port takes it as an
+argument.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
 DENSE_MAX_N = 3072  # mccnn_tpu/ops/pallas/dense_conv.py:53, copied for parity
+BACKENDS = ("auto", "dense", "tile", "bucket", "jnp")
 
 
 def dense_fits(n_sources: int, c_in: int, c_out: int | None,
@@ -34,14 +41,15 @@ def pick_backend(
     c_out: int | None,
     n_samples: int | None = None,
     *,
-    device: torch.device,
+    mode: str = "auto",
 ) -> str:
-    """``"dense"``, or ``NotImplementedError`` for a CUDA site outside the envelope."""
-    del radius  # the bucket/tile choice that reads it is not ported yet
-    if torch.device(device).type == "cpu" or dense_fits(n_sources, c_in, c_out, n_samples):
+    """``"dense"``, ``"bucket"`` or ``"jnp"`` by shape, or ``mode`` when forced."""
+    if mode not in BACKENDS:
+        raise ValueError(f"conv backend {mode!r}: expected one of {BACKENDS}")
+    if mode != "auto":
+        return mode
+    if dense_fits(n_sources, c_in, c_out, n_samples):
         return "dense"
-    raise NotImplementedError(
-        f"conv site N={n_sources}, M={n_samples}, C={c_in}->{c_out} is outside "
-        "the dense envelope; the bucket (K9) and tile (K5) kernels are ported "
-        "with the big-scene slice (ROADMAP queue 2)"
-    )
+    if math.ceil(1.0 / radius) >= 4:
+        return "bucket"
+    return "jnp"

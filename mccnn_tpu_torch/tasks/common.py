@@ -3,10 +3,16 @@ checkpoints and JSONL metrics (port of ``mccnn_tpu/tasks/common.py``).
 
 One device: ``--device`` (default ``cuda``) names it, and a CUDA device that
 is missing raises rather than falling back to the CPU. The reference's mesh
-(``common.py:197-212``) and its tile-capacity sizing and resize
-(``:88-179``, ``:265-299``, ``:356-381``) are not here: they come with the
-big-scene and distribution slices, and MCClassS at N = 1024 never reaches
-them.
+(``common.py:197-212``) comes with the distribution slice.
+
+Tile capacities (``:88-179``): a model with a ``tile_pairs`` knob left unset
+gets it sized from the example batch when that batch is big-scene scale
+(``maybe_auto_tile_pairs``), and per-site step budgets measured on the same
+batch (``auto_tile_steps``). Evaluation recovers from overflow as the
+reference does (``:405-423``): a batch that drops steps grows the budgets to
+cover it and runs again, up to three times (``_resize_tile_capacity``). The
+training side of that recovery comes with ScanNet training; until then a
+training forward that overflows raises (``models/mcseg.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from ..api.hierarchy import build_hierarchy
+from ..core.sampling import count_poisson_sweep_steps
+from ..ops.cuda.tile_conv import auto_tile_pairs, count_tile_steps
+from ..ops.dispatch import DENSE_MAX_N
 from ..train import batch_to_device, init_state, make_optimizer, make_train_step
 from ..train.checkpoint import Checkpointer
 from ..train.metrics import MetricsLogger
@@ -81,13 +91,74 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-class Runner:
-    """Owns the train state, the train step, checkpoints and the epoch loop."""
+def _level0_radius(model) -> float:
+    """The largest level-0 conv radius: it bounds every other site's demand."""
+    return float(model.radii[0]) * float(getattr(model, "conv_radius_scale", 2.0))
 
-    def __init__(self, args, model: torch.nn.Module, loss_fn: Callable, run_name: str):
+
+@torch.no_grad()
+def maybe_auto_tile_pairs(model, example_batch: dict, device: torch.device):
+    """Size an unset ``tile_pairs`` knob from ``example_batch`` (in place)
+    when the batch is big-scene scale (``common.py:88``), then the per-site
+    step budgets when ``tile_steps`` is unset. A model without the knob, or a
+    batch within the dense bound, is left alone."""
+    if getattr(model, "tile_pairs", False) is False:
+        return model
+    pts = np.asarray(example_batch["points"])
+    if pts.shape[1] <= DENSE_MAX_N:
+        return model
+    pts_t = torch.from_numpy(pts).to(device)
+    mask_t = torch.from_numpy(np.asarray(example_batch["mask"])).to(device)
+    if model.tile_pairs is None:
+        radius = _level0_radius(model)
+        model.tile_pairs = auto_tile_pairs(pts_t, mask_t, radius)
+        print(f"# auto tile_pairs = {model.tile_pairs} (N={pts.shape[1]}, r0={radius})")
+    if getattr(model, "tile_steps", False) is None and hasattr(model, "tile_sites"):
+        model.tile_steps = auto_tile_steps(model, pts_t, mask_t)
+        print(f"# auto tile_steps = {model.tile_steps}")
+    return model
+
+
+@torch.no_grad()
+def auto_tile_steps(model, pts: torch.Tensor, mask: torch.Tensor,
+                    headroom: float = 1.3) -> dict:
+    """Measured per-site step budgets for ``model.tile_sites()`` (``common.py:134``):
+    the hierarchy is built once on ``pts``, each site's exact demand is
+    counted, times ``headroom``, rounded up to 16."""
+    h = build_hierarchy(pts, mask, tuple(float(r) for r in model.radii), global_level=False,
+                        tile_pairs=model.tile_pairs)
+    budgets = {}
+    for site in model.tile_sites(len(h.levels)):
+        if site[0] == "conv":
+            _, in_lvl, out_lvl, r = site
+            dst, src = h.levels[out_lvl], h.levels[in_lvl]
+            counts = count_tile_steps(dst.points, dst.mask, src.points, src.mask, float(r))
+        elif site[0] == "sweep":
+            _, lvl, r = site
+            src = h.levels[lvl]
+            counts = count_poisson_sweep_steps(src.points, src.mask, float(r))
+        else:  # kde: the source level against itself
+            _, lvl, r = site
+            src = h.levels[lvl]
+            counts = count_tile_steps(src.points, src.mask, src.points, src.mask, float(r))
+        need = int(counts.max())
+        budgets[site] = -(-int(need * headroom + 1) // 16) * 16
+    return budgets
+
+
+class Runner:
+    """Owns the train state, the train step, checkpoints and the epoch loop.
+
+    ``example_batch`` (numpy, optional) sizes a big-scene model's tile
+    capacities (``maybe_auto_tile_pairs``)."""
+
+    def __init__(self, args, model: torch.nn.Module, loss_fn: Callable, run_name: str,
+                 example_batch: dict | None = None):
         self.args = args
         self.device = resolve_device(args.device)
         self.model = model.to(self.device)
+        if example_batch is not None:
+            maybe_auto_tile_pairs(self.model, example_batch, self.device)
         self.optimizer = make_optimizer(
             self.model.parameters(),
             lr=args.lr,
@@ -130,21 +201,6 @@ class Runner:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-
-    def _pad_eval_batch(self, batch: dict) -> tuple[dict, int]:
-        """Pad a ragged final eval batch up to ``--batch`` by repeating its
-        first row (``common.py:322-343`` on one device: one eval shape). The
-        caller slices the outputs back to the returned true size."""
-        b = next(iter(batch.values())).shape[0]
-        full = getattr(self.args, "batch", b)
-        if b >= full:
-            return batch, b
-        pad = full - b
-        padded = {
-            k: np.concatenate([v, np.repeat(np.asarray(v)[:1], pad, axis=0)])
-            for k, v in batch.items()
-        }
-        return padded, b
 
     def train_epoch(self, batches: Iterator[dict], epoch: int) -> dict:
         """Train over ``batches`` (at most ``--steps-per-epoch``); logs and
@@ -217,13 +273,49 @@ class Runner:
                 "profile_device_events": sum(e.count for e in device)}
 
     def eval_logits(self, batch: dict) -> torch.Tensor:
-        """Eval-mode logits of one batch (padded to ``--batch`` and sliced back)."""
-        padded, b = self._pad_eval_batch(batch)
-        args = batch_to_device(padded, self.device)
+        """Eval-mode logits of one batch, as given: the reference pads a ragged
+        batch to ``--batch`` for one compiled shape (``common.py:322-343``);
+        eager PyTorch needs none, and in eval mode no cloud's result depends
+        on another's.
+
+        A model with tile sites reports its dropped steps; a batch that drops
+        any grows the budgets to cover it and runs again (``common.py:405-423``)."""
+        args = batch_to_device(batch, self.device)
+        inputs = (args["points"], args["mask"], args.get("features"))
         self.model.eval()
         with torch.inference_mode():
-            out = self.model(args["points"], args["mask"], args.get("features"))
-        return out[:b]
+            if not hasattr(self.model, "tile_sites"):
+                return self.model(*inputs)
+            out, ovf = self.model(*inputs, with_overflow=True)
+            attempts = 0
+            while (dropped := int(ovf)) > 0:
+                if attempts >= 3:
+                    raise RuntimeError(
+                        f"tile capacity overflow persists in eval after {attempts} re-sizes "
+                        f"({dropped} dropped steps)"
+                    )
+                attempts += 1
+                event = self._resize_tile_capacity(args)
+                self.metrics.log(self.state.step, tag="resize", tile_overflow=dropped,
+                                 attempt=attempts, phase="eval", **event)
+                out, ovf = self.model(*inputs, with_overflow=True)
+        return out
+
+    def _resize_tile_capacity(self, batch: dict) -> dict:
+        """Grow the model's tile budgets to cover ``batch`` (``common.py:265``):
+        each only ever grows, so earlier batches cannot overflow again."""
+        model = self.model
+        pts, mask = batch["points"], batch["mask"]
+        old_pairs = model.tile_pairs or 0
+        model.tile_pairs = max(old_pairs, auto_tile_pairs(pts, mask, _level0_radius(model)))
+        event = {"tile_pairs": model.tile_pairs, "tile_pairs_old": old_pairs}
+        if model.tile_steps is not None:
+            old = dict(model.tile_steps)
+            fresh = auto_tile_steps(model, pts, mask)
+            model.tile_steps = {k: max(old.get(k, 0), fresh.get(k, 0))
+                                for k in set(old) | set(fresh)}
+            event["tile_steps"] = {str(k): v for k, v in model.tile_steps.items()}
+        return event
 
     def save(self, epoch: int) -> None:
         self.ckpt.save(self.state, extra={"epoch": epoch})

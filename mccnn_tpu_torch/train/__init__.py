@@ -1,7 +1,7 @@
 """Training: losses, optimizer, train state and step, metrics, checkpoints
 (port of ``mccnn_tpu/train``)."""
 
-from .losses import accuracy, classification_loss
+from .losses import accuracy, classification_loss, masked_accuracy, segmentation_loss
 from .state import (
     TrainState,
     batch_to_device,
@@ -18,4 +18,6 @@ __all__ = [
     "init_state",
     "make_optimizer",
     "make_train_step",
+    "masked_accuracy",
+    "segmentation_loss",
 ]

@@ -4,7 +4,8 @@ Tests marked ``cuda`` need an NVIDIA GPU and ``nvcc``: they build the kernels
 and skip, with a reason, where there is no CUDA device. Run them on the card
 with ``python -m pytest tests/port -m cuda``. The unmarked tests check, on the
 CPU, that a kernel wrapper refuses what it cannot launch and that unported
-sites raise instead of falling back.
+sites raise instead of falling back (routing is by shape on every device,
+so the CPU walks the card's path).
 """
 
 import math
@@ -13,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from mccnn_tpu_torch.api.builder import SpatialCache
+from mccnn_tpu_torch.api.hierarchy import HierarchyLevel, PointHierarchy
 from mccnn_tpu_torch.core.mcconv import init_mcconv_params
 from mccnn_tpu_torch.core.pdf import kde_density
 from mccnn_tpu_torch.core.sampling import poisson_disk, sweep_cells
-from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+from mccnn_tpu_torch.models.layers import MCConv
+from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel, tile_conv
 from mccnn_tpu_torch.ops.dispatch import dense_fits, pick_backend
 
 
@@ -156,17 +160,143 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert counters() == before
 
 
+def test_tile_kernel_wrappers_refuse_cpu_tensors():
+    pts, mask = cloud(6, N=160)
+    params = init_mcconv_params(torch.Generator().manual_seed(0), 2, None)
+    lay = tile_conv.conv_layout(pts, mask, pts, mask, 0.2, max_pairs=1 << 30)
+    wf = tile_conv._sorted_weighted_features(lay, torch.ones((2, 160, 2)), torch.ones((2, 160)))
+    sweep = tile_conv.make_cover_sweep(pts, mask, 0.2, max_pairs=1 << 30)
+    calls = [
+        lambda: tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2),
+        lambda: tile_conv.tile_kde_sums_cuda(sweep.layout, 0.2),
+        lambda: tile_conv.cover_counts_cuda(sweep.layout, sweep.valid, 0.2),
+    ]
+    counters = lambda: (tile_conv.launches, tile_conv.kde_launches,  # noqa: E731
+                        tile_conv.cover_launches)
+    before = counters()
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert counters() == before
+
+
 def test_unported_sites_raise():
-    with pytest.raises(NotImplementedError, match="bucket"):
-        pick_backend(4096, 0.1, 128, 128, device=torch.device("cuda"))
+    # Routing is by shape on every device: the CPU takes the card's path.
     assert not dense_fits(4096, 128, 128)
-    assert pick_backend(4096, 0.1, 128, 128, device=torch.device("cpu")) == "dense"
+    assert pick_backend(4096, 0.1, 128, 128) == "bucket"  # -> tile with a capacity
+    assert pick_backend(4096, 0.5, 128, 128) == "jnp"  # the K-capacity conv
+    assert pick_backend(64, 0.1, 8, None, mode="tile") == "tile"
     for site in [(1024, 1, 128, 496), (496, 128, 256, 40), (40, 256, 1024, 1)]:
         # MCClassS's three sites sit inside the envelope
-        assert pick_backend(site[0], 0.2, site[1], site[2], site[3],
-                            device=torch.device("cuda")) == "dense"
+        assert pick_backend(site[0], 0.2, site[1], site[2], site[3]) == "dense"
+    # The tile sites are ported; the bucket conv and the K-capacity conv raise.
+    pts, mask = cloud(5, B=1, N=64, masked=0)
+    level = HierarchyLevel(points=pts, mask=mask, radius=0.0, sample=None)
+    hier = PointHierarchy(levels=(level, level))
+    feats = torch.ones((1, 64, 4))
+    for backend, match in [("bucket", "K9"), ("jnp", "K-capacity")]:
+        conv = MCConv(4, None)
+        with pytest.raises(NotImplementedError, match=match):
+            conv(SpatialCache(hier, conv_backend=backend), 0, 1, 0.2, feats)
+    out = MCConv(4, None)(SpatialCache(hier, tile_pairs=1 << 30, conv_backend="bucket"),
+                          0, 1, 0.2, feats)  # a capacity promotes bucket to tile
+    assert out.shape == (1, 64, 4)
     big = torch.zeros((1, 8193, 3))
     with pytest.raises(NotImplementedError, match="K-capacity"):
         kde_density(big, torch.ones((1, 8193), dtype=torch.bool), 0.1)
-    with pytest.raises(NotImplementedError, match="tile"):
+    with pytest.raises(NotImplementedError, match="neighbour-list"):
         poisson_disk(big[:, :4097], torch.ones((1, 4097), dtype=torch.bool), 0.1, 64)
+
+
+# ------------------------------------------------------------ the tile kernels
+
+
+def _tile_conv_case(device, c_in, c_out, M=300, N=700):
+    src, smask = cloud(7, N=N, masked=60, device=device)
+    smp, qmask = cloud(8, N=M, masked=20, device=device)
+    g = torch.Generator().manual_seed(9)
+    params = init_mcconv_params(g, c_in, c_out, device=device)
+    params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device))
+    feats = torch.randn((2, N, c_in), generator=g).to(device)
+    pdf = (torch.rand((2, N), generator=g) + 0.5).to(device)
+    return params, smp, qmask, src, smask, feats, pdf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,max_steps", [(1, 16, False, None), (8, None, True, None),
+                                                      (40, None, False, None), (8, 4, False, 2)])
+def test_tile_conv_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean, max_steps):
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, c_in, c_out)
+    lay = tile_conv.conv_layout(smp, qmask, src, smask, 0.2, max_pairs=1 << 30,
+                                max_steps=max_steps)
+    wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    before = tile_conv.launches
+    got, gcnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2, **kw)
+    again, _ = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2, **kw)
+    want, wcnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert tile_conv.launches == before + 2
+    assert torch.equal(got, again)  # one writer per output, fixed order
+    assert torch.equal(gcnt, wcnt)
+    scale = float(want.abs().max())
+    # fp32 sums over the step list's pairs and channels in another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    if max_steps:
+        assert int(lay.overflow.max()) > 0
+
+
+@pytest.mark.cuda
+def test_tile_conv_and_dense_conv_agree_through_the_public_functions(cuda):
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, 8, None)
+    with torch.no_grad():
+        got = tile_conv.tile_mc_conv(params, smp, qmask, src, smask, feats, pdf, 0.2,
+                                     max_pairs=1 << 30)
+        want = dense_conv.dense_mc_conv(params, smp, qmask, src, smask, feats, pdf, 0.2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_tile_conv_backward_on_cuda_raises_naming_k6(cuda):
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, 4, 3)
+    params = type(params)(*(t.requires_grad_() for t in params))
+    out = tile_conv.tile_mc_conv(params, smp, qmask, src, smask, feats, pdf, 0.2,
+                                 max_pairs=1 << 30, c_out=3)
+    with pytest.raises(NotImplementedError, match="K6"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,radius", [(700, 0.2), (2100, 0.1)])
+def test_tile_kde_kernel_matches_plain_and_dense(cuda, N, radius):
+    pts, mask = cloud(10, N=N, masked=50, device=cuda)
+    lay = tile_conv.self_layout(pts, mask, radius, max_pairs=1 << 30)
+    before = tile_conv.kde_launches
+    got = tile_conv.tile_kde_sums_cuda(lay, radius)
+    again = tile_conv.tile_kde_sums_cuda(lay, radius)
+    want = tile_conv.tile_kde_sums_reference(lay, radius)
+    torch.cuda.synchronize()
+    assert tile_conv.kde_launches == before + 2 and torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    dens = tile_conv.tile_kde(pts, mask, radius, max_pairs=1 << 30)
+    torch.testing.assert_close(dens, density_kernel.kde_density_cuda(pts, mask, radius),
+                               rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,radius", [(700, 0.1), (3000, 0.05)])
+def test_cover_kernel_is_bit_equal_to_plain_and_sampler_to_dense(cuda, N, radius):
+    pts, mask = cloud(11, N=N, masked=40, device=cuda)
+    sweep = tile_conv.make_cover_sweep(pts, mask, radius, max_pairs=1 << 30)
+    g = torch.Generator().manual_seed(12)
+    flags = sweep.valid & (torch.rand(sweep.valid.shape, generator=g) < 0.3).to(cuda)
+    before = tile_conv.cover_launches
+    got = tile_conv.cover_counts_cuda(sweep.layout, flags, radius)
+    want = tile_conv.cover_counts_reference(sweep.layout, flags, radius)
+    torch.cuda.synchronize()
+    assert tile_conv.cover_launches == before + 1
+    assert torch.equal(got, want)
+    sel = poisson_disk(pts, mask, radius, N, tile_pairs=1 << 30).selected
+    cids, colors = sweep_cells(pts, radius)
+    dense = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
+    assert torch.equal(sel, dense)

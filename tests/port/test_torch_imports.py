@@ -101,6 +101,11 @@ step = make_train_step(model, opt, modelnet.make_loss("MCClassS"))
 batch = {"points": pts.numpy(), "mask": mask.numpy(), "labels": [0, 3]}
 loss, metrics = step(batch_to_device(batch, torch.device("cpu")))
 assert bool(torch.isfinite(loss)) and opt.count == 1
+from mccnn_tpu_torch.models import MCSeg
+seg = MCSeg(4, grow=8, radii=(0.2,), tile_pairs=1 << 30, conv_backend="tile").eval()
+with torch.inference_mode():
+    seg_logits, overflow = seg(pts, mask, with_overflow=True)
+assert seg_logits.shape == (2, 64, 4) and int(overflow) == 0
 assert _build._LIBRARY is None, "the CPU path must not build the CUDA kernels"
 banned = ("jax", "jaxlib", "flax", "optax", "orbax", "mccnn_tpu")
 bad = [m for m in sys.modules if m.split(".")[0] in banned]

@@ -10,7 +10,6 @@ import copy
 import json
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -90,9 +89,9 @@ def _seed_statistics(model, pts, mask, rng):
 def case():
     pts, mask = _inputs()
     jmodel = JMCClassS(n_classes=N_CLASSES, grow=GROW, radii=RADII, neighbor_k=N)
-    template = jax.tree_util.tree_map(
-        np.asarray, dict(jmodel.init(jax.random.PRNGKey(0), pts, mask, train=False))
-    )
+    # init and apply each compiled as one program (op by op they take ~20 s)
+    template = jax.tree_util.tree_map(np.asarray, dict(jax.jit(
+        lambda k: jmodel.init(k, pts, mask, train=False))(jax.random.PRNGKey(0))))
     seeded = MCClassS(N_CLASSES, grow=GROW, radii=RADII)
     load_flax_variables(seeded, template)
     _seed_statistics(seeded, pts, mask, np.random.default_rng(SEED))
@@ -100,7 +99,7 @@ def case():
 
     model = MCClassS(N_CLASSES, grow=GROW, radii=RADII)
     load_flax_variables(model, variables)  # the port's weights come through the converter
-    want = np.asarray(jmodel.apply(variables, pts, mask, train=False))
+    want = np.asarray(jax.jit(lambda v: jmodel.apply(v, pts, mask, train=False))(variables))
     got = make_predict_fn(model)(torch.from_numpy(pts), torch.from_numpy(mask)).numpy()
     return dict(pts=pts, mask=mask, model=model, variables=variables, want=want, got=got)
 
@@ -113,8 +112,8 @@ def test_inputs_are_boundary_free(case):
 
 def test_hierarchy_matches_jax(case):
     pts, mask = case["pts"], case["mask"]
-    want = j_build_hierarchy(jnp.asarray(pts), jnp.asarray(mask), RADII,
-                             neighbor_k=N, global_level=True)
+    want = jax.jit(lambda p, m: j_build_hierarchy(p, m, RADII, neighbor_k=N,
+                                                  global_level=True))(pts, mask)
     got = build_hierarchy(torch.from_numpy(pts), torch.from_numpy(mask), RADII,
                           global_level=True)
     assert len(got) == len(want) == 4

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port's paths on one NVIDIA GPU: MCClassS serving and
-training, and ScanNet segmentation serving (MCSeg on the z-order tile kernels).
+training, and ScanNet segmentation serving and training (MCSeg on the z-order tile
+kernels).
 
     python3 chip_smoke.py
 
@@ -36,19 +37,31 @@ training, and ScanNet segmentation serving (MCSeg on the z-order tile kernels).
    of the whole scene, and against K4 at 8192; K5 (tile MC conv) at the four
    tile sites of the block batch (stem, enc_0_1, dec_2_1, dec_1_0). Each
    repeats bit for bit; times, bounds and plain times are printed.
+   K6 (the tile MC-conv backward) at the same four sites of the batch,
+   with a seeded dout: d_wf and every parameter gradient against the plain
+   version, bitwise repetition, times and bounds.
 9. MCSeg (ScanNet defaults: grow 64, radii 0.05 / 0.15 / 0.4, seeded weights
    and BN statistics) on the card against the CPU plain path at B=2 x 8192
    (B=8 would keep the CPU for minutes), and the card's B=8 block hierarchy
    against the CPU's; then a block batch's and a whole scene's forward under
-   torch.profiler (device time, busy share, the top kernels).
+   torch.profiler (device time, busy share, the top kernels). One MCSeg train
+   step (dropout 0) on the card against the same step on the CPU plain path
+   at B=2 x 8192, with the same weights and BN statistics and the card's
+   BN-ReLU decisions (the flips are counted): the loss, every gradient, the
+   updated BN statistics.
 10. Serving through the entry point: ``tasks.scannet.main --synthetic
    --eval-only`` for block evaluation (B=8, N=8192) and with
    ``--whole-scene-cap 40960``, with the launch counters of K1, K3, K4, K5,
    K7 and K8 read over each run; prints the batch and scene latencies.
-11. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, K5, K7 and K8 at the ScanNet shapes; each with its least possible
-   time on the card, ``bound_ms``, from the bytes and operations of this
-   run's inputs), the card line, and last ``{"ok": true, "device": {...}}``.
+11. Training through the entry point: ``tasks.scannet.main --synthetic`` at
+   the CLI's defaults (B=8 x 8192) for 4 steps with ``--tile-pairs 32``, small
+   enough that a step drops tile steps, is discarded, re-sized and run again;
+   requires a finite loss, at least one ``resize`` record and the launch
+   counters of K1-K6 and K8 moving, and prints the warm time per step.
+12. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+   B=32, K5-K8 at the ScanNet shapes; each with its least possible time on
+   the card, ``bound_ms``, from the bytes and operations of this run's
+   inputs), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -110,6 +123,11 @@ LOGIT_RTOL = 1e-3
 # K5 / K7: as K1 / K4 (fp32 sums over a tile step list's pairs in another
 #     order than the plain version's), relative to the site's largest value.
 TILE_RTOL = 1e-4
+# K6: every gradient within 1e-4 of its tensor's largest value: fp32 sums over
+#     the backward list's pairs and channels in another order. dW1 / db1 hold
+#     to it too: the plain version rounds pre_h as the kernel's mc_preact does,
+#     so no pair's ReLU step falls differently (K2's plain version does not).
+TILE_BWD_RTOL = 1e-4
 # MCSeg logits, card vs the CPU plain path: identical hierarchies, then fp32
 #     sums in other orders through seven convs and thirteen BNs and dense layers.
 SEG_LOGIT_RTOL = 1e-3
@@ -117,6 +135,18 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = 2e-3
 STAT_RTOL = 1e-4
 ZERO_GRAD_PARAMS = ("fcs.0.dense.bias", "fcs.1.dense.bias")
+# MCSeg's mixing layers feed batch-statistic BNs, so their biases' gradients
+# are 0 up to rounding: both sides must be below 1e-3 of the largest
+# gradient. They are rounding noise of sums over every point of the batch
+# (1.8e-5 of the largest gradient in a B=2 x 4096 step on the CPU plain path).
+SEG_ZERO_GRAD_RTOL = 1e-3
+# MCSeg train step: the CPU step takes the card's BN-ReLU decisions, and may
+#     take only ones within rounding: at most 1e-5 of the active values flip,
+#     and each flipped value lies within 1e-5 of its BN's largest |value| of 0
+#     (seed 0 on an H100: 6 flips of 4.7M active values, all at dec_bn_0, the
+#     largest 6.3e-8 of its BN's largest |value|).
+FLIP_SHARE = 1e-5
+FLIP_VALUE_RTOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -421,7 +451,8 @@ def counters() -> dict:
 
     return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
             "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches"),
-            "K5": (tile_conv, "launches"), "K7": (tile_conv, "kde_launches"),
+            "K5": (tile_conv, "launches"), "K6": (tile_conv, "backward_launches"),
+            "K7": (tile_conv, "kde_launches"),
             "K8": (tile_conv, "cover_launches")}
 
 
@@ -460,7 +491,7 @@ def serve(dev) -> dict:
     print("launches while serving:", launches, flush=True)
     for name in ("K1", "K3", "K4"):
         require(launches[name] > 0, f"{name} was not launched while serving")
-    require(launches["K2"] == 0, "K2 was launched while serving")
+    require(launches["K2"] == 0 and launches["K6"] == 0, "a backward was launched while serving")
 
     for req, logits, (b, ms) in zip(requests, served, latencies):
         want = cpu_predictor.predict(req)
@@ -479,48 +510,45 @@ def serve(dev) -> dict:
     return launches
 
 
-def check_train_step(dev, b: int) -> None:
-    """One full-width train step of ``b`` clouds on the card against the CPU
-    plain path."""
-    from mccnn_tpu_torch.models import MCClassS
-    from mccnn_tpu_torch.tasks.modelnet import make_loss
+def train_one_step(model, device, batch: dict, loss_fn) -> tuple:
+    """One train step of ``model`` on ``device`` from a fresh optimizer:
+    ``(loss, grads, buffers, ms, metrics)`` with the tensors on the CPU."""
     from mccnn_tpu_torch.train import batch_to_device, init_state, make_optimizer, make_train_step
 
-    rng = np.random.default_rng(SEED + 2 + b)
-    batch = request(rng, b)
-    batch["labels"] = rng.integers(0, N_CLASSES, size=b).astype(np.int32)
-    require(same_hierarchy(batch, dev), "the card's training hierarchy differs from the CPU's")
-    model = MCClassS(N_CLASSES, grow=GROW, drop_rate=0.0,
-                     generator=torch.Generator().manual_seed(SEED))
+    m = model.to(device)
+    opt = make_optimizer(m.parameters())
+    init_state(m, opt, SEED)
+    step = make_train_step(m, opt, loss_fn)
+    t0 = time.perf_counter()
+    loss, metrics = step(batch_to_device(batch, device))
+    loss = float(loss)  # waits for the device
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    stats = {n: b.detach().cpu() for n, b in m.named_buffers()}
+    return loss, grads, stats, ms, metrics
 
-    def one_step(m, device):
-        m = m.to(device)
-        opt = make_optimizer(m.parameters())
-        init_state(m, opt, SEED)
-        step = make_train_step(m, opt, make_loss("MCClassS"))
-        t0 = time.perf_counter()
-        loss, _ = step(batch_to_device(batch, device))
-        loss = float(loss)  # waits for the device
-        ms = (time.perf_counter() - t0) * 1e3
-        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
-        stats = {n: b.detach().cpu() for n, b in m.named_buffers()}
-        return loss, grads, stats, ms
 
-    cpu_loss, cpu_grads, cpu_stats, cpu_ms = one_step(copy.deepcopy(model), "cpu")
-    loss, grads, stats, ms = one_step(model, dev)
-    top = max(float(g.abs().max()) for n, g in cpu_grads.items() if n not in ZERO_GRAD_PARAMS)
-    worst = (0.0, "")
+def compare_train_steps(what: str, card: tuple, cpu: tuple, zero_grad, zero_rtol: float) -> None:
+    """The card's train step against the CPU plain path's: the loss, every
+    gradient (those named by ``zero_grad`` are analytically 0: both sides
+    must be below ``zero_rtol`` of the largest gradient) and every buffer."""
+    loss, grads, stats, ms, _ = card
+    cpu_loss, cpu_grads, cpu_stats, cpu_ms, _ = cpu
+    top = max(float(g.abs().max()) for n, g in cpu_grads.items() if not zero_grad(n))
+    worst, worst_zero = (0.0, ""), 0.0
     for name, want in cpu_grads.items():
         got = grads[name]
-        if name in ZERO_GRAD_PARAMS:
-            require(float(got.abs().max()) < 1e-6 * top and float(want.abs().max()) < 1e-6 * top,
-                    f"train step: {name} should have a zero gradient")
+        if zero_grad(name):
+            noise = max(float(got.abs().max()), float(want.abs().max())) / top
+            worst_zero = max(worst_zero, noise)
+            require(noise < zero_rtol, f"{what}: {name} should have a zero gradient "
+                    f"({noise:.3e} of the largest gradient)")
             continue
         scale = float(want.abs().max())
         rel = float((got - want).abs().max()) / scale
         worst = max(worst, (rel, name))
         require(bool(torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_RTOL * scale)),
-                f"train step: the gradient of {name} disagrees with the CPU plain path "
+                f"{what}: the gradient of {name} disagrees with the CPU plain path "
                 f"({rel:.3e} of its largest value)")
     worst_stat = (0.0, "")
     for name, want in cpu_stats.items():
@@ -528,12 +556,31 @@ def check_train_step(dev, b: int) -> None:
         rel = float((stats[name] - want).abs().max()) / max(scale, 1e-30)
         worst_stat = max(worst_stat, (rel, name))
         require(bool(torch.allclose(stats[name], want, rtol=STAT_RTOL, atol=STAT_RTOL * scale)),
-                f"train step: BN statistic {name} disagrees with the CPU plain path")
-    print(f"train step B={b}: loss={loss:.6f} cpu_loss={cpu_loss:.6f} "
+                f"{what}: BN statistic {name} disagrees with the CPU plain path")
+    print(f"{what}: loss={loss:.6f} cpu_loss={cpu_loss:.6f} "
           f"worst_grad_rel_err={worst[0]:.3e} ({worst[1]}) "
+          f"zero_grad_noise={worst_zero:.3e} of the largest gradient "
           f"worst_bn_stat_rel_err={worst_stat[0]:.3e} ({worst_stat[1]}) "
           f"first_step_ms card={ms:.1f} cpu={cpu_ms:.1f}", flush=True)
-    require(abs(loss - cpu_loss) <= LOSS_RTOL * abs(cpu_loss), "train-step loss disagrees")
+    require(abs(loss - cpu_loss) <= LOSS_RTOL * abs(cpu_loss), f"{what}: the loss disagrees")
+
+
+def check_train_step(dev, b: int) -> None:
+    """One full-width train step of ``b`` clouds on the card against the CPU
+    plain path."""
+    from mccnn_tpu_torch.models import MCClassS
+    from mccnn_tpu_torch.tasks.modelnet import make_loss
+
+    rng = np.random.default_rng(SEED + 2 + b)
+    batch = request(rng, b)
+    batch["labels"] = rng.integers(0, N_CLASSES, size=b).astype(np.int32)
+    require(same_hierarchy(batch, dev), "the card's training hierarchy differs from the CPU's")
+    model = MCClassS(N_CLASSES, grow=GROW, drop_rate=0.0,
+                     generator=torch.Generator().manual_seed(SEED))
+    loss_fn = make_loss("MCClassS")
+    cpu = train_one_step(copy.deepcopy(model), "cpu", batch, loss_fn)
+    card = train_one_step(model, dev, batch, loss_fn)
+    compare_train_steps(f"train step B={b}", card, cpu, lambda n: n in ZERO_GRAD_PARAMS, 1e-6)
 
 
 def run_trainer() -> dict:
@@ -767,8 +814,79 @@ def check_tile_conv(dev, hier, tile_pairs) -> tuple:
     return (err, ms, pms, bms, by, None)
 
 
+def check_tile_backward(dev, hier, tile_pairs) -> tuple:
+    """K6 at the four tile sites of the block batch's MCSeg, with a seeded dout."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    g = SEG_GROW
+    sites = [("stem", 0, 0, SEG_RADII[0], 1, g), ("enc_0_1", 0, 1, 2 * SEG_RADII[0], g, None),
+             ("dec_2_1", 2, 1, 2 * SEG_RADII[1], 6 * g, None),
+             ("dec_1_0", 1, 0, 2 * SEG_RADII[0], 4 * g, None)]
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    err = ms = pms = bms = 0.0
+    by = "operations"
+    with torch.no_grad():
+        for name, i, o, radius, c, co in sites:
+            (src, smask), (smp, qmask) = hier[i], hier[o]
+            b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+            CO = c if co is None else co
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, N, 1)) if c == 1 else
+                     torch.randn((b, N, c), generator=gen)).to(dev)
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            max_pairs = tile_pairs if 0 in (i, o) else 1 << 30
+            lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=max_pairs,
+                                        backward=True)
+            wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+            _, cnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, c_out=co)
+            dout = torch.randn((b, lay.smp.shape[1], CO), generator=gen).to(dev)
+            args = (params, lay, wf, radius, cnt, dout)
+            got = tile_conv.tile_conv_backward_sorted_cuda(*args, c_out=co)
+            again = tile_conv.tile_conv_backward_sorted_cuda(*args, c_out=co)
+            want = tile_conv.tile_conv_backward_sorted_reference(*args, c_out=co)
+            torch.cuda.synchronize()
+            require(int(lay.overflow.max()) == 0, f"K6 overflowed at {name}")
+            parts, e_site = [], 0.0
+            for gname, a, a2, w in zip(names, got, again, want):
+                require(tuple(a.shape) == tuple(w.shape), f"K6 {gname} shape {tuple(a.shape)}")
+                require(bool(torch.equal(a, a2)), f"K6 {gname} differs between two calls at {name}")
+                scale = float(w.abs().max())
+                e = float((a - w).abs().max())
+                e_site = max(e_site, e)
+                parts.append(f"{gname} {e:.3e}/{scale:.3e}")
+                require(bool(torch.allclose(a, w, rtol=TILE_BWD_RTOL, atol=TILE_BWD_RTOL * scale)),
+                        f"K6 {gname} disagrees with its plain version at {name}")
+            k_ms = time_ms(lambda: tile_conv.tile_conv_backward_sorted_cuda(*args, c_out=co),
+                           iters=5)
+            p_ms = time_ms(lambda: tile_conv.tile_conv_backward_sorted_reference(*args, c_out=co),
+                           iters=1)
+            H1 = H + 1
+            pairs = inr_pairs(smp, qmask, src, smask, radius)
+            vq, vp = int(qmask.sum()), int(smask.sum())
+            nw = H * c * (co or 1) + c * (co or 1) + 4 * H
+            nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
+                      + b * (M + N))
+            # per in-radius pair: d2, offsets, H pre-activations, dpre's H x C
+            # and dW1 / db1; depthwise, X's (H+1) x C FMAs and X's projections;
+            # full (the stem), what the gradient needs: d_f~ = sum_h a_h dG and
+            # G = sum_p a_h f~ over (H+1) x C, and the GEMMs dG = t Wcat and
+            # dWcat = t^T G
+            flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
+            flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
+                      pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
+            b_ms, by = bound(nbytes, flops)
+            steps = int((lay.steps_b.j_ids != lay.steps_b.n_minor).sum())
+            print(f"K6 B={b} {name} N={N} M={M} C={c} CO={co}: S={lay.S} "
+                  f"candidate_minors={steps} in_radius_pairs={pairs} max_abs_err (err/scale) "
+                  f"{', '.join(parts)}; bitwise_repeatable=True kernel_ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})", flush=True)
+            err, ms, pms, bms = max(err, e_site), ms + k_ms, pms + p_ms, bms + b_ms
+    return (err, ms, pms, bms, by, None)
+
+
 def check_tile_kernels(dev) -> dict:
-    """K8, K7 and K5 against their plain versions at the ScanNet shapes."""
+    """K8, K7, K5 and K6 against their plain versions at the ScanNet shapes."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
 
@@ -787,6 +905,7 @@ def check_tile_kernels(dev) -> dict:
         print("MCSeg levels:", [tuple(p.shape[:2]) for p, _ in lv], "valid per cloud:",
               [int(m.sum(1).min()) for _, m in lv], flush=True)
         results["K5"] = check_tile_conv(dev, lv, tile_pairs)
+    results["K6"] = check_tile_backward(dev, lv, tile_pairs)
     return results
 
 
@@ -836,6 +955,85 @@ def check_mcseg(dev) -> None:
     require(int(ovf) == 0 and int(cpu_ovf) == 0, "MCSeg overflowed its auto-sized capacities")
     require(bool(torch.allclose(got, want, rtol=SEG_LOGIT_RTOL, atol=SEG_LOGIT_RTOL * top)),
             "MCSeg logits on the card disagree with the CPU plain path")
+
+
+def check_mcseg_train_step(dev) -> None:
+    """One MCSeg train step (ScanNet defaults, dropout 0) on the card against
+    the same step on the CPU plain path, at B=2 x 8192.
+
+    A BN output within rounding of 0 can fall on the other side of its ReLU
+    on the two devices (forward values differ by ~1e-6 after seven convs),
+    and each such flip moves its channel's BN gradients by one point's term,
+    a few 1e-3 of their largest value at 4M values a layer. So the CPU step
+    takes the card's ReLU decisions, and the check requires each one it takes
+    to lie within rounding (``FLIP_SHARE``, ``FLIP_VALUE_RTOL``); the unforced
+    step's worst gradient is printed beside it."""
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.models.layers import BatchNormReluDropout
+    from mccnn_tpu_torch.tasks.common import maybe_auto_tile_pairs
+    from mccnn_tpu_torch.train import segmentation_loss
+
+    rng = np.random.default_rng(SEED + 10)
+    blocks = scene_batch(SEED + 10, SEG_CPU_B)
+    batch = {k: blocks[k] for k in ("points", "mask", "labels")}
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII, drop_rate=0.0,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+    maybe_auto_tile_pairs(model, batch, dev)
+    calibrate_bn(model, batch, rng)
+    cpu_model, cpu_forced = copy.deepcopy(model).cpu(), copy.deepcopy(model).cpu()
+
+    def loss_fn(out, b):
+        return segmentation_loss(out, b["labels"], b["mask"]), {}
+
+    card_on, hooks = {}, []
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNormReluDropout):
+            hooks.append(mod.bn.register_forward_hook(
+                lambda m, inp, out, name=name: card_on.__setitem__(name, (out > 0).cpu())))
+    reset_counts()
+    card = train_one_step(model, dev, batch, loss_fn)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for h in hooks:
+        h.remove()
+    flips = {}
+    for name, mod in cpu_forced.named_modules():
+        if isinstance(mod, BatchNormReluDropout):
+            def forced(x, mask, mod=mod, name=name):
+                y = mod.bn(x, mask)
+                yv, flip = y.detach()[mask].abs(), ((y > 0) != card_on[name])[mask]
+                # (flips, active, largest flipped |y| / largest |y|)
+                flips[name] = (int(flip.sum()), int(card_on[name][mask].sum()),
+                               float(torch.where(flip, yv, 0.0).max() / yv.max()))
+                y = torch.where(card_on[name], y, 0.0)  # relu with the card's decisions
+                return torch.where(mask[..., None], mod.dropout(y), 0.0)
+
+            mod.forward = forced
+    cpu = train_one_step(cpu_forced, "cpu", batch, loss_fn)
+    free = train_one_step(cpu_model, "cpu", batch, loss_fn)
+    for name, out in (("card", card), ("cpu", cpu)):
+        require(int(out[4]["tile_overflow"]) == 0, f"the MCSeg train step overflowed ({name})")
+    for name in ("K5", "K6"):
+        require(launches[name] > 0, f"{name} was not launched in the MCSeg train step")
+    unforced = max((float((card[1][n] - w).abs().max()) / float(w.abs().max()), n)
+                   for n, w in free[1].items() if not n.startswith("mixes."))
+    n_flips, n_active = (sum(v[k] for v in flips.values()) for k in (0, 1))
+    worst_flip = max(v[2] for v in flips.values())
+    print(f"MCSeg train step: ReLU decisions that differ between the card and the CPU plain "
+          f"path: {n_flips} of {n_active} active ({ {k: v[0] for k, v in flips.items() if v[0]} });"
+          f" largest flipped |value| {worst_flip:.3e} of its BN's largest; without the card's "
+          f"decisions the worst gradient is {unforced[0]:.3e} of its largest value "
+          f"({unforced[1]}) and the loss {abs(free[0] - card[0]) / abs(free[0]):.3e} relative",
+          flush=True)
+    require(n_flips <= FLIP_SHARE * n_active,
+            f"MCSeg train step: {n_flips} BN-ReLU decisions differ between the card and the CPU "
+            f"plain path, more than {FLIP_SHARE:g} of {n_active} active values")
+    require(worst_flip <= FLIP_VALUE_RTOL,
+            f"MCSeg train step: a BN-ReLU decision differs at a value {worst_flip:.3e} of its "
+            f"BN's largest, beyond rounding ({FLIP_VALUE_RTOL:g})")
+    compare_train_steps(f"MCSeg train step B={SEG_CPU_B} N={SEG_N} grow={SEG_GROW}", card, cpu,
+                        lambda n: n.startswith("mixes.") and n.endswith(".bias"),
+                        SEG_ZERO_GRAD_RTOL)
 
 
 def profile_forward(model, pts, mask, what: str, reps: int = 3) -> None:
@@ -910,7 +1108,44 @@ def run_scannet(whole: bool) -> dict:
     path = ("K1", "K3", "K4", "K5", "K7", "K8") if whole else ("K1", "K3", "K4", "K5", "K8")
     for name in path:
         require(launches[name] > 0, f"{name} was not launched in ScanNet eval ({kind})")
-    require(launches["K2"] == 0, "K2 was launched in evaluation")
+    require(launches["K2"] == 0 and launches["K6"] == 0, "a backward was launched in evaluation")
+    return launches
+
+
+def run_scannet_train() -> dict:
+    """``tasks.scannet`` training through its entry point at the CLI's
+    defaults (B=8 x 8192), with a tile capacity short enough that a step is
+    discarded, re-sized and run again."""
+    from mccnn_tpu_torch.tasks import scannet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--epochs", "1", "--steps-per-epoch", "4", "--tile-pairs", "32",
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck")]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = scannet.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, "scannet_mcseg.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["tag"] == "train"]
+    resizes = [r for r in recs if r["tag"] == "resize" and "phase" not in r]
+    require(len(train) == 1 and train[0]["steps"] == 4, f"scannet trainer records: {recs}")
+    rec = train[0]
+    print(f"scannet trainer (tasks.scannet, B={SEG_B}, N={SEG_N}, grow={SEG_GROW}, "
+          f"--tile-pairs 32): loss={rec['loss']:.6f} acc={rec['acc']:.4f} steps={rec['steps']} "
+          f"train_resizes={len(resizes)} capacity_resizes={rec.get('capacity_resizes')} "
+          f"tile_pairs={[(r['tile_pairs_old'], r['tile_pairs']) for r in resizes]} "
+          f"epoch_sec={rec['sec']} warm_step_ms={rec['warm_step_ms']:.3f} "
+          f"best_mIoU={res['best_mIoU']:.4f} total_sec={seconds:.2f} launches={launches}",
+          flush=True)
+    require(bool(np.isfinite(rec["loss"])), "the scannet trainer's loss is not finite")
+    require(len(resizes) >= 1 and rec.get("capacity_resizes") == len(resizes),
+            "the scannet trainer did not re-size its tile capacity")
+    for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K8"):
+        require(launches[name] > 0, f"{name} was not launched in ScanNet training")
     return launches
 
 
@@ -947,8 +1182,10 @@ def main() -> int:
     tile_results = check_tile_kernels(dev)
     check_mcseg(dev)
     profile_mcseg(dev)
+    check_mcseg_train_step(dev)
     seg_launches = {"scannet_blocks": run_scannet(whole=False),
-                    "scannet_whole": run_scannet(whole=True)}
+                    "scannet_whole": run_scannet(whole=True),
+                    "scannet_train": run_scannet_train()}
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
@@ -961,6 +1198,8 @@ def main() -> int:
                "mccnn_tpu/ops/pallas/density_kernel.py:34"),
         "K5": ("tile_mc_conv", "mccnn_tpu_torch/csrc/tile_conv.cu",
                "mccnn_tpu/ops/pallas/tile_conv.py:525"),
+        "K6": ("tile_mc_conv_backward", "mccnn_tpu_torch/csrc/tile_conv_bwd.cu",
+               "mccnn_tpu/ops/pallas/tile_conv.py:658"),
         "K7": ("tile_kde", "mccnn_tpu_torch/csrc/tile_sweep.cu",
                "mccnn_tpu/ops/pallas/tile_conv.py:1401"),
         "K8": ("tile_cover_counts", "mccnn_tpu_torch/csrc/tile_sweep.cu",
@@ -968,7 +1207,7 @@ def main() -> int:
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
-        if kid in tile_results:  # the ScanNet slice's kernels: its eval paths
+        if kid in tile_results:  # the ScanNet slices' kernels: eval and training
             rows = [tile_results[kid]]
             by_path = {k: v[kid] for k, v in seg_launches.items()}
             batch = SEG_B

@@ -34,7 +34,9 @@
 // registers. Invalid rows are masked by their flags (the TPU kernel parks
 // them at a far sentinel coordinate, whose expanded d2 against another
 // sentinel cancels to ~0). Everything is fp32 (the TPU kernel holds features
-// in bf16). Limits: H == 8 and T == 128, Tm == 32, G <= 64.
+// in bf16). Limits: H == 8 and T == 128, Tm == 32, G <= 64. The source rows
+// may run past the last minor (the layout keeps them in the major tiling the
+// backward, K6, reads).
 
 #include "common.cuh"
 
@@ -190,7 +192,7 @@ extern "C" int tile_conv_launch(const void* smp, const void* svalid, const void*
                                 int H, int S, int G, int n_tiles, int sentinel, float r2,
                                 float radius, int mean, int depthwise, void* out, void* cnt,
                                 void* stream) {
-  if (H != 8 || C < 1 || G < 1 || G > kMaxG || NS != n_tiles * kT || NP != sentinel * kTm ||
+  if (H != 8 || C < 1 || G < 1 || G > kMaxG || NS != n_tiles * kT || NP < sentinel * kTm ||
       B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int CB = C < kMaxCB ? C : kMaxCB;

@@ -170,6 +170,6 @@ class MCSeg(nn.Module):
         if counts and int(overflow) > 0:
             raise RuntimeError(
                 f"tile capacity overflow: {int(overflow)} dropped steps; raise tile_pairs "
-                "(tasks.common.Runner re-sizes it in evaluation)"
+                "(tasks.common.Runner re-sizes it in training and evaluation)"
             )
         return logits

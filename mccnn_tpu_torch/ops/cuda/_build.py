@@ -57,6 +57,7 @@ SIGNATURES = {
     "mcconv_bwd_reduce_launch": [P, I, I, P, P],
     "tile_conv_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, I,
                          P, P, P],
+    "tile_conv_bwd_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 4,
     "tile_kde_launch": [P, P, P, P, I, I, I, I, I, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, F, P, P],
 }

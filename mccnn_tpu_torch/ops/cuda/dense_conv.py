@@ -288,30 +288,13 @@ def dense_mc_conv_backward_cuda(
         err = lib.mcconv_bwd_dg_depthwise_launch(
             _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, H, C, _build.ptr(dG), stream)
         _build.check(err, "mcconv_bwd_dg_depthwise_kernel")
-        splits, rchunk = _split_rows(R, -(-H1 * C // 256))
-        part = dwcat if splits == 1 else torch.empty(
-            (splits, H1, C), dtype=torch.float32, device=dev)
-        err = lib.mcconv_bwd_dw2_depthwise_launch(
-            _build.ptr(G), _build.ptr(t), R, H1, C, splits, rchunk, _build.ptr(part), stream)
-        _build.check(err, "mcconv_bwd_dw2_depthwise_kernel")
-        L = H1 * C
+        dwcat = wcat_grad(G, t, R, H1, C, depthwise=True)
     else:
         err = lib.mcconv_bwd_dg_full_launch(
             _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, CO, H * C, H1 * C,
             _build.ptr(dG), stream)
         _build.check(err, "mcconv_bwd_dg_full_kernel")
-        splits, rchunk = _split_rows(R, -(-H1 * C // 64) * -(-CO // 64))
-        part = dwcat if splits == 1 else torch.empty(
-            (splits, H1 * C * CO), dtype=torch.float32, device=dev)
-        err = lib.mcconv_bwd_dw2_full_launch(
-            _build.ptr(G), _build.ptr(t), R, H1 * C, CO, splits, rchunk, _build.ptr(part),
-            stream)
-        _build.check(err, "mcconv_bwd_dw2_full_kernel")
-        L = H1 * C * CO
-    if splits > 1:
-        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), splits, L, _build.ptr(dwcat),
-                                           stream)
-        _build.check(err, "mcconv_bwd_reduce_kernel (dW2)")
+        dwcat = wcat_grad(G, t, R, H1 * C, CO)
 
     blocks = lib.mcconv_bwd_pair_blocks(N, M, C)
     if blocks <= 0:
@@ -330,6 +313,32 @@ def dense_mc_conv_backward_cuda(
     _build.check(err, "mcconv_bwd_reduce_kernel (dW1, db1)")
     backward_launches += 1
     return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+def wcat_grad(A: torch.Tensor, t: torch.Tensor, R: int, MA: int, CO: int, *,
+              depthwise: bool = False) -> torch.Tensor:
+    """``[dW2; db2]`` through K2's row-split GEMM over R rows, its chunks'
+    partial sums reduced in chunk order: ``A^T t`` as (MA, CO) for A (R, MA)
+    and t (R, CO), or with ``depthwise`` ``sum_r A[r, h, c] t[r, c]`` as
+    (MA, CO) for A (R, MA, CO)."""
+    lib = _build.library()
+    stream = _build.stream_of(A)
+    if depthwise:
+        splits, rchunk = _split_rows(R, -(-MA * CO // 256))
+        launch, what = lib.mcconv_bwd_dw2_depthwise_launch, "mcconv_bwd_dw2_depthwise_kernel"
+    else:
+        splits, rchunk = _split_rows(R, -(-MA // 64) * -(-CO // 64))
+        launch, what = lib.mcconv_bwd_dw2_full_launch, "mcconv_bwd_dw2_full_kernel"
+    out = torch.empty((MA, CO), dtype=torch.float32, device=A.device)
+    part = out if splits == 1 else torch.empty((splits, MA, CO), dtype=torch.float32,
+                                               device=A.device)
+    _build.check(launch(_build.ptr(A), _build.ptr(t), R, MA, CO, splits, rchunk,
+                        _build.ptr(part), stream), what)
+    if splits > 1:
+        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), splits, MA * CO, _build.ptr(out),
+                                           stream)
+        _build.check(err, "mcconv_bwd_reduce_kernel (dW2)")
+    return out
 
 
 def _split_wcat(dwcat, H, C, c_out, w2, b2):

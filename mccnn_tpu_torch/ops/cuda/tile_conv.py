@@ -1,6 +1,7 @@
-"""The z-order tile machinery and its three kernels (port of
-``mccnn_tpu/ops/pallas/tile_conv.py``): K5, the tile MC-conv forward; K7, the
-tile KDE; K8, the tile cover count of the big-scene Poisson sampler.
+"""The z-order tile machinery and its four kernels (port of
+``mccnn_tpu/ops/pallas/tile_conv.py``): K5, the tile MC-conv forward; K6, its
+backward; K7, the tile KDE; K8, the tile cover count of the big-scene Poisson
+sampler.
 
 Points are sorted along a 3-D Hilbert curve and cut into fixed tiles of
 ``T = 128`` consecutive points (the majors) and ``Tm = 32`` (the minors). A
@@ -15,15 +16,23 @@ overflow, as in the reference. All of this host-side machinery is integer and
 boolean tensor code that equals the JAX package's exactly; it runs on the
 tensors' device.
 
-The kernels (``csrc/tile_conv.cu`` for K5, ``csrc/tile_sweep.cu`` for K7 and
-K8) give one block to each (cloud, sample tile), K5 also to each channel
-block, and walk that tile's contiguous run of steps (``run[b, t]`` to
-``run[b, t + 1]``, built with ``searchsorted``): every output row has one
-writer and the sums run in step order, so two calls are bit-identical. Each
-kernel has a plain PyTorch version that walks the same step list, so it drops
-exactly what the kernel drops when the budget is short. The public functions
-(``tile_mc_conv``, ``tile_kde``, ``TileCoverSweep.counts``) pick by device:
-CPU tensor -> plain version, CUDA tensor -> kernel.
+The conv's backward walks a second list, as the reference's does: source
+majors x sample minors (``jb_ids`` / ``ib_ids`` there), built only when a
+gradient is wanted. When a budget is short the two lists drop different
+pairs, so the backward is the gradient of what the backward list reaches, as
+in the reference, not of the forward.
+
+The kernels (``csrc/tile_conv.cu`` for K5, ``csrc/tile_conv_bwd.cu`` for K6,
+``csrc/tile_sweep.cu`` for K7 and K8) give one block to each (cloud, major
+tile), K5 and K6 also to each channel block, and walk that tile's contiguous
+run of steps (``run[b, t]`` to ``run[b, t + 1]``, built with
+``searchsorted``): every output row has one writer and the sums run in step
+order, so two calls are bit-identical. Each kernel has a plain PyTorch
+version that walks the same step list, so it drops exactly what the kernel
+drops when the budget is short. The public functions (``tile_mc_conv``,
+``tile_kde``, ``TileCoverSweep.counts``) pick by device: CPU tensor -> plain
+version, CUDA tensor -> kernel; ``tile_mc_conv`` goes through
+``TileMCConvFunction`` on both.
 
 Invalid rows are masked explicitly. The reference parks them at a far
 ``SENTINEL`` coordinate, where the expanded d2 of two sentinels cancels to
@@ -54,9 +63,11 @@ DEFAULT_COVER_CHUNK = 8
 MORTON_BITS = 8  # 256 curve cells per axis
 _BIG_I32 = 2**30
 STEP_CHUNK = 8  # steps per pass of the plain versions
+TILE_BWD_CHANNELS = 16  # K6's channel block (csrc/tile_conv_bwd.cu kMaxCB)
 
 # Launches of each kernel since the last reset (see density_kernel.py).
 launches = 0  # K5
+backward_launches = 0  # K6
 kde_launches = 0  # K7
 cover_launches = 0  # K8
 
@@ -301,7 +312,7 @@ def _step_list(adj, S, G) -> StepList:
 
 
 def _walk_steps(steps: StepList, T: int, Tm: int):
-    """Yield, per chunk of steps of the plain versions: the sample rows (B, Sc,
+    """Yield, per chunk of steps of the plain versions: the major rows (B, Sc,
     T), the candidate rows (B, Sc, G*Tm), whether each candidate row is a
     real minor's (B, Sc, G*Tm), and the flat (b, tile) index of each step."""
     B, G, S = steps.j_ids.shape
@@ -325,25 +336,28 @@ def _walk_steps(steps: StepList, T: int, Tm: int):
 
 
 class ConvLayout(NamedTuple):
-    """Sorted sample and source rows and the forward step list of one site."""
+    """Sorted sample and source rows and the step lists of one site. The
+    minor rows of each side are a prefix of its major rows."""
 
     order_s: torch.Tensor  # (B, M) sample curve order
     order_p: torch.Tensor  # (B, N) source curve order
     smp: torch.Tensor  # (B, nts*T, 3) sorted sample positions (invalid rows 0)
     smp_valid: torch.Tensor  # (B, nts*T)
-    src: torch.Tensor  # (B, ntp_m*Tm, 3) sorted source positions
-    src_valid: torch.Tensor  # (B, ntp_m*Tm)
+    src: torch.Tensor  # (B, ntp*T, 3) sorted source positions
+    src_valid: torch.Tensor  # (B, ntp*T)
     steps: StepList  # forward list: sample majors x source minors
+    steps_b: StepList | None  # backward list: source majors x sample minors
     S: int
     overflow: torch.Tensor  # (B,) dropped steps, max over both directions
 
 
 def conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius: float, *,
                 max_pairs: int, max_steps: int | None = None, tile: int = DEFAULT_TILE,
-                chunk: int = DEFAULT_CHUNK) -> ConvLayout:
+                chunk: int = DEFAULT_CHUNK, backward: bool = False) -> ConvLayout:
     """The layout ``tile_mc_conv`` builds (``tile_conv.py:1265-1342``): both
     curve orders, the forward (sample-major) and backward (source-major)
-    adjacencies, one static step budget ``S`` for both and the forward list."""
+    adjacencies, one static step budget ``S`` for both, the forward list and,
+    with ``backward``, the backward list."""
     T = tile
     Tm = tile_minor(T)
     Gm = chunk * (T // Tm)
@@ -368,14 +382,14 @@ def conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius: float, *,
     if max_steps is not None:
         S = min(S, max(int(max_steps), 1))
     steps = _step_list(adj_f, S, Gm)
+    steps_b = _step_list(adj_b, S, Gm) if backward else None
     need = torch.maximum(steps.need, _needed_steps(adj_b, Gm))
-    return ConvLayout(order_s, order_p, smp.contiguous(), smp_v.contiguous(),
-                      src[:, : ntp_m * Tm].contiguous(), src_v[:, : ntp_m * Tm].contiguous(),
-                      steps, S, (need - S).clamp_min(0))
+    return ConvLayout(order_s, order_p, smp.contiguous(), smp_v.contiguous(), src.contiguous(),
+                      src_v.contiguous(), steps, steps_b, S, (need - S).clamp_min(0))
 
 
 def _sorted_weighted_features(lay: ConvLayout, features, pdf):
-    """``features / pdf`` in source curve order, 0 on invalid rows (B, ntp_m*Tm, C)."""
+    """``features / pdf`` in source curve order, 0 on invalid rows (B, ntp*T, C)."""
     wf = features / pdf[..., None]
     B, N, C = wf.shape
     wf = torch.gather(wf, 1, lay.order_p[..., None].expand(B, N, C))
@@ -469,22 +483,201 @@ def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tenso
     return out, cnt
 
 
+# ---------------------------------------------------------------- K6: its backward
+
+
+def _kernel_preact(off, w1, b1):
+    """``pre_h`` rounded as ``common.cuh::mc_preact`` forms it on the card,
+    ``fma(oz, w1z, fma(oy, w1y, ox * w1x)) + b1``, each fused multiply-add in
+    float64 and rounded once: the backward's ReLU step ``pre > 0`` then falls
+    the same way in K6 and here, even for a pair whose ``pre`` is within an
+    ulp of 0."""
+    d = torch.float64
+    x = off[..., 0:1] * w1[0]
+    y = (off[..., 1:2].to(d) * w1[1].to(d) + x.to(d)).to(off.dtype)
+    z = (off[..., 2:3].to(d) * w1[2].to(d) + y.to(d)).to(off.dtype)
+    return z + b1
+
+
+def _cotangent(lay: ConvLayout, cnt, dout, mean_normalize):
+    """``t = s * dout`` on the sorted sample rows, with the forward's per-sample
+    factor (``dense_conv._scale``): the cotangent of G's projection."""
+    return dout * dense_conv._scale(cnt, lay.smp_valid, mean_normalize)[..., None]
+
+
+def _wr(params: MCConvParams, C: int, c_out: int):
+    """``[W2; b2]`` as ``(C, (H+1) * c_out)``, column ``h * c_out + o``: the
+    weights that take the full conv's X (B, rows, H+1, c_out) to d_wf."""
+    H = params.w1.shape[1]
+    wcat = torch.cat([params.w2.reshape(H, C, c_out), params.b2.reshape(1, C, c_out)])
+    return wcat.permute(1, 0, 2).reshape(C, (H + 1) * c_out)
+
+
+def tile_conv_backward_sorted_reference(params: MCConvParams, lay: ConvLayout,
+                                        wf: torch.Tensor, radius: float, cnt: torch.Tensor,
+                                        dout: torch.Tensor, *, c_out=None,
+                                        mean_normalize=False):
+    """Plain version of K6 on the sorted layout.
+
+    From the forward's inputs (``wf`` (B, ntp*T, C) = the sorted weighted
+    features), its count and ``dout (B, nts*T, C | c_out)``, returns ``(d_wf,
+    dw1 (3, H), db1 (H,), dw2, db2)`` in the shapes of ``MCConvParams``. It
+    walks the backward list (source majors x sample minors) as K6 does, and
+    forms what the reference's ``_bwd_kernel`` forms: per source row
+    ``X[p,h,o] = sum_q a_h(q,p) t[q,o]`` (then d_wf and dW2, db2 from X), and
+    per pair ``dpre_h = [pre_h > 0] [in radius] sum_c dG[q,h,c] f~[p,c]``
+    (``dG = t . [W2; b2]``), whose sums against the offset (source - sample)
+    / r give dW1 and db1."""
+    w1, b1, w2, b2 = params
+    H = w1.shape[1]
+    B, NP, C = wf.shape
+    NS = lay.smp.shape[1]
+    T = DEFAULT_TILE
+    Tm = tile_minor(T)
+    CO = C if c_out is None else c_out
+    t = _cotangent(lay, cnt, dout, mean_normalize)
+    if c_out is None:
+        dG = t[:, :, None, :] * w2  # (B, NS, H, C)
+    else:
+        dG = (t @ w2.reshape(H * C, c_out).T).reshape(B, NS, H, C)
+    r2 = radius_sq(radius)
+    r_dev = torch.full((), radius, dtype=wf.dtype, device=wf.device)  # see core/grid.py
+    X = wf.new_zeros((B * (NP // T), T, H + 1, CO))
+    dw1 = wf.new_zeros((3, H))
+    db1 = wf.new_zeros((H,))
+    for src_rows, smp_rows, real, tiles in _walk_steps(lay.steps_b, T, Tm):
+        Sc = src_rows.shape[1]
+        p = batched_gather(lay.src, src_rows).reshape(B * Sc, T, 3)
+        pv = batched_gather(lay.src_valid, src_rows).reshape(B * Sc, T)
+        f = batched_gather(wf, src_rows).reshape(B * Sc, T, C)
+        q = batched_gather(lay.smp, smp_rows).reshape(B * Sc, -1, 3)
+        qv = (batched_gather(lay.smp_valid, smp_rows) & real).reshape(B * Sc, -1)
+        u = batched_gather(t, smp_rows).reshape(B * Sc, -1, CO)
+        g = batched_gather(dG, smp_rows).reshape(B * Sc, -1, H, C)
+        inr = (pair_d2(q, p) <= r2) & qv[:, :, None] & pv[:, None, :]  # (B*Sc, Q, T)
+        off = (p[:, None, :, :] - q[:, :, None, :]) / r_dev
+        pre = _kernel_preact(off, w1, b1)
+        a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
+        X.index_add_(0, tiles, torch.einsum("sqph,sqo->spho", a, u))
+        dpre = torch.einsum("sqhc,spc->sqph", g, f)
+        dpre = torch.where((pre > 0) & inr[..., None], dpre, 0.0)  # the step at pre == 0 is 0
+        dw1 += torch.einsum("sqph,sqpk->kh", dpre, off)
+        db1 += dpre.sum(dim=(0, 1, 2))
+    X = X.reshape(B, NP, H + 1, CO)
+    if c_out is None:
+        d_wf = (X[:, :, :H] * w2).sum(dim=2) + X[:, :, H] * b2
+        dw2 = (X[:, :, :H] * wf[:, :, None, :]).sum(dim=(0, 1))
+        db2 = (X[:, :, H] * wf).sum(dim=(0, 1))
+    else:
+        Xf = X.reshape(B * NP, (H + 1) * c_out)
+        d_wf = (Xf @ _wr(params, C, c_out).T).reshape(B, NP, C)
+        dwcat = (wf.reshape(B * NP, C).T @ Xf).reshape(C, H + 1, c_out).transpose(0, 1)
+        dw2, db2 = dwcat[:H].reshape(w2.shape), dwcat[H].reshape(b2.shape)
+    return d_wf, dw1, db1, dw2, db2
+
+
+def tile_conv_backward_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                   radius: float, cnt: torch.Tensor, dout: torch.Tensor, *,
+                                   c_out=None, mean_normalize=False):
+    """Launch K6 on CUDA tensors; the arguments and outputs of the plain version."""
+    global backward_launches
+    w1, b1, w2, b2 = (x.contiguous() for x in params)
+    wf = wf.contiguous()
+    t = _cotangent(lay, cnt, dout, mean_normalize).contiguous()
+    st = lay.steps_b
+    if st is None:
+        raise ValueError("tile_conv_backward (K6): the layout has no backward list "
+                         "(conv_layout(..., backward=True))")
+    _build.require_cuda("tile_conv_backward (K6)", lay.smp, lay.smp_valid, lay.src,
+                        lay.src_valid, wf, t, st.j_ids, st.run, w1, b1, w2, b2)
+    if any(x.dtype != torch.float32 for x in (lay.smp, lay.src, wf, t, w1, b1, w2, b2)):
+        raise TypeError("tile_conv_backward (K6): positions, features, dout and params must "
+                        "be float32")
+    B, NS, _ = lay.smp.shape
+    NP = lay.src.shape[1]
+    C = wf.shape[-1]
+    H = w1.shape[1]
+    H1 = H + 1
+    CO = C if c_out is None else c_out
+    if H != dense_conv.HIDDEN or C > dense_conv.MAX_C or CO > dense_conv.MAX_C:
+        raise NotImplementedError(f"K6 is built for H={dense_conv.HIDDEN} and "
+                                  f"C<={dense_conv.MAX_C}; got H={H}, C={C}, c_out={c_out}")
+    if tuple(t.shape) != (B, NS, CO) or tuple(wf.shape) != (B, NP, C):
+        raise ValueError(f"tile_conv_backward (K6): dout {tuple(t.shape)} / wf "
+                         f"{tuple(wf.shape)} do not match the layout")
+    T = DEFAULT_TILE
+    ntp = NP // T
+    CB = min(max(C, CO), TILE_BWD_CHANNELS)
+    nb = -(-max(C, CO) // CB)
+    dev = wf.device
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    depthwise = c_out is None
+    w1part = empty(B * ntp * nb, 4, H)
+    if depthwise:
+        dG, out, w2part = t, empty(B, NP, C), empty(B * ntp, H1, C)
+    else:
+        dG, out, w2part = empty(B, NS, H1, C), empty(B, NP, H1, CO), w1part
+        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
+                                            B * NS, CO, H * C, H1 * C, _build.ptr(dG), stream)
+        _build.check(err, "mcconv_bwd_dg_full_kernel (K6 dG)")
+    err = lib.tile_conv_bwd_launch(
+        _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
+        _build.ptr(lay.src_valid), _build.ptr(wf), _build.ptr(t), _build.ptr(dG),
+        _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1), _build.ptr(b1),
+        _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H, st.j_ids.shape[2],
+        st.j_ids.shape[1], ntp, st.n_minor, radius_sq(radius), float(radius), int(depthwise),
+        _build.ptr(out), _build.ptr(w1part), _build.ptr(w2part), stream,
+    )
+    _build.check(err, "tile_conv_bwd_kernel")
+    w1b1 = empty(4, H)
+    err = lib.mcconv_bwd_reduce_launch(_build.ptr(w1part), B * ntp * nb, 4 * H,
+                                       _build.ptr(w1b1), stream)
+    _build.check(err, "mcconv_bwd_reduce_kernel (K6 dW1, db1)")
+    if depthwise:
+        d_wf, dwcat = out, empty(H1, C)
+        err = lib.mcconv_bwd_reduce_launch(_build.ptr(w2part), B * ntp, H1 * C,
+                                           _build.ptr(dwcat), stream)
+        _build.check(err, "mcconv_bwd_reduce_kernel (K6 dW2, db2)")
+    else:
+        # d_wf = X . Wr^T and [dW2; db2] = wf^T X: K2's two GEMMs
+        R, K = B * NP, H1 * CO
+        wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
+        d_wf = empty(B, NP, C)
+        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(out), _build.ptr(wr), _build.ptr(wr),
+                                            R, K, C, C, _build.ptr(d_wf), stream)
+        _build.check(err, "mcconv_bwd_dg_full_kernel (K6 d_wf)")
+        dwcat = dense_conv.wcat_grad(wf, out, R, C, K).reshape(C, H1, CO).transpose(0, 1)
+    backward_launches += 1
+    return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
 class TileMCConvFunction(torch.autograd.Function):
-    """K5 forward on CUDA tensors; its backward is K6, not ported yet."""
+    """``(w1, b1, w2, b2, wf) -> out`` on the sorted layout: K5 forward and K6
+    backward on CUDA tensors, their plain versions on CPU tensors. ``wf`` is
+    the sorted ``features / pdf``; positions and pdf get no gradient here, as
+    the reference's ``_core_bwd`` returns zeros for them."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, wf, lay, radius, c_out, mean_normalize):
-        out, _ = tile_conv_sorted_cuda(MCConvParams(w1, b1, w2, b2), lay, wf, radius,
-                                       c_out=c_out, mean_normalize=mean_normalize)
+        fwd = tile_conv_sorted_reference if wf.device.type == "cpu" else tile_conv_sorted_cuda
+        out, cnt = fwd(MCConvParams(w1, b1, w2, b2), lay, wf, radius, c_out=c_out,
+                       mean_normalize=mean_normalize)
+        ctx.save_for_backward(w1, b1, w2, b2, wf, cnt)
+        ctx.lay = lay
+        ctx.conv = (radius, c_out, mean_normalize)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "the tile conv's backward is K6 (mccnn_tpu/ops/pallas/tile_conv.py:658), "
-            "ported with ScanNet training (ROADMAP queue 2); train big scenes on the "
-            "CPU plain path or wait for that slice"
-        )
+        w1, b1, w2, b2, wf, cnt = ctx.saved_tensors
+        radius, c_out, mean = ctx.conv
+        bwd = (tile_conv_backward_sorted_reference if wf.device.type == "cpu"
+               else tile_conv_backward_sorted_cuda)
+        d_wf, dw1, db1, dw2, db2 = bwd(MCConvParams(w1, b1, w2, b2), ctx.lay, wf, radius, cnt,
+                                       dout.contiguous(), c_out=c_out, mean_normalize=mean)
+        return dw1, db1, dw2, db2, d_wf, None, None, None, None
 
 
 def _unsort(rows_sorted, order):
@@ -502,18 +695,17 @@ def tile_mc_conv(params: MCConvParams, sample_pts, sample_mask, src_pts, src_mas
     """Monte-Carlo conv over Hilbert tile pairs (``tile_conv.py:1207``): every
     valid in-radius source that the step list reaches contributes. Returns
     ``out (B, M, C | c_out)`` and, with ``with_overflow``, the (B,) dropped
-    step count (nonzero means missing neighbours: raise the budget). CPU
-    tensors run the plain version (differentiable by autograd); CUDA tensors
-    run K5 through ``TileMCConvFunction``."""
+    step count (nonzero means missing neighbours: raise the budget). It runs
+    ``TileMCConvFunction``: K5 and K6 on CUDA tensors, their plain versions on
+    CPU tensors. The backward list is built only when a gradient is wanted
+    (evaluation does not pay for it)."""
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*params, features, pdf))
     lay = conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius,
-                      max_pairs=max_pairs, max_steps=max_steps)
+                      max_pairs=max_pairs, max_steps=max_steps, backward=grad)
     wf = _sorted_weighted_features(lay, features, pdf)
-    if wf.device.type == "cpu":
-        out_sorted, _ = tile_conv_sorted_reference(params, lay, wf, radius, c_out=c_out,
-                                                   mean_normalize=mean_normalize)
-    else:
-        out_sorted = TileMCConvFunction.apply(*params, wf, lay, float(radius), c_out,
-                                              mean_normalize)
+    out_sorted = TileMCConvFunction.apply(*params, wf, lay, float(radius), c_out,
+                                          mean_normalize)
     out = _unsort(out_sorted, lay.order_s)
     out = torch.where(sample_mask[..., None], out, 0.0)
     return (out, lay.overflow) if with_overflow else out

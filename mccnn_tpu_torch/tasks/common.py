@@ -8,11 +8,11 @@ is missing raises rather than falling back to the CPU. The reference's mesh
 Tile capacities (``:88-179``): a model with a ``tile_pairs`` knob left unset
 gets it sized from the example batch when that batch is big-scene scale
 (``maybe_auto_tile_pairs``), and per-site step budgets measured on the same
-batch (``auto_tile_steps``). Evaluation recovers from overflow as the
-reference does (``:405-423``): a batch that drops steps grows the budgets to
-cover it and runs again, up to three times (``_resize_tile_capacity``). The
-training side of that recovery comes with ScanNet training; until then a
-training forward that overflows raises (``models/mcseg.py``).
+batch (``auto_tile_steps``). Training and evaluation recover from overflow as
+the reference does (``:345-381``, ``:405-423``): a batch that drops steps
+grows the budgets to cover it and runs again, up to three times
+(``_resize_tile_capacity``); a training step that dropped any committed
+nothing (``train/state.py``), so it runs again from the same state.
 """
 
 from __future__ import annotations
@@ -204,17 +204,30 @@ class Runner:
 
     def train_epoch(self, batches: Iterator[dict], epoch: int) -> dict:
         """Train over ``batches`` (at most ``--steps-per-epoch``); logs and
-        returns the mean loss and metrics, the steps, the seconds and, with two
-        or more steps, ``warm_step_ms``: the mean step time after the first
-        (host clock between two device synchronisations)."""
+        returns the mean loss and metrics, the steps, the seconds, the
+        capacity re-sizes (``capacity_resizes``, when any) and, with two or
+        more steps, ``warm_step_ms``: the mean step time after the first (host
+        clock between two device synchronisations).
+
+        A step whose tile kernels dropped steps (``tile_overflow`` > 0) was
+        not committed: the budgets grow to cover its batch and it runs again,
+        at most three times (``common.py:345-381``)."""
         self._epoch = epoch
         losses, sums = [], {}
+        resizes = 0
         profiling = self.args.profile_dir and epoch == self.start_epoch + 1
         with contextlib.ExitStack() as stack:
             prof = stack.enter_context(self._profiler()) if profiling else None
             t0, t_first, n = time.perf_counter(), None, 0
             for batch in batches:
-                loss, metrics = self._train_step(batch_to_device(batch, self.device))
+                dev_batch = batch_to_device(batch, self.device)
+
+                def step():
+                    loss, metrics = self._train_step(dev_batch)
+                    return (loss, metrics), metrics.get("tile_overflow")
+
+                (loss, metrics), attempts = self._rerun_until_fits(step, dev_batch, "train")
+                resizes += attempts
                 losses.append(loss)
                 for k, v in metrics.items():
                     sums.setdefault(k, []).append(v)
@@ -231,10 +244,12 @@ class Runner:
             "steps": n,
             "sec": round(t_end - t0, 2),
         }
+        if resizes:
+            out["capacity_resizes"] = resizes
         if n > 1:
             out["warm_step_ms"] = (t_end - t_first) * 1e3 / (n - 1)
         for k, vs in sums.items():
-            out[k] = float(torch.stack(vs).mean())
+            out[k] = float(torch.stack(vs).float().mean())
         if prof is not None:
             out.update(self._write_profile(prof, (t_end - t0) * 1e3))
         self.metrics.log(self.state.step, tag="train", epoch=epoch, **out)
@@ -286,20 +301,31 @@ class Runner:
         with torch.inference_mode():
             if not hasattr(self.model, "tile_sites"):
                 return self.model(*inputs)
-            out, ovf = self.model(*inputs, with_overflow=True)
-            attempts = 0
-            while (dropped := int(ovf)) > 0:
-                if attempts >= 3:
-                    raise RuntimeError(
-                        f"tile capacity overflow persists in eval after {attempts} re-sizes "
-                        f"({dropped} dropped steps)"
-                    )
-                attempts += 1
-                event = self._resize_tile_capacity(args)
-                self.metrics.log(self.state.step, tag="resize", tile_overflow=dropped,
-                                 attempt=attempts, phase="eval", **event)
-                out, ovf = self.model(*inputs, with_overflow=True)
+            out, _ = self._rerun_until_fits(
+                lambda: self.model(*inputs, with_overflow=True), args, "eval")
         return out
+
+    def _rerun_until_fits(self, run, batch: dict, phase: str) -> tuple:
+        """``run()`` -> (result, dropped tile steps or None); while it drops
+        steps, grow the budgets to cover ``batch``, log a ``resize`` record and
+        run it again, at most three times (``common.py:352-381``, ``:405-423``).
+        Returns the result and the number of re-sizes."""
+        result, ovf = run()
+        attempts = 0
+        while ovf is not None and (dropped := float(ovf)) > 0:
+            if attempts >= 3:
+                raise RuntimeError(
+                    f"tile capacity overflow persists in {phase} after {attempts} re-sizes "
+                    f"({dropped:.0f} dropped steps): auto_tile_pairs cannot cover this batch; "
+                    "raise tile_pairs manually"
+                )
+            attempts += 1
+            event = self._resize_tile_capacity(batch)
+            extra = {"phase": phase} if phase != "train" else {}
+            self.metrics.log(self.state.step, tag="resize", tile_overflow=dropped,
+                             attempt=attempts, **extra, **event)
+            result, ovf = run()
+        return result, attempts
 
     def _resize_tile_capacity(self, batch: dict) -> dict:
         """Grow the model's tile budgets to cover ``batch`` (``common.py:265``):

@@ -9,14 +9,19 @@ Two ways to evaluate, as in the reference:
   at B = 1, padded to the cap.
 
 At ``--points`` beyond the dense bound the tile capacity is sized from the
-first batch, so the big levels take the z-order tile kernels (K5, K7, K8); a
-denser eval batch re-sizes it (``tasks/common.py``). Training runs the same
-model through ``Runner.train_epoch``: on the CPU plain path it trains; on
-CUDA a tile site's backward is K6, not ported yet, and raises. Not ported
-(they raise): ``--tile-pairs 0`` (the bucket conv, K9) and the spatially
-sharded trainer (``--spatial-shards`` / ``--data-shards`` > 1).
+first batch, so the big levels take the z-order tile kernels (K5, K7, K8 and,
+in training, K6 for the tile convs' backward); a denser batch re-sizes it, in
+training and in evaluation (``tasks/common.py``). Training runs the model
+through ``Runner.train_epoch``, on the card or, with ``--device cpu``, on the
+plain PyTorch path. Not ported (they raise): ``--tile-pairs 0`` (the bucket
+conv, K9) and the spatially sharded trainer (``--spatial-shards`` /
+``--data-shards`` > 1).
 
 Usage::
+
+  python -m mccnn_tpu_torch.tasks.scannet --synthetic                        # train, GPU
+  python -m mccnn_tpu_torch.tasks.scannet --synthetic --device cpu --batch 2 \\
+      --points 1100 --grow 8 --radii 0.4,0.8 --epochs 1 --steps-per-epoch 2  # tiny, CPU
 
   python -m mccnn_tpu_torch.tasks.scannet --synthetic --eval-only            # blocks, GPU
   python -m mccnn_tpu_torch.tasks.scannet --synthetic --eval-only \\

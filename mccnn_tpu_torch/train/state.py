@@ -9,7 +9,18 @@ the moments) and its own clip and schedule. Neither is a TPU kernel.
 
 A step runs the model in training mode (batch BN moments, running-statistic
 updates, dropout from the state's generator), the loss, the backward through
-the MC convs' K2 (on CUDA tensors) and one optimizer update, in place.
+the MC convs' K2 and K6 (on CUDA tensors) and one optimizer update, in place.
+
+A model with tile sites (``tile_sites``) reports the steps its tile kernels
+dropped (``tile_overflow``, ``train/state.py:106-115`` of the reference). A
+step whose forward dropped any commits nothing: no backward, no optimizer
+update, and its BN running statistics and dropout generators are put back as
+they were, so that the caller can grow the budgets and run the same step
+again with the same draws, as the reference re-runs a discarded step from
+the same state and ``rng`` (``tasks/common.py:345-381``). Checking after the
+forward gives the reference's answer (it checks after the whole step) and
+saves the backward; it waits for the device once a step, for tile models
+only.
 """
 
 from __future__ import annotations
@@ -21,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.layers import set_dropout_generator
+from ..models.layers import Dropout, set_dropout_generator
 
 
 class StaircaseDecay:
@@ -131,6 +142,25 @@ def _model_args(batch: dict) -> tuple:
     return batch["points"], batch["mask"], batch.get("features")
 
 
+def _uncommitted(model: nn.Module) -> Callable[[], None]:
+    """Snapshot what a training forward changes in place (the buffers: BN
+    running statistics and schedule counts; the dropout generators' states);
+    the returned function puts it back."""
+    buffers = [(b, b.clone()) for b in model.buffers()]
+    gens = {id(m.generator): m.generator for m in model.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    states = [(g, g.get_state()) for g in gens.values()]
+
+    def restore() -> None:
+        with torch.no_grad():
+            for b, saved in buffers:
+                b.copy_(saved)
+        for g, state in states:
+            g.set_state(state)
+
+    return restore
+
+
 def make_train_step(
     model: nn.Module,
     optimizer: Optimizer,
@@ -138,15 +168,28 @@ def make_train_step(
 ) -> Callable[[dict], tuple[torch.Tensor, dict]]:
     """``step(batch) -> (loss, metrics)``, updating the model and optimizer in
     place. ``loss_fn(model_output, batch) -> (loss, metrics)``; ``batch`` holds
-    tensors on the model's device. Nothing here waits for the device."""
+    tensors on the model's device. A tile model's metrics carry
+    ``tile_overflow``; when it is nonzero the step committed nothing (see the
+    module docstring). Otherwise nothing here waits for the device."""
+    tiles = hasattr(model, "tile_sites")
 
     def step(batch: dict) -> tuple[torch.Tensor, dict]:
         model.train()
-        out = model(*_model_args(batch))
+        if tiles:
+            restore = _uncommitted(model)
+            out, overflow = model(*_model_args(batch), with_overflow=True)
+        else:
+            out = model(*_model_args(batch))
         loss, metrics = loss_fn(out, batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if tiles:
+            metrics["tile_overflow"] = overflow
+            if int(overflow) > 0:
+                restore()
+                return loss.detach(), metrics
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics
 
     return step

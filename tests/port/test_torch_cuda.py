@@ -163,16 +163,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_tile_kernel_wrappers_refuse_cpu_tensors():
     pts, mask = cloud(6, N=160)
     params = init_mcconv_params(torch.Generator().manual_seed(0), 2, None)
-    lay = tile_conv.conv_layout(pts, mask, pts, mask, 0.2, max_pairs=1 << 30)
+    lay = tile_conv.conv_layout(pts, mask, pts, mask, 0.2, max_pairs=1 << 30, backward=True)
     wf = tile_conv._sorted_weighted_features(lay, torch.ones((2, 160, 2)), torch.ones((2, 160)))
+    cnt, dout = torch.ones((2, 256)), torch.ones((2, 256, 2))
     sweep = tile_conv.make_cover_sweep(pts, mask, 0.2, max_pairs=1 << 30)
     calls = [
         lambda: tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2),
+        lambda: tile_conv.tile_conv_backward_sorted_cuda(params, lay, wf, 0.2, cnt, dout),
         lambda: tile_conv.tile_kde_sums_cuda(sweep.layout, 0.2),
         lambda: tile_conv.cover_counts_cuda(sweep.layout, sweep.valid, 0.2),
     ]
-    counters = lambda: (tile_conv.launches, tile_conv.kde_launches,  # noqa: E731
-                        tile_conv.cover_launches)
+    counters = lambda: (tile_conv.launches, tile_conv.backward_launches,  # noqa: E731
+                        tile_conv.kde_launches, tile_conv.cover_launches)
     before = counters()
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):
@@ -257,13 +259,59 @@ def test_tile_conv_and_dense_conv_agree_through_the_public_functions(cuda):
 
 
 @pytest.mark.cuda
-def test_tile_conv_backward_on_cuda_raises_naming_k6(cuda):
-    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, 4, 3)
-    params = type(params)(*(t.requires_grad_() for t in params))
-    out = tile_conv.tile_mc_conv(params, smp, qmask, src, smask, feats, pdf, 0.2,
-                                 max_pairs=1 << 30, c_out=3)
-    with pytest.raises(NotImplementedError, match="K6"):
-        out.sum().backward()
+@pytest.mark.parametrize("c_in,c_out,mean,max_steps", [(8, None, False, None), (1, 16, False, None),
+                                                      (40, None, True, None), (8, None, False, 2),
+                                                      (3, 5, True, 2)])
+def test_tile_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean,
+                                                                     max_steps):
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, c_in, c_out)
+    lay = tile_conv.conv_layout(smp, qmask, src, smask, 0.2, max_pairs=1 << 30,
+                                max_steps=max_steps, backward=True)
+    wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    out, cnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2, **kw)
+    g = torch.Generator().manual_seed(10)
+    dout = torch.randn(out.shape, generator=g).to(cuda)
+    args = (params, lay, wf, 0.2, cnt, dout)
+    before = tile_conv.backward_launches
+    got = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
+    again = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
+    want = tile_conv.tile_conv_backward_sorted_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tile_conv.backward_launches == before + 2
+    for name, a, a2, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, a2), name  # one writer per output, fixed-order reductions
+        scale = float(w.abs().max())
+        assert scale > 0, name
+        # fp32 sums over the backward list's pairs and channels in another order;
+        # the plain version rounds pre_h as the kernel does, so no ReLU step flips
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * scale, msg=name)
+    if max_steps:
+        assert int(lay.overflow.max()) > 0
+
+
+@pytest.mark.cuda
+def test_loss_backward_through_tile_mc_conv_launches_k5_and_k6(cuda):
+    case = _tile_conv_case(cuda, 6, 4)
+    g = torch.Generator().manual_seed(11)
+    cot = torch.randn((2, 300, 4), generator=g)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        params, smp, qmask, src, smask, feats, pdf = (
+            type(case[0])(*(t.to(dev) for t in case[0])), *(t.to(dev) for t in case[1:]))
+        params = type(params)(*(t.detach().requires_grad_() for t in params))
+        feats = feats.detach().requires_grad_()
+        before = (tile_conv.launches, tile_conv.backward_launches)
+        out = tile_conv.tile_mc_conv(params, smp, qmask, src, smask, feats, pdf, 0.2,
+                                     max_pairs=1 << 30, c_out=4)
+        (out * cot.to(dev)).sum().backward()
+        moved = (tile_conv.launches - before[0], tile_conv.backward_launches - before[1])
+        assert moved == ((1, 1) if dev.type == "cuda" else (0, 0))
+        grads[dev.type] = [t.grad.cpu() for t in (*params, feats)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        # the same plain-vs-kernel sums as above, through the unsort and f / pdf
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.cuda

@@ -6,13 +6,17 @@ masked tail in one cloud) is built in both packages with the same weights
 (through ``convert.py``) and seeded BN statistics near each BN input's RMS.
 The port runs every conv site on the tile path (``conv_backend="tile"``) and,
 once more, routed by shape (dense at this size); the JAX model runs its CPU
-path, the K-capacity conv with ``neighbor_k = N``, which is lossless. Then the
-scene data pipeline, the segmentation losses, the overflow report and the
-``tasks.scannet`` CLI (block and whole-scene evaluation, with one capacity
-re-size) on the CPU plain path.
+path, the K-capacity conv with ``neighbor_k = N``, which is lossless. One
+train step (dropout 0) goes through the port's ``make_train_step`` on the tile
+path (the tile convs' backward is the plain K6) against ``jax.value_and_grad``
+of the JAX model in training mode. Then the scene data pipeline, the
+segmentation losses, the overflow report and the ``tasks.scannet`` CLI (block
+and whole-scene evaluation, and training, each with a capacity re-size) on
+the CPU plain path.
 """
 
 import json
+import re
 
 import jax
 import numpy as np
@@ -24,6 +28,7 @@ from mccnn_tpu.data import datasets as j_datasets
 from mccnn_tpu.models import MCSeg as JMCSeg
 from mccnn_tpu.train import masked_accuracy as j_masked_accuracy
 from mccnn_tpu.train import segmentation_loss as j_segmentation_loss
+from mccnn_tpu_torch.models.layers import Dropout
 from mccnn_tpu_torch.api.hierarchy import build_hierarchy
 from mccnn_tpu_torch.convert import load_flax_variables, torch_name
 from mccnn_tpu_torch.data import datasets
@@ -31,7 +36,14 @@ from mccnn_tpu_torch.models import MCSeg
 from mccnn_tpu_torch.models.layers import MaskedBatchNorm
 from mccnn_tpu_torch.ops.cuda import tile_conv
 from mccnn_tpu_torch.tasks import common, scannet
-from mccnn_tpu_torch.train import masked_accuracy, segmentation_loss
+from mccnn_tpu_torch.train import (
+    batch_to_device,
+    init_state,
+    make_optimizer,
+    make_train_step,
+    masked_accuracy,
+    segmentation_loss,
+)
 from parity_utils import boundary_free
 
 B, N, N_CLASSES, GROW = 2, 384, 5, 8
@@ -154,6 +166,63 @@ def test_logits_match_jax(case, backend):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
 
 
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if hasattr(v, "items"):
+            yield from _flat(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def test_train_step_matches_jax(case):
+    pts, mask = case["pts"], case["mask"]
+    labels = np.random.default_rng(SEED + 1).integers(0, N_CLASSES, size=(B, N)).astype(np.int32)
+    jmodel = JMCSeg(n_classes=N_CLASSES, grow=GROW, radii=RADII, neighbor_k=N, drop_rate=0.0)
+
+    @jax.jit
+    def jax_step(variables):
+        def loss_fn(params):
+            out, upd = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                    pts, mask, train=True, mutable=["batch_stats"])
+            return j_segmentation_loss(out, labels, mask), upd["batch_stats"]
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
+
+    (want_loss, want_stats), want_grads = jax_step(case["variables"])
+    model = MCSeg(N_CLASSES, grow=GROW, radii=RADII, tile_pairs=1 << 30, conv_backend="tile",
+                  drop_rate=0.0)
+    load_flax_variables(model, case["variables"])
+    opt = make_optimizer(model.parameters())
+    init_state(model, opt, seed=0)
+    step = make_train_step(model, opt, lambda out, b: (
+        segmentation_loss(out, b["labels"], b["mask"]), {}))
+    batch = batch_to_device({"points": pts, "mask": mask, "labels": labels}, torch.device("cpu"))
+    loss, metrics = step(batch)
+    assert int(metrics["tile_overflow"]) == 0 and opt.count == 1
+    # Port vs JAX, both fp32 on the CPU, identical hierarchies (boundary-free
+    # inputs): the loss 1e-5 (fp32 sums in other orders through seven convs,
+    # the KDE's d2 rounding and the BNs); each gradient 1e-3 of its largest
+    # value (the backward runs through thirteen batch-statistic BNs); the BN
+    # running statistics 1e-4 of their largest value. A mixing layer's bias
+    # feeds a BN that subtracts the batch mean, so its gradient is 0 up to
+    # rounding: both sides must be below 1e-6 of the largest gradient.
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    top = max(np.abs(g).max() for g in grads.values())
+    state = model.state_dict()
+    for kind, tree, tol in (("grad", want_grads, 1e-3), ("stat", want_stats, 1e-4)):
+        for path, want in _flat(tree):
+            name, transpose = torch_name(path)
+            got = grads[name] if kind == "grad" else state[name].numpy()
+            got = got.T if transpose else got
+            if kind == "grad" and re.fullmatch(r"(enc|dec)_mix_\d+/Dense_0/bias", path):
+                assert max(np.abs(got).max(), np.abs(want).max()) < 1e-6 * top, path
+                continue
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol * np.abs(want).max(),
+                                       err_msg=f"{kind} {path}")
+
+
 def test_tile_overflow_is_reported_or_raises(case):
     model = _port_model("tile", case["variables"])
     model.tile_steps = {("conv", 0, 0, 0.2): 1}  # one step for three sample tiles
@@ -258,6 +327,61 @@ def test_scannet_cli_evaluates_blocks_and_whole_scenes_with_a_resize(tmp_path, m
     assert [r["tag"] for r in recs].count("eval") == 2
     assert len(resizes) >= 1 and resizes[0]["phase"] == "eval"
     assert resizes[0]["tile_overflow"] > 0 and resizes[0]["tile_pairs"] > 32
+
+
+class RecordingMCSeg(MCSeg):
+    """MCSeg that records, for each training forward, its BN buffers and the
+    dropout generator's state as the forward starts, and its overflow."""
+
+    calls: list = []
+
+    def forward(self, *args, **kw):
+        if not self.training:
+            return super().forward(*args, **kw)
+        gens = {m.generator for m in self.modules() if isinstance(m, Dropout) and m.rate > 0}
+        assert len(gens) == 1
+        rec = {"gen": next(iter(gens)).get_state().clone(),
+               "bufs": [b.clone() for b in self.buffers()]}
+        out = super().forward(*args, **kw)
+        rec["overflow"] = int(out[1])
+        RecordingMCSeg.calls.append(rec)
+        return out
+
+
+def test_scannet_cli_trains_and_reruns_a_discarded_step_after_a_resize(tmp_path, monkeypatch):
+    # 1100 points a block: a sample tile meets more than one step's worth of
+    # candidate minors, so --tile-pairs 32 drops steps in training
+    monkeypatch.setattr(scannet, "SyntheticSceneSource", SmallScenes)
+    monkeypatch.setattr(scannet, "MCSeg", RecordingMCSeg)
+    monkeypatch.setattr(RecordingMCSeg, "calls", [])
+    logs = str(tmp_path / "logs")
+    res = scannet.main(["--synthetic", "--device", "cpu", "--batch", "2", "--points", "1100",
+                        "--grow", "8", "--radii", "0.4,0.8", "--conv-backend", "tile",
+                        "--tile-pairs", "32", "--epochs", "1", "--steps-per-epoch", "2",
+                        "--eval-every", "2", "--log-dir", logs, "--ckpt-dir",
+                        str(tmp_path / "ck")])
+    assert res == {"best_mIoU": 0.0}  # no eval epoch ran
+    with open(tmp_path / "logs" / "scannet_mcseg.metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    resizes = [r for r in recs if r["tag"] == "resize"]
+    train = [r for r in recs if r["tag"] == "train"]
+    assert len(train) == 1 and train[0]["steps"] == 2 and np.isfinite(train[0]["loss"])
+    assert len(resizes) >= 1 and train[0]["capacity_resizes"] == len(resizes)
+    assert train[0]["tile_overflow"] == 0.0  # the committed steps dropped nothing
+    for r in resizes:  # the reference's keys
+        assert set(r) >= {"tile_overflow", "attempt", "tile_pairs", "tile_pairs_old"}
+        assert r["tile_overflow"] > 0 and r["tile_pairs"] > r["tile_pairs_old"]
+    calls = RecordingMCSeg.calls
+    assert len(calls) == 2 + len(resizes)
+    dropped = [k for k, c in enumerate(calls) if c["overflow"] > 0]
+    assert len(dropped) == len(resizes)
+    for k in dropped:  # the step ran again from the same BN buffers and dropout state
+        again = calls[k + 1]
+        assert torch.equal(again["gen"], calls[k]["gen"])
+        assert all(torch.equal(a, b) for a, b in zip(again["bufs"], calls[k]["bufs"]))
+    last = calls[-1]  # a committed step moves both on
+    assert not torch.equal(last["gen"], calls[0]["gen"])
+    assert not all(torch.equal(a, b) for a, b in zip(last["bufs"], calls[0]["bufs"]))
 
 
 def test_predict_scene_batches_blocks_unpadded_and_covers_the_scene(tmp_path):

@@ -76,17 +76,18 @@ def both(*arrays):
     return [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
 
 
-def jax_forward_list(smp, qm, src, sm, radius, max_pairs, max_steps=None):
-    """The forward step list, budget and overflow exactly as JAX's
-    ``tile_mc_conv`` derives them (``tile_conv.py:1265-1342``)."""
+def jax_step_lists(smp, qm, src, sm, radius, max_pairs, max_steps=None):
+    """The forward and backward step lists, budget and overflow exactly as
+    JAX's ``tile_mc_conv`` derives them (``tile_conv.py:1265-1342``)."""
     M, N = smp.shape[1], src.shape[1]
     nts, ntp, nts_m, ntp_m = -(-M // T), -(-N // T), -(-M // TM), -(-N // TM)
     S = max(J._steps_for_pairs(min(max_pairs, nts * ntp_m), GM, nts, ntp_m),
             J._steps_for_pairs(min(max_pairs, ntp * nts_m), GM, ntp, nts_m))
     if max_steps is not None:
         S = min(S, max_steps)
-    i_ids, j_ids, need = _jax_lists(smp, qm, src, sm, radius, S)
-    return S, np.asarray(i_ids), np.asarray(j_ids), np.maximum(np.asarray(need) - S, 0)
+    i_ids, j_ids, jb_ids, ib_ids, need = (np.asarray(a) for a in
+                                          _jax_lists(smp, qm, src, sm, radius, S))
+    return S, i_ids, j_ids, jb_ids, ib_ids, np.maximum(need - S, 0)
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5))
@@ -101,7 +102,9 @@ def _jax_lists(smp, qm, src, sm, radius, S):
     adj_f = J._refined_adjacency(sr, mn_i, mx_i, prm, mn_jm, mx_jm, T, radius, TM)
     adj_b = J._refined_adjacency(pr, mn_j, mx_j, srm, mn_im, mx_im, T, radius, TM)
     i_ids, j_ids = J._chunked_pair_lists(adj_f, S, GM, nts - 1, ntp_m)
-    return i_ids, j_ids, jnp.maximum(J._needed_steps(adj_f, GM), J._needed_steps(adj_b, GM))
+    jb_ids, ib_ids = J._chunked_pair_lists(adj_b, S, GM, ntp - 1, nts_m)
+    return (i_ids, j_ids, jb_ids, ib_ids,
+            jnp.maximum(J._needed_steps(adj_f, GM), J._needed_steps(adj_b, GM)))
 
 
 # ------------------------------------------------------------ host machinery
@@ -144,17 +147,24 @@ def test_step_lists_and_overflow_match_jax(max_pairs, max_steps):
     smp, qm = cloud(4, N=300, masked=25)
     src, sm = cloud(5, N=500, masked=60)
     (js, jq, jsrc, jsm), (ts, tq, tsrc, tsm) = both(smp, qm, src, sm)
-    S, i_ids, j_ids, ovf = jax_forward_list(js, jq, jsrc, jsm, RADII[1], max_pairs, max_steps)
-    lay = P.conv_layout(ts, tq, tsrc, tsm, RADII[1], max_pairs=max_pairs, max_steps=max_steps)
+    S, i_ids, j_ids, jb_ids, ib_ids, ovf = jax_step_lists(js, jq, jsrc, jsm, RADII[1], max_pairs,
+                                                          max_steps)
+    lay = P.conv_layout(ts, tq, tsrc, tsm, RADII[1], max_pairs=max_pairs, max_steps=max_steps,
+                        backward=True)
     assert lay.S == S
-    np.testing.assert_array_equal(lay.steps.i_ids.numpy(), i_ids)
-    np.testing.assert_array_equal(lay.steps.j_ids.numpy(), j_ids)
     np.testing.assert_array_equal(lay.overflow.numpy(), ovf)
-    assert (np.diff(i_ids, axis=1) >= 0).all()
-    run = lay.steps.run.numpy()
-    for b in range(2):  # each tile's run holds exactly the steps of that tile
-        for t in range(run.shape[1] - 1):
-            assert (i_ids[b, run[b, t]:run[b, t + 1]] == t).all()
+    # the forward list (sample majors x source minors) and the backward list
+    # (source majors x sample minors: JAX's jb_ids / ib_ids)
+    for steps, major, minors in ((lay.steps, i_ids, j_ids), (lay.steps_b, jb_ids, ib_ids)):
+        np.testing.assert_array_equal(steps.i_ids.numpy(), major)
+        np.testing.assert_array_equal(steps.j_ids.numpy(), minors)
+        assert (np.diff(major, axis=1) >= 0).all()
+        run = steps.run.numpy()
+        for b in range(2):  # each tile's run holds exactly the steps of that tile
+            for t in range(run.shape[1] - 1):
+                assert (major[b, run[b, t]:run[b, t + 1]] == t).all()
+    assert lay.steps_b.n_minor == -(-300 // TM)  # the sentinel sample minor
+    assert P.conv_layout(ts, tq, tsrc, tsm, RADII[1], max_pairs=max_pairs).steps_b is None
     assert (ovf > 0).all() if max_steps else (ovf == 0).all()
 
 

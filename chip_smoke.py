@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port's paths on one NVIDIA GPU: MCClassS serving and
-training, and ScanNet segmentation serving and training (MCSeg on the z-order tile
-kernels).
+training, ScanNet segmentation serving and training (MCSeg on the z-order tile
+kernels), and the capacity-free bucket path (MCSeg without a tile capacity, and
+MCClassS above 3072 points, on the cell-bucket kernels).
 
     python3 chip_smoke.py
 
@@ -58,8 +59,24 @@ kernels).
    enough that a step drops tile steps, is discarded, re-sized and run again;
    requires a finite loss, at least one ``resize`` record and the launch
    counters of K1-K6 and K8 moving, and prints the warm time per step.
-12. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, K5-K8 at the ScanNet shapes; each with its least possible time on
+12. The bucket path on a block batch of B=8 x 8192 at the same widths with no
+   tile capacity: the hierarchy (level 0 sampled through its self-neighbour
+   lists) against the CPU plain path's, and per bucket site the grid
+   overflow of each side (nonzero drops points, the reference's semantics)
+   and the candidate and in-radius pair counts; K9 (bucket MC conv) and K10
+   (its backward, with a seeded dout) at the four sites against their plain
+   versions, bitwise repetition, times and bounds.
+13. MCSeg(tile_pairs=None) served through ``serve.Predictor``: the card
+   against the CPU plain path at B=2 (identical hierarchies), then the
+   latency of B=8 block batches, with K9 launched and no tile kernel, and a
+   profiled B=8 forward (device time, busy share, top kernels).
+14. One MCSeg bucket train step at B=2 x 8192 against the CPU plain path (the
+   gate of 9), then timed train steps at B=8 x 8192 through
+   ``make_train_step`` with K9 and K10 launched.
+15. ``tasks.modelnet.main --synthetic --points 4096`` at B=32: three steps and
+   one evaluation, with MCClassS's conv_0_1 on K9 and K10.
+16. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+   B=32, K5-K10 at the ScanNet shapes; each with its least possible time on
    the card, ``bound_ms``, from the bytes and operations of this run's
    inputs), the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -89,6 +106,15 @@ H = 8  # the kernel MLP's hidden width
 SEG_B, SEG_N, SEG_CAP = 8, 8192, 40960  # the ScanNet CLI's block batch; whole-scene cap
 SEG_CLASSES, SEG_GROW, SEG_RADII = 8, 64, (0.05, 0.15, 0.4)
 SEG_CPU_B = 2  # MCSeg card vs the CPU plain path (B = 8 would keep the CPU for minutes)
+# The four big conv sites of MCSeg at the ScanNet widths: (name, in level,
+# out level, radius, c_in, c_out); each takes K5 with a tile capacity, K9 without.
+SEG_SITES = [("stem", 0, 0, SEG_RADII[0], 1, SEG_GROW),
+             ("enc_0_1", 0, 1, 2 * SEG_RADII[0], SEG_GROW, None),
+             ("dec_2_1", 2, 1, 2 * SEG_RADII[1], 6 * SEG_GROW, None),
+             ("dec_1_0", 1, 0, 2 * SEG_RADII[0], 4 * SEG_GROW, None)]
+SEG_NEIGHBOR_K = 32  # MCSeg's default neighbor_k: the level-0 sampler's list capacity
+BUCKET_TRAIN_STEPS = 4  # timed MCSeg bucket train steps at B = 8 after one warm-up
+MODELNET_BUCKET_N = 4096  # tasks.modelnet --points: MCClassS's conv_0_1 leaves the dense envelope
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -147,6 +173,14 @@ SEG_ZERO_GRAD_RTOL = 1e-3
 #     largest 6.3e-8 of its BN's largest |value|).
 FLIP_SHARE = 1e-5
 FLIP_VALUE_RTOL = 1e-5
+# K9: fp32 sums over a window's pairs and channels in another order than the
+#     plain version's (which walks the same windows and rounds pre_h as the
+#     kernel does), relative to the site's largest |output|.
+BUCKET_RTOL = 1e-5
+# K10: every gradient within 1e-4 of its largest value: fp32 sums over pairs,
+#     channels and per-block partials in another order; the ReLU steps fall as
+#     in the kernel (the same pre_h rounding), so dW1 / db1 hold to it too.
+BUCKET_BWD_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -447,13 +481,15 @@ def same_hierarchy(req: dict, dev) -> bool:
 
 def counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
-    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel, tile_conv
+    from mccnn_tpu_torch.ops.cuda import (dense_conv, density_kernel, mcconv_kernel,
+                                          poisson_kernel, tile_conv)
 
     return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
             "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches"),
             "K5": (tile_conv, "launches"), "K6": (tile_conv, "backward_launches"),
             "K7": (tile_conv, "kde_launches"),
-            "K8": (tile_conv, "cover_launches")}
+            "K8": (tile_conv, "cover_launches"),
+            "K9": (mcconv_kernel, "launches"), "K10": (mcconv_kernel, "backward_launches")}
 
 
 def reset_counts() -> None:
@@ -763,14 +799,10 @@ def check_tile_conv(dev, hier, tile_pairs) -> tuple:
     from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
 
     gen = torch.Generator().manual_seed(SEED + 7)
-    g = SEG_GROW
-    sites = [("stem", 0, 0, SEG_RADII[0], 1, g), ("enc_0_1", 0, 1, 2 * SEG_RADII[0], g, None),
-             ("dec_2_1", 2, 1, 2 * SEG_RADII[1], 6 * g, None),
-             ("dec_1_0", 1, 0, 2 * SEG_RADII[0], 4 * g, None)]
     err = ms = pms = bms = 0.0
     by = "operations"
     with torch.no_grad():
-        for name, i, o, radius, c, co in sites:
+        for name, i, o, radius, c, co in SEG_SITES:
             (src, smask), (smp, qmask) = hier[i], hier[o]
             b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
             params = site_params(gen, c, co, dev)
@@ -819,15 +851,11 @@ def check_tile_backward(dev, hier, tile_pairs) -> tuple:
     from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
 
     gen = torch.Generator().manual_seed(SEED + 11)
-    g = SEG_GROW
-    sites = [("stem", 0, 0, SEG_RADII[0], 1, g), ("enc_0_1", 0, 1, 2 * SEG_RADII[0], g, None),
-             ("dec_2_1", 2, 1, 2 * SEG_RADII[1], 6 * g, None),
-             ("dec_1_0", 1, 0, 2 * SEG_RADII[0], 4 * g, None)]
     names = ("d_wf", "dw1", "db1", "dw2", "db2")
     err = ms = pms = bms = 0.0
     by = "operations"
     with torch.no_grad():
-        for name, i, o, radius, c, co in sites:
+        for name, i, o, radius, c, co in SEG_SITES:
             (src, smask), (smp, qmask) = hier[i], hier[o]
             b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
             CO = c if co is None else co
@@ -957,9 +985,10 @@ def check_mcseg(dev) -> None:
             "MCSeg logits on the card disagree with the CPU plain path")
 
 
-def check_mcseg_train_step(dev) -> None:
+def check_mcseg_train_step(dev, bucket: bool = False) -> None:
     """One MCSeg train step (ScanNet defaults, dropout 0) on the card against
-    the same step on the CPU plain path, at B=2 x 8192.
+    the same step on the CPU plain path, at B=2 x 8192: on the tile path
+    (auto-sized capacity), or with ``bucket`` on the capacity-free bucket path.
 
     A BN output within rounding of 0 can fall on the other side of its ReLU
     on the two devices (forward values differ by ~1e-6 after seven convs),
@@ -978,7 +1007,8 @@ def check_mcseg_train_step(dev) -> None:
     batch = {k: blocks[k] for k in ("points", "mask", "labels")}
     model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII, drop_rate=0.0,
                   generator=torch.Generator().manual_seed(SEED)).to(dev)
-    maybe_auto_tile_pairs(model, batch, dev)
+    if not bucket:
+        maybe_auto_tile_pairs(model, batch, dev)
     calibrate_bn(model, batch, rng)
     cpu_model, cpu_forced = copy.deepcopy(model).cpu(), copy.deepcopy(model).cpu()
 
@@ -1011,15 +1041,21 @@ def check_mcseg_train_step(dev) -> None:
             mod.forward = forced
     cpu = train_one_step(cpu_forced, "cpu", batch, loss_fn)
     free = train_one_step(cpu_model, "cpu", batch, loss_fn)
-    for name, out in (("card", card), ("cpu", cpu)):
-        require(int(out[4]["tile_overflow"]) == 0, f"the MCSeg train step overflowed ({name})")
-    for name in ("K5", "K6"):
+    path = ("K9", "K10") if bucket else ("K5", "K6")
+    if bucket:
+        require(launches["K5"] == launches["K6"] == launches["K8"] == 0,
+                "a tile kernel was launched in the MCSeg bucket train step")
+    else:
+        for name, out in (("card", card), ("cpu", cpu)):
+            require(int(out[4]["tile_overflow"]) == 0, f"the MCSeg train step overflowed ({name})")
+    for name in path:
         require(launches[name] > 0, f"{name} was not launched in the MCSeg train step")
-    unforced = max((float((card[1][n] - w).abs().max()) / float(w.abs().max()), n)
+    unforced = max((float((card[1][n] - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
                    for n, w in free[1].items() if not n.startswith("mixes."))
     n_flips, n_active = (sum(v[k] for v in flips.values()) for k in (0, 1))
     worst_flip = max(v[2] for v in flips.values())
-    print(f"MCSeg train step: ReLU decisions that differ between the card and the CPU plain "
+    print(f"MCSeg {'bucket ' if bucket else ''}train step: ReLU decisions that differ between "
+          f"the card and the CPU plain "
           f"path: {n_flips} of {n_active} active ({ {k: v[0] for k, v in flips.items() if v[0]} });"
           f" largest flipped |value| {worst_flip:.3e} of its BN's largest; without the card's "
           f"decisions the worst gradient is {unforced[0]:.3e} of its largest value "
@@ -1031,7 +1067,8 @@ def check_mcseg_train_step(dev) -> None:
     require(worst_flip <= FLIP_VALUE_RTOL,
             f"MCSeg train step: a BN-ReLU decision differs at a value {worst_flip:.3e} of its "
             f"BN's largest, beyond rounding ({FLIP_VALUE_RTOL:g})")
-    compare_train_steps(f"MCSeg train step B={SEG_CPU_B} N={SEG_N} grow={SEG_GROW}", card, cpu,
+    compare_train_steps(f"MCSeg {'bucket ' if bucket else ''}train step B={SEG_CPU_B} N={SEG_N} "
+                        f"grow={SEG_GROW}", card, cpu,
                         lambda n: n.startswith("mixes.") and n.endswith(".bias"),
                         SEG_ZERO_GRAD_RTOL)
 
@@ -1149,6 +1186,307 @@ def run_scannet_train() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the bucket path
+
+
+def bucket_hierarchy(dev):
+    """The capacity-free block hierarchy (level 0 sampled through its
+    self-neighbour lists, K3 below) on the card against the CPU plain path's,
+    then per bucket site the grid overflow of each side and the candidate
+    and in-radius pair counts. Returns the card's levels and its cache."""
+    from mccnn_tpu_torch.api.builder import SpatialCache
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.ops.cuda.mcconv_kernel import _OFFSETS, kept_points
+
+    batch = scene_batch(SEED + 12, SEG_B)
+    pts, mask = (torch.from_numpy(batch[k]) for k in ("points", "mask"))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        h_gpu = build_hierarchy(pts.to(dev), mask.to(dev), SEG_RADII, neighbor_k=SEG_NEIGHBOR_K)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_cpu = build_hierarchy(pts, mask, SEG_RADII, neighbor_k=SEG_NEIGHBOR_K)
+        cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
+               for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:]))
+    nbh = h_gpu.levels[0].self_nbh
+    require(nbh is not None, "level 0 of the capacity-free hierarchy has no neighbour lists")
+    print(f"bucket hierarchy B={SEG_B} N={SEG_N} neighbor_k={SEG_NEIGHBOR_K}: "
+          f"equal_to_cpu={same} valid per level={[int(l.mask.sum()) for l in h_gpu.levels]} "
+          f"level-0 lists truncated (count > k): {int((nbh.count > SEG_NEIGHBOR_K).sum())} of "
+          f"{int(mask.sum())}, largest count {int(nbh.count.max())}; card_s={gpu_s:.2f} "
+          f"cpu_s={cpu_s:.1f}", flush=True)
+    require(same, "the card's bucket hierarchy differs from the CPU plain path's")
+    cache = SpatialCache(h_gpu)
+    off = _OFFSETS.to(dev)
+    for name, i, o, radius, _, _ in SEG_SITES:
+        gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
+        Rp = gs.padded_res
+        cell = (gs.slot_of_point // gs.cap).long()
+        kept = kept_points(gs)
+        near = cell.clamp_max(Rp**3 - 1)[..., None] + (off[:, 0] * Rp + off[:, 1]) * Rp + off[:, 2]
+        win = torch.gather(gp.cell_count, 1, near.clamp(0, Rp**3 - 1).reshape(SEG_B, -1))
+        cand = int((win.reshape(near.shape).sum(-1) * kept).sum())
+        (src, smask), (smp, qmask) = ((l.points, l.mask) for l in (h_gpu.levels[i],
+                                                                     h_gpu.levels[o]))
+        print(f"bucket site {name} r={radius}: R={gs.res} cap sample/source={gs.cap}/{gp.cap} "
+              f"slots a cloud sample/source={gs.n_slots}/{gp.n_slots} overflow per cloud "
+              f"sample={gs.overflow.tolist()} source={gp.overflow.tolist()} "
+              f"candidate_pairs={cand} in_radius_pairs={inr_pairs(smp, qmask, src, smask, radius)}",
+              flush=True)
+    return [(l.points, l.mask) for l in h_gpu.levels], cache
+
+
+def bucket_site_inputs(gen, dev, lv, cache, site):
+    """A bucket site's parameters, layouts and weighted features f / pdf."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel
+    from mccnn_tpu_torch.ops.cuda.mcconv_kernel import kept_points
+
+    name, i, o, radius, c, co = site
+    src, smask = lv[i]
+    gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
+    params = site_params(gen, c, co, dev)
+    b, N = src.shape[:2]
+    feats = (torch.ones((b, N, 1)) if c == 1 else torch.randn((b, N, c), generator=gen)).to(dev)
+    pdf = density_kernel.kde_density_reference(src, smask, radius)
+    wf = torch.where(kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
+    return params, gs, gp, wf
+
+
+def check_bucket_conv(dev, lv, cache) -> tuple:
+    """K9 at the four bucket sites of the block batch's capacity-free MCSeg."""
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    err = ms = pms = bms = 0.0
+    by = "operations"
+    with torch.no_grad():
+        for site in SEG_SITES:
+            name, i, o, _, c, co = site
+            params, gs, gp, wf = bucket_site_inputs(gen, dev, lv, cache, site)
+            b, M, N = gs.slot_of_point.shape[0], lv[o][0].shape[1], lv[i][0].shape[1]
+            kw = dict(c_out=co)
+            got, gcnt = mk.bucket_conv_cuda(params, gs, gp, wf, **kw)
+            again, _ = mk.bucket_conv_cuda(params, gs, gp, wf, **kw)
+            want, wcnt = mk.bucket_conv_reference(params, gs, gp, wf, **kw)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            require(bool(torch.equal(got, again)), f"K9 differs between two calls at {name}")
+            require(bool(torch.equal(gcnt, wcnt)), f"K9 neighbour counts differ at {name}")
+            require(e <= BUCKET_RTOL * scale, f"K9 disagrees with its plain version at {name}: "
+                    f"{e:.3e} of {scale:.3e}")
+            k_ms = time_ms(lambda: mk.bucket_conv_cuda(params, gs, gp, wf, **kw), iters=10)
+            p_ms = time_ms(lambda: mk.bucket_conv_reference(params, gs, gp, wf, **kw), iters=1)
+            CO = c if co is None else co
+            H1 = H + 1
+            pairs = int(wcnt.sum())
+            nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
+                           * (co or 1) + b * M * CO + b * M) + b * (M + N))
+            flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
+            if co is not None:
+                flops += 2 * int(mk.kept_points(gs).sum()) * H1 * c * co
+            b_ms, by = bound(nbytes, flops)
+            print(f"K9 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
+                  f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
+                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
+                  flush=True)
+            err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
+    return (err, ms, pms, bms, by, None)
+
+
+def check_bucket_backward(dev, lv, cache) -> tuple:
+    """K10 at the four bucket sites of the block batch, with a seeded dout."""
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    err = ms = pms = bms = 0.0
+    by = "operations"
+    with torch.no_grad():
+        for site in SEG_SITES:
+            name, i, o, _, c, co = site
+            params, gs, gp, wf = bucket_site_inputs(gen, dev, lv, cache, site)
+            b, M, N = gs.slot_of_point.shape[0], lv[o][0].shape[1], lv[i][0].shape[1]
+            CO = c if co is None else co
+            _, cnt = mk.bucket_conv_reference(params, gs, gp, wf, c_out=co)
+            dout = torch.randn((b, M, CO), generator=gen).to(dev)
+            args = (params, gs, gp, wf, cnt, dout)
+            got = mk.bucket_conv_backward_cuda(*args, c_out=co)
+            again = mk.bucket_conv_backward_cuda(*args, c_out=co)
+            want = mk.bucket_conv_backward_reference(*args, c_out=co)
+            torch.cuda.synchronize()
+            parts, e_site = [], 0.0
+            for gname, a, a2, w in zip(names, got, again, want):
+                require(tuple(a.shape) == tuple(w.shape), f"K10 {gname} shape {tuple(a.shape)}")
+                require(bool(torch.equal(a, a2)),
+                        f"K10 {gname} differs between two calls at {name}")
+                scale = float(w.abs().max())
+                e = float((a - w).abs().max())
+                e_site = max(e_site, e)
+                parts.append(f"{gname} {e:.3e}/{scale:.3e}")
+                require(e <= BUCKET_BWD_RTOL * scale,
+                        f"K10 {gname} disagrees with its plain version at {name}: "
+                        f"{e:.3e} of {scale:.3e}")
+            k_ms = time_ms(lambda: mk.bucket_conv_backward_cuda(*args, c_out=co), iters=5)
+            p_ms = time_ms(lambda: mk.bucket_conv_backward_reference(*args, c_out=co), iters=1)
+            H1 = H + 1
+            pairs = int(cnt.sum())
+            vq, vp = int(mk.kept_points(gs).sum()), int(mk.kept_points(gp).sum())
+            nw = H * c * (co or 1) + c * (co or 1) + 4 * H
+            nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
+                      + b * (M + N))
+            # as K6's count: per in-radius pair d2, offsets, H pre-activations,
+            # dpre's H x C and dW1 / db1; depthwise, X's (H+1) x C FMAs and its
+            # projections; full (the stem), d_f~ and G over (H+1) x C and the
+            # GEMMs dG = t Wcat and dWcat = t^T G
+            flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
+            flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
+                      pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
+            b_ms, by = bound(nbytes, flops)
+            print(f"K10 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
+                  f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
+                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
+                  flush=True)
+            err, ms, pms, bms = max(err, e_site), ms + k_ms, pms + p_ms, bms + b_ms
+    return (err, ms, pms, bms, by, None)
+
+
+def check_bucket_kernels(dev) -> dict:
+    """The bucket hierarchy, then K9 and K10 against their plain versions."""
+    lv, cache = bucket_hierarchy(dev)
+    return {"K9": check_bucket_conv(dev, lv, cache), "K10": check_bucket_backward(dev, lv, cache)}
+
+
+def serve_mcseg_bucket(dev) -> dict:
+    """MCSeg without a tile capacity served through ``serve.Predictor``: the
+    card against the CPU plain path at B=2 (identical hierarchies), then the
+    latency of B=8 block batches; K9 must launch and no tile kernel may. A
+    profiled B=8 forward after the counted ones gives the busy share."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(SEED + 15)
+    blocks = scene_batch(SEED + 15, SEG_B)
+    small = {k: blocks[k][:SEG_CPU_B] for k in ("points", "mask")}
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+    require(model.tile_pairs is None, "the bucket MCSeg has a tile capacity")
+    calibrate_bn(model, small, rng)
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        args = [torch.from_numpy(small[k]) for k in ("points", "mask")]
+        h_gpu = build_hierarchy(*(a.to(dev) for a in args), SEG_RADII, neighbor_k=SEG_NEIGHBOR_K)
+        h_cpu = build_hierarchy(*args, SEG_RADII, neighbor_k=SEG_NEIGHBOR_K)
+    same = all(torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
+               for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:]))
+    require(same, "the card's B=2 bucket hierarchy differs from the CPU plain path's")
+    predictor, predictor8 = Predictor(model, SEG_CPU_B), Predictor(model, SEG_B)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = predictor.predict(small)
+    lat = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        logits8 = predictor8.predict(blocks)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    pts8, mask8 = (torch.from_numpy(blocks[k]).to(dev) for k in ("points", "mask"))
+    profile_forward(model, pts8, mask8, f"bucket block batch B={SEG_B} N={SEG_N}")
+    t0 = time.perf_counter()
+    want = Predictor(cpu_model, SEG_CPU_B).predict(small)
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    print(f"MCSeg bucket serving (Predictor, tile_pairs=None) B={SEG_CPU_B} N={SEG_N} "
+          f"grow={SEG_GROW} card vs CPU plain path: logits={tuple(got.shape)} "
+          f"max_abs_err={err:.3e} max_abs_logit={top:.3e} hierarchy_equal_to_cpu={same} "
+          f"cpu_forward_s={cpu_s:.1f}; B={SEG_B} batch latencies_ms="
+          f"{[round(x, 3) for x in lat]} (the first warms up) launches={launches}", flush=True)
+    require(bool(torch.isfinite(got).all()) and bool(torch.isfinite(logits8).all()),
+            "non-finite MCSeg bucket logits")
+    require(bool(torch.allclose(got, want, rtol=SEG_LOGIT_RTOL, atol=SEG_LOGIT_RTOL * top)),
+            "MCSeg bucket logits on the card disagree with the CPU plain path")
+    for name in ("K1", "K3", "K4", "K9"):
+        require(launches[name] > 0, f"{name} was not launched in MCSeg bucket serving")
+    for name in ("K2", "K5", "K6", "K7", "K8", "K10"):
+        require(launches[name] == 0, f"{name} was launched in MCSeg bucket serving")
+    return launches
+
+
+def train_mcseg_bucket(dev) -> dict:
+    """Timed MCSeg bucket train steps at B=8 x 8192 through ``make_train_step``
+    (one warm-up, then ``BUCKET_TRAIN_STEPS``); K9 and K10 must launch."""
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.train import (batch_to_device, init_state, make_optimizer,
+                                       make_train_step, segmentation_loss)
+
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+    opt = make_optimizer(model.parameters())
+    init_state(model, opt, SEED)
+    step = make_train_step(model, opt, lambda out, b: (
+        segmentation_loss(out, b["labels"], b["mask"]), {}))
+    batches = [batch_to_device({k: v for k, v in scene_batch(SEED + 16 + i, SEG_B).items()
+                                if k in ("points", "mask", "labels")}, dev)
+               for i in range(BUCKET_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, _ = step(batch)
+        losses.append(float(loss))  # waits for the device
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    print(f"MCSeg bucket train steps (make_train_step, B={SEG_B} N={SEG_N} grow={SEG_GROW}): "
+          f"losses={[round(x, 5) for x in losses]} step_ms={[round(x, 3) for x in times]} "
+          f"warm_step_ms={float(np.mean(times[1:])):.3f} launches={launches}", flush=True)
+    require(all(np.isfinite(losses)), "the MCSeg bucket train step's loss is not finite")
+    for name in ("K1", "K2", "K3", "K4", "K9", "K10"):
+        require(launches[name] > 0, f"{name} was not launched in MCSeg bucket training")
+    for name in ("K5", "K6", "K7", "K8"):
+        require(launches[name] == 0, f"{name} was launched in MCSeg bucket training")
+    return launches
+
+
+def run_modelnet_bucket() -> dict:
+    """``tasks.modelnet`` at ``--points 4096`` (B=32, full width): a few steps
+    and one evaluation, with MCClassS's conv_0_1 on K9 / K10."""
+    from mccnn_tpu_torch.tasks import modelnet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--batch", str(TRAIN_B), "--points", str(MODELNET_BUCKET_N),
+                "--n-classes", "40", "--grow", "128", "--epochs", "1", "--steps-per-epoch", "3",
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck")]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = modelnet.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, "modelnet_MCClassS.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["tag"] == "train"]
+    evals = [r for r in recs if r["tag"] == "eval"]
+    require(len(train) == 1 and train[0]["steps"] == 3 and len(evals) == 1,
+            f"modelnet --points {MODELNET_BUCKET_N} records: {recs}")
+    rec = train[0]
+    print(f"trainer (tasks.modelnet, B={TRAIN_B}, N={MODELNET_BUCKET_N}, grow=128): "
+          f"loss={rec['loss']:.6f} steps={rec['steps']} warm_step_ms={rec['warm_step_ms']:.3f} "
+          f"eval_accuracy={res['best_accuracy']:.4f} total_sec={seconds:.2f} "
+          f"launches={launches}", flush=True)
+    require(bool(np.isfinite(rec["loss"])), f"modelnet --points {MODELNET_BUCKET_N}: loss")
+    for name in ("K1", "K2", "K3", "K4", "K9", "K10"):
+        require(launches[name] > 0, f"{name} was not launched by modelnet --points "
+                f"{MODELNET_BUCKET_N}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1186,6 +1524,14 @@ def main() -> int:
     seg_launches = {"scannet_blocks": run_scannet(whole=False),
                     "scannet_whole": run_scannet(whole=True),
                     "scannet_train": run_scannet_train()}
+    bucket_results = check_bucket_kernels(dev)
+    bucket_serve = serve_mcseg_bucket(dev)
+    reset_counts()
+    check_mcseg_train_step(dev, bucket=True)
+    bucket_launches = {"mcseg_bucket_serve": bucket_serve,
+                       "mcseg_bucket_train_step": read_counts(),
+                       "mcseg_bucket_train": train_mcseg_bucket(dev),
+                       "modelnet_4096": run_modelnet_bucket()}
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
@@ -1204,26 +1550,30 @@ def main() -> int:
                "mccnn_tpu/ops/pallas/tile_conv.py:1401"),
         "K8": ("tile_cover_counts", "mccnn_tpu_torch/csrc/tile_sweep.cu",
                "mccnn_tpu/ops/pallas/tile_conv.py:1553"),
+        "K9": ("bucket_mc_conv", "mccnn_tpu_torch/csrc/bucket_conv.cu",
+               "mccnn_tpu/ops/pallas/mcconv_kernel.py:293"),
+        "K10": ("bucket_mc_conv_backward", "mccnn_tpu_torch/csrc/bucket_conv_bwd.cu",
+                "mccnn_tpu/ops/pallas/mcconv_kernel.py:366"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
-        if kid in tile_results:  # the ScanNet slices' kernels: eval and training
-            rows = [tile_results[kid]]
-            by_path = {k: v[kid] for k, v in seg_launches.items()}
+        if kid in tile_results or kid in bucket_results:  # ScanNet shapes: eval and training
+            rows = [tile_results.get(kid) or bucket_results[kid]]
+            paths = seg_launches if kid in tile_results else bucket_launches
             batch = SEG_B
         else:
             rows = results[kid]
-            by_path = {"serve": serve_launches[kid], "train": train_launches[kid],
-                       **{k: v[kid] for k, v in seg_launches.items()}}
+            paths = {"train": train_launches}
             batch = TRAIN_B
+        by_path = {k: v[kid] for k, v in {"serve": serve_launches, "train": train_launches,
+                                          **seg_launches, **bucket_launches}.items()}
         lib_ms = [r[5] for r in rows]
         kernels.append({
             "name": f"{kid} {name}",
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": (sum(v[kid] for v in seg_launches.values()) if kid in tile_results
-                         else train_launches[kid]),
+            "launches": sum(v[kid] for v in paths.values()),
             "launches_by_path": by_path,
             "batch": batch,
             "max_abs_err": max(r[0] for r in rows),

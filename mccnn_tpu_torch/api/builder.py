@@ -1,5 +1,5 @@
 """Spatial-query cache between hierarchy levels (port of
-``mccnn_tpu/api/builder.py::SpatialCache``, its pdf and tile parts).
+``mccnn_tpu/api/builder.py::SpatialCache``, its pdf, bucket and tile parts).
 
 Stacked convs reuse one KDE density per ``(source level, conv radius)``, as
 the reference's ``ComputePDF`` cache does. With a tile capacity
@@ -7,8 +7,12 @@ the reference's ``ComputePDF`` cache does. With a tile capacity
 tile KDE (K7), whose dropped-step counts wait in ``_tile_overflow`` until a
 conv drains them. ``conv_backend`` forces the conv backend at every site
 ("auto" routes by shape, ``ops/dispatch.py``): the port's counterpart of the
-reference's ``MCCNN_TPU_CONV_BACKEND`` variable, an argument here.
-Neighbourhoods and buckets come with the ports of their kernels.
+reference's ``MCCNN_TPU_CONV_BACKEND`` variable, an argument here. The
+bucket conv (K9 / K10) reads one cell-bucket layout per ``(level, conv
+radius)``, built on first use at ``bucket_cap`` slots a cell (None: the
+reference's per-level ``default_cap``). ``neighbor_k`` is the capacity of the
+reference's K-nearest neighbourhoods; the port's K-capacity conv, which would
+read it, is not ported (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..core.buckets import BucketGrid, build_buckets, default_cap
 from ..core.pdf import DENSE_KDE_MAX_N, kde_density
 from .hierarchy import PointHierarchy
 
@@ -24,7 +29,9 @@ from .hierarchy import PointHierarchy
 @dataclass
 class SpatialCache:
     hierarchy: PointHierarchy
+    neighbor_k: int = 32
     kde_window: float = 0.25
+    bucket_cap: int | None = None
     # Static tile-pair capacity sized for the level-0 sites; deeper levels
     # run lossless. None: no tile sites.
     tile_pairs: int | None = None
@@ -33,6 +40,7 @@ class SpatialCache:
     tile_steps: dict | None = None
     conv_backend: str = "auto"
     _pdf: dict = field(default_factory=dict)
+    _buckets: dict = field(default_factory=dict)
     _tile_overflow: list = field(default_factory=list)
 
     def drain_tile_overflow(self) -> list:
@@ -49,6 +57,15 @@ class SpatialCache:
             return None
         *head, radius = key
         return self.tile_steps.get((kind, *head, round(float(radius), 6)))
+
+    def buckets(self, level: int, radius: float) -> BucketGrid:
+        """The level's cell-bucket layout at cell edge = ``radius``."""
+        key = (level, float(radius))
+        if key not in self._buckets:
+            lvl = self.hierarchy.levels[level]
+            cap = self.bucket_cap or default_cap(lvl.points.shape[1], float(radius))
+            self._buckets[key] = build_buckets(lvl.points, lvl.mask, float(radius), cap)
+        return self._buckets[key]
 
     def pdf(self, level: int, radius: float) -> torch.Tensor:
         """KDE density of the level's points at bandwidth ``kde_window * radius``."""

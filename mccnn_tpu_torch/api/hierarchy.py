@@ -15,7 +15,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..core.gather import gather_rows
-from ..core.sampling import SampleSet, poisson_disk
+from ..core.neighbors import Neighborhood, self_neighbors
+from ..core.sampling import DENSE_SAMPLER_MAX_N, SampleSet, poisson_disk
 
 GLOBAL_RADIUS = math.sqrt(3.0) + 0.1  # covers the whole unit cube
 
@@ -24,13 +25,16 @@ class HierarchyLevel(NamedTuple):
     """One level: padded points + mask, and how it was sampled.
 
     ``sample`` holds indices into the PREVIOUS level (None for level 0 and
-    the global level).
+    the global level). ``self_nbh`` is the level's self-neighbourhood at the
+    next level's Poisson radius when the neighbour-list sampler built one
+    (else None), kept on the level as the reference keeps it.
     """
 
     points: torch.Tensor  # (B, N_l, 3)
     mask: torch.Tensor  # (B, N_l)
     radius: float  # Poisson radius used to build this level (0.0 for level 0)
     sample: SampleSet | None
+    self_nbh: Neighborhood | None = None
 
 
 class PointHierarchy(NamedTuple):
@@ -62,6 +66,7 @@ def build_hierarchy(
     radii: Sequence[float],
     *,
     level_caps: Sequence[int] | None = None,
+    neighbor_k: int = 48,
     global_level: bool = False,
     tile_pairs: int | None = None,
     tile_steps: dict | None = None,
@@ -71,6 +76,9 @@ def build_hierarchy(
     ``tile_pairs`` sends levels of more than ``TILE_SAMPLER_MIN_N`` points to
     the tile sampler; ``tile_steps`` holds measured step budgets under keys
     ``("sweep", source_level, round(radius, 6))`` (``hierarchy.py:107-180``).
+    Without a tile capacity, a level of more than ``DENSE_SAMPLER_MAX_N``
+    points is sampled through its self-neighbourhood of capacity
+    ``neighbor_k``, which stays on the level.
     """
     if level_caps is None:
         level_caps = default_level_caps(points.shape[1], radii)
@@ -80,9 +88,13 @@ def build_hierarchy(
         max_steps = None
         if tile_steps:
             max_steps = tile_steps.get(("sweep", lvl, round(float(r), 6)))
-        ss = poisson_disk(cur_pts, cur_mask, r, cap, tile_pairs=tile_pairs,
+        nbh = None
+        if cur_pts.shape[1] > DENSE_SAMPLER_MAX_N and tile_pairs is None:
+            nbh = self_neighbors(cur_pts, cur_mask, r, neighbor_k)
+        ss = poisson_disk(cur_pts, cur_mask, r, cap, neighborhood=nbh, tile_pairs=tile_pairs,
                           max_steps=max_steps)
         nxt_pts = torch.where(ss.mask[..., None], gather_rows(cur_pts, ss.idx), 0.0)
+        levels[-1] = levels[-1]._replace(self_nbh=nbh)
         levels.append(
             HierarchyLevel(points=nxt_pts, mask=ss.mask, radius=float(r), sample=ss)
         )

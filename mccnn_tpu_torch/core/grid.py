@@ -102,6 +102,17 @@ def pair_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (sq_a[:, :, None] + sq_b[:, None, :]) - 2.0 * dot
 
 
+def row_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``pair_d2``'s expression between broadcastable rows ``a (..., 3)`` and
+    ``b (..., 3)``: the same elementwise ops in the same order, so a pair
+    gets the same bits as in ``pair_d2`` and in the kernels."""
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    sq_a = ax * ax + ay * ay + az * az
+    sq_b = bx * bx + by * by + bz * bz
+    return (sq_a + sq_b) - 2.0 * (ax * bx + ay * by + az * bz)
+
+
 def radius_sq(radius: float) -> float:
     """``r^2`` rounded once: the Python float product cast to float32, as the
     JAX package's comparisons against a weak-typed ``radius * radius`` do."""

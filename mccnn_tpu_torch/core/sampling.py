@@ -6,18 +6,22 @@ A maximal Poisson-disk selection in 27 colour steps: cells of edge
 lowest-index uncovered point of the current colour at once (see the
 reference's module docstring for the argument).
 
-Two of the reference's sweeps are ported, routed as there
-(``sampling.py:129-150``):
+Three of the reference's sweeps are ported, routed as there
+(``sampling.py:138-151``):
 
 * N > ``TILE_SAMPLER_MIN_N`` with a tile capacity: ``_poisson_tiles``, the
   cell-Hilbert tile sweep, whose per-colour "newly covered" query is the K8
   cover count (``ops/cuda/tile_conv.py::TileCoverSweep``);
 * N <= ``DENSE_SAMPLER_MAX_N``: the dense sweep, K3
-  (``ops/cuda/poisson_kernel.py``).
+  (``ops/cuda/poisson_kernel.py``);
+* larger N without a tile capacity: the neighbour-list sweep
+  (``_poisson_neighbor_lists``), whose "newly covered" query reads each
+  point's K nearest neighbours (``core/neighbors.py``), so that coverage can
+  be under-reported past K, as in the reference. It is plain tensor code on
+  either device, as the reference's is ``jnp``.
 
-Each runs its kernel for a CUDA tensor and its plain version for a CPU
-tensor. The neighbour-list sweep (larger N without a tile capacity) is not
-ported yet and raises.
+The first two run their kernel for a CUDA tensor and their plain version for
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..ops.cuda.tile_conv import (
     make_cover_sweep,
 )
 from .grid import cell_color27, cell_coords, grid_res_for_radius, linear_cell_ids
+from .neighbors import Neighborhood, self_neighbors
 
 _SQRT3 = 3.0**0.5
 _BIG_I32 = 2**30
@@ -73,6 +78,7 @@ def sweep_cells(points: torch.Tensor, radius: float):
 
 def poisson_disk(
     points: torch.Tensor, mask: torch.Tensor, radius: float, max_samples: int, *,
+    neighborhood: Neighborhood | None = None, k: int = 48,
     tile_pairs: int | None = None, max_steps: int | None = None,
 ) -> SampleSet:
     """Maximal Poisson-disk subset with min pairwise distance ``radius``.
@@ -80,6 +86,8 @@ def poisson_disk(
     ``points`` lie in the unit cube; selections beyond ``max_samples`` are
     dropped in index order. ``tile_pairs`` (with ``max_steps``, a measured
     step budget) routes N > ``TILE_SAMPLER_MIN_N`` to the tile sweep.
+    ``neighborhood`` (the self-neighbourhood at ``radius``) or, when it is
+    None, one of capacity ``k`` built here serves the neighbour-list sweep.
     """
     B, N, _ = points.shape
     coords, res = _sampler_grid(points, radius)
@@ -91,11 +99,9 @@ def poisson_disk(
     elif N <= DENSE_SAMPLER_MAX_N:
         selected = poisson_sweep(points, mask, cids, colors, radius)
     else:
-        raise NotImplementedError(
-            f"poisson_disk: N={N} > {DENSE_SAMPLER_MAX_N} without a tile capacity takes "
-            "the reference's neighbour-list sampler, ported with core/neighbors.py "
-            "(ROADMAP queue 1)"
-        )
+        if neighborhood is None:
+            neighborhood = self_neighbors(points, mask, radius, k)
+        selected = _poisson_neighbor_lists(cids, colors, mask, neighborhood, res**3, N)
     selected = selected & mask
 
     # Compact the flags into (B, S) indices in ascending index order.
@@ -105,6 +111,32 @@ def poisson_disk(
     out_mask = torch.gather(sort_key, 1, order) < _BIG_I32
     idx = torch.where(out_mask, order, 0)
     return SampleSet(idx=idx, mask=out_mask, selected=selected, overflow=overflow)
+
+
+def _poisson_neighbor_lists(cids, colors, mask, neighborhood: Neighborhood, n_cells: int,
+                            N: int) -> torch.Tensor:
+    """The K-capacity neighbour-list sweep (``sampling.py:313-343``): per
+    colour, each cell's lowest-index uncovered point of that colour is
+    selected (a per-cell ``amin`` over ``n_cells`` cells), and a point is
+    newly covered when any of its listed neighbours (itself included) is
+    selected."""
+    B = cids.shape[0]
+    dev = cids.device
+    cid = cids.long()
+    point_index = torch.arange(N, dtype=torch.int32, device=dev).expand(B, N)
+    nbr_idx = neighborhood.idx.reshape(B, -1)
+    selected = torch.zeros((B, N), dtype=torch.bool, device=dev)
+    covered = torch.zeros_like(selected)
+    for c in range(27):
+        uncovered = mask & ~covered
+        key = torch.where(uncovered, point_index, _BIG_I32)
+        cell_min = torch.full((B, n_cells), _BIG_I32, dtype=torch.int32, device=dev)
+        cell_min = cell_min.scatter_reduce(1, cid, key, "amin")
+        cand = uncovered & (key == torch.gather(cell_min, 1, cid)) & (colors == c)
+        selected = selected | cand
+        nbr_sel = torch.gather(selected, 1, nbr_idx).reshape(neighborhood.mask.shape)
+        covered = covered | (nbr_sel & neighborhood.mask).any(dim=-1)
+    return selected
 
 
 def _cell_hilbert_order(coords, mask, res):

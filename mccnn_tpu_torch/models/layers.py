@@ -19,6 +19,7 @@ from torch import nn
 from ..api.builder import SpatialCache
 from ..core.mcconv import KERNEL_HIDDEN, MCConvParams
 from ..ops.cuda.dense_conv import dense_mc_conv
+from ..ops.cuda.mcconv_kernel import bucket_mc_conv
 from ..ops.cuda.tile_conv import tile_mc_conv
 from ..ops.dispatch import pick_backend
 
@@ -56,9 +57,11 @@ class MCConv(nn.Module):
 
     def forward(self, cache: SpatialCache, in_level: int, out_level: int, radius: float,
                 features: torch.Tensor) -> torch.Tensor:
-        """Route by shape (``ops/dispatch.py``), as ``layers.py:70-107``:
-        ``dense`` or ``tile`` (a ``bucket`` site when the cache holds a tile
-        capacity). A tile site reports its dropped steps to the cache."""
+        """Route by shape (``ops/dispatch.py``), as ``layers.py:70-131``:
+        ``dense``, ``bucket``, or ``tile`` (a ``bucket`` site when the cache
+        holds a tile capacity). A tile site reports its dropped steps to the
+        cache; a bucket site reports nothing, as in the reference (its grid
+        overflow drops points silently, ``BucketGrid.overflow`` counts them)."""
         src = cache.hierarchy.levels[in_level]
         dst = cache.hierarchy.levels[out_level]
         backend = pick_backend(
@@ -67,16 +70,10 @@ class MCConv(nn.Module):
         )
         if backend == "bucket" and cache.tile_pairs is not None:
             backend = "tile"  # z-order tiles beat buckets at big-scene scale
-        if backend == "bucket":
-            raise NotImplementedError(
-                f"conv site N={src.points.shape[1]} -> M={dst.points.shape[1]}, r={radius}: "
-                "the cell-bucket conv (K9, mccnn_tpu/ops/pallas/mcconv_kernel.py:293) is "
-                "not ported; give the model a tile capacity (tile_pairs) instead"
-            )
         if backend == "jnp":
             raise NotImplementedError(
                 f"conv site N={src.points.shape[1]}, r={radius}: the K-capacity conv "
-                "(mccnn_tpu/core/mcconv.py:87) comes with core/neighbors.py (ROADMAP queue 1)"
+                "(mccnn_tpu/core/mcconv.py:87) is not ported (ROADMAP queue 1 item 4)"
             )
         if backend == "tile" and cache.tile_pairs is None:
             raise ValueError("the tile backend needs SpatialCache(tile_pairs=...): size it "
@@ -96,6 +93,10 @@ class MCConv(nn.Module):
                 c_out=self.c_out, mean_normalize=not self.use_pdf, with_overflow=True,
             )
             cache.report_tile_overflow(overflow)
+        elif backend == "bucket":
+            out = bucket_mc_conv(self.params(), cache.buckets(out_level, radius), dst.mask,
+                                 cache.buckets(in_level, radius), features, pdf,
+                                 c_out=self.c_out, mean_normalize=not self.use_pdf)
         else:
             out = dense_mc_conv(*args, c_out=self.c_out, mean_normalize=not self.use_pdf)
         return torch.where(dst.mask[..., None], out, 0.0)

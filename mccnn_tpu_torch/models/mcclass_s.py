@@ -24,8 +24,9 @@ class MCClassS(nn.Module):
     """Constructor fields and defaults follow the flax module. Two differ in
     kind: ``in_features`` (flax infers the input width at init; default 1,
     the all-ones features) and ``generator`` (the seeded initialiser).
-    ``neighbor_k`` sizes the reference's K-capacity conv, which the port's
-    dense conv does not have: kept for parity, not read. ``drop_rate`` is the
+    ``neighbor_k`` is the capacity of the sampler's self-neighbour lists,
+    which a cloud of more than 4096 points takes (``build_hierarchy``).
+    ``drop_rate`` is the
     head's dropout, ``bn_momentum`` the BNs' running-average momentum, and
     ``bn_schedule_steps`` the decaying-momentum schedule (with the BN
     ``count`` statistic a checkpoint holds)."""
@@ -79,8 +80,9 @@ class MCClassS(nn.Module):
         if features is None:
             features = torch.ones(points.shape[:-1] + (1,), dtype=points.dtype,
                                   device=points.device)
-        hier = build_hierarchy(points, mask, self.radii, global_level=True)
-        cache = SpatialCache(hier)
+        hier = build_hierarchy(points, mask, self.radii, neighbor_k=self.neighbor_k,
+                               global_level=True)
+        cache = SpatialCache(hier, neighbor_k=self.neighbor_k)
         x = features
         for lvl, (conv, bn_relu) in enumerate(zip(self.convs.values(), self.bn_relus)):
             out_level = lvl + 1

@@ -14,7 +14,11 @@ Submodules carry the flax module's names (``stem``, ``enc_0_1``,
 ``convert.py`` maps a JAX MCSeg's variables one to one.
 
 With ``tile_pairs`` set, the big levels take the z-order tile kernels (the
-sampler's K8, the KDE's K7, the conv's K5). Their dropped-step counts, which
+sampler's K8, the KDE's K7, the conv's K5). Without it, a level of more than
+``DENSE_SAMPLER_MAX_N`` points is sampled through its ``neighbor_k``
+self-neighbours and the big conv sites take the cell-bucket conv (K9), the
+reference's capacity-free fallback for direct model users. The tile kernels'
+dropped-step counts, which
 the flax module sows into ``diagnostics``, come back as one value per forward
 pass: ``forward(..., with_overflow=True)`` returns ``(logits, overflow)``,
 the largest count of any site of any cloud. Without it a nonzero count
@@ -35,9 +39,9 @@ class MCSeg(nn.Module):
     """Constructor fields and defaults follow the flax module. Added:
     ``in_features`` and ``n_categories`` (flax infers the stem's input width at
     init), ``conv_backend`` (``SpatialCache.conv_backend``: "auto" routes by
-    shape) and ``generator`` (the seeded initialiser). ``neighbor_k`` sizes
-    the reference's K-capacity paths, which the port does not have: kept for
-    parity, not read."""
+    shape) and ``generator`` (the seeded initialiser). ``neighbor_k`` is the
+    capacity of the level-0 sampler's self-neighbour lists when there is no
+    tile capacity (``build_hierarchy``)."""
 
     def __init__(
         self,
@@ -131,9 +135,11 @@ class MCSeg(nn.Module):
             features = torch.cat([features, cat.to(features.dtype)], dim=-1)
         hier = hierarchy
         if hier is None:
-            hier = build_hierarchy(points, mask, self.radii, global_level=False,
-                                   tile_pairs=self.tile_pairs, tile_steps=self.tile_steps)
-        cache = SpatialCache(hier, tile_pairs=self.tile_pairs, tile_steps=self.tile_steps,
+            hier = build_hierarchy(points, mask, self.radii, neighbor_k=self.neighbor_k,
+                                   global_level=False, tile_pairs=self.tile_pairs,
+                                   tile_steps=self.tile_steps)
+        cache = SpatialCache(hier, neighbor_k=self.neighbor_k, tile_pairs=self.tile_pairs,
+                             tile_steps=self.tile_steps,
                              conv_backend=self.conv_backend)
         for lvl in hier.levels:
             if lvl.sample is not None and lvl.sample.overflow is not None:

@@ -7,8 +7,9 @@ the kernel (built at first use by ``_build.library()``).
 
 from .dense_conv import dense_mc_conv
 from .density_kernel import kde_density_dense
+from .mcconv_kernel import bucket_mc_conv
 from .poisson_kernel import poisson_sweep
 from .tile_conv import make_cover_sweep, tile_kde, tile_mc_conv
 
-__all__ = ["dense_mc_conv", "kde_density_dense", "make_cover_sweep", "poisson_sweep",
-           "tile_kde", "tile_mc_conv"]
+__all__ = ["bucket_mc_conv", "dense_mc_conv", "kde_density_dense", "make_cover_sweep",
+           "poisson_sweep", "tile_kde", "tile_mc_conv"]

@@ -60,6 +60,8 @@ SIGNATURES = {
     "tile_conv_bwd_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 4,
     "tile_kde_launch": [P, P, P, P, I, I, I, I, I, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, F, P, P],
+    "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
+    "bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
 }
 
 

@@ -1,0 +1,398 @@
+"""K9 and K10: the cell-bucket Monte-Carlo convolution, forward and backward
+(port of ``mccnn_tpu/ops/pallas/mcconv_kernel.py``).
+
+K9 replaces ``_fwd_kernel`` (``mcconv_kernel.py:293``, called at ``:584``
+through ``_fwd_call`` from ``bucket_mc_conv``); K10 replaces ``_bwd_kernel``
+(``:366``, called at ``:662`` through ``_bwd_call`` from the ``custom_vjp``
+at ``:688-763``). ``bucket_mc_conv`` has the reference's semantics
+(``:814-930``): both point sets live in cell-bucket layouts at cell edge =
+radius (``core/buckets.py``), and for every kept sample every kept source in
+the 27 cells around the sample's cell with ``d2 <= r2`` contributes. A point
+dropped by a cell's overflow is in no sum, a dropped sample gets 0, and so
+does every masked sample.
+
+The kernels (``csrc/bucket_conv.cu``, ``csrc/bucket_conv_bwd.cu``) give one
+block to each (cloud, cell, channel slice): K9 to the sample cells, K10 to
+the source cells, and a block over an empty cell exits at once. They read
+positions from the layouts (slot order) and features, outputs and the
+cotangent in point order through ``point_of_slot``: every output row has one
+writer, and no (B, slots, C) tensor exists. K9 forms ``G[i,h,c] = sum_j
+a_h(i,j) f~[j,c]`` as K1 and K5 do, projecting it in its epilogue
+(depthwise) or through K1's projection GEMM (full). K10 forms K6's
+quantities (X, d_f~, and per-block partials of the parameter gradients,
+summed in a fixed order by K2's reduction kernel): no float atomics, two
+calls are bit-identical. Everything is fp32 (the TPU kernels hold features in
+bf16).
+
+Each kernel has a plain PyTorch version that walks the same 27-cell windows
+of the same layouts and keeps only ``slot_mask`` slots, so it drops what the
+kernel drops. ``BucketMCConvFunction`` runs K9 / K10 on CUDA tensors and the
+plain versions on CPU tensors. Positions and the layouts get no gradient
+(positions are data, as the reference's ``_core_bwd`` returns zeros for
+them); ``features / pdf`` stays outside the Function, so autograd carries
+``d_f~`` on to the features and the pdf.
+
+The reference's active-brick variants (``max_active_bricks``, K9a / K10a,
+``:570`` and ``:644``), which ``MCConv`` never passes, are not ported: a
+block of an empty cell here costs one read of its count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.buckets import BucketGrid
+from ...core.grid import radius_sq, row_d2
+from ...core.mcconv import MCConvParams
+from . import _build, dense_conv
+from .tile_conv import _kernel_preact, _wr
+
+# Launches of K9 and of K10 since the last reset (see density_kernel.py).
+launches = 0
+backward_launches = 0
+
+_OFFSETS = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+                         for dz in (-1, 0, 1)])
+_PAIR_BUDGET = 2**25  # elements of the largest per-chunk tensor of the plain versions
+BLOCK_ROWS = 128  # a kernel block takes at most this many slots of its cell
+BWD_CHANNELS = 16  # K10's channel slice (csrc/bucket_conv_bwd.cu kMaxCB)
+_REDUCE_SPLIT = 256  # rows of the second pass of a two-pass partial-sum reduction
+
+
+def kept_points(grid: BucketGrid) -> torch.Tensor:
+    """(B, N) bool: the point holds a slot of the layout (not masked, not dropped)."""
+    return grid.slot_of_point < grid.n_slots
+
+
+def _check_grids(sample_grid: BucketGrid, source_grid: BucketGrid) -> None:
+    if sample_grid.radius != source_grid.radius or sample_grid.res != source_grid.res:
+        raise ValueError("bucket conv: the two layouts need one cell edge and resolution, got "
+                         f"r={sample_grid.radius}/{source_grid.radius}, "
+                         f"R={sample_grid.res}/{source_grid.res}")
+
+
+def _window_slots(sample_grid: BucketGrid, source_grid: BucketGrid, slot: torch.Tensor):
+    """For sample slots ``(B, m)``: the source slots of the 27 cells around
+    each sample's cell ``(B, m, 27 * cap_p)`` and whether the sample is kept."""
+    Rp = sample_grid.padded_res
+    kept = slot < sample_grid.n_slots
+    first_real = (Rp + 1) * Rp + 1  # any real cell: its window stays in the grid
+    cell = torch.where(kept, slot // sample_grid.cap, first_real)
+    off = _OFFSETS.to(slot.device)
+    off = (off[:, 0] * Rp + off[:, 1]) * Rp + off[:, 2]
+    cap = source_grid.cap
+    cand = (cell[..., None] + off)[..., None] * cap + torch.arange(cap, device=slot.device)
+    return cand.reshape(*slot.shape, 27 * cap), kept
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x (B, S, *F)`` at ``idx (B, *I)`` -> ``(B, *I, *F)``."""
+    B = x.shape[0]
+    feat = x.shape[2:]
+    flat = idx.reshape(B, -1).long()
+    out = torch.gather(x, 1, flat.reshape(B, -1, *([1] * len(feat))).expand(B, -1, *feat))
+    return out.reshape(*idx.shape, *feat)
+
+
+def _walk_windows(sample_grid: BucketGrid, source_grid: BucketGrid, wf: torch.Tensor,
+                  w1: torch.Tensor, b1: torch.Tensor):
+    """Yield, per chunk of sample points ``[m0, m1)``: ``(m0, m1, kept (B, m),
+    pidx (B, m, K) source point of each candidate, f (B, m, K, C), inr (B, m,
+    K), off (B, m, K, 3), pre (B, m, K, H))`` over the candidates of the
+    27-cell windows (K = 27 * cap_p). ``pre`` is rounded as the kernels'
+    ``mc_preact`` forms it, so a pair's ReLU step falls as on the card."""
+    B, M = sample_grid.slot_of_point.shape
+    C = wf.shape[-1]
+    K = 27 * source_grid.cap
+    r2 = radius_sq(source_grid.radius)
+    r_dev = torch.full((), source_grid.radius, dtype=wf.dtype, device=wf.device)
+    chunk = max(1, _PAIR_BUDGET // (B * K * max(C, w1.shape[1] + 4)))
+    for m0 in range(0, M, chunk):
+        slot = sample_grid.slot_of_point[:, m0:m0 + chunk].long()
+        cand, kept = _window_slots(sample_grid, source_grid, slot)
+        q = _gather_rows(sample_grid.positions, slot)  # (B, m, 3)
+        p = _gather_rows(source_grid.positions, cand)  # (B, m, K, 3)
+        pv = _gather_rows(source_grid.slot_mask, cand) & kept[..., None]
+        pidx = _gather_rows(source_grid.point_of_slot, cand)
+        inr = (row_d2(q[:, :, None, :], p) <= r2) & pv
+        off = (p - q[:, :, None, :]) / r_dev
+        pre = _kernel_preact(off, w1, b1)
+        yield m0, m0 + slot.shape[1], kept, pidx, _gather_rows(wf, pidx), inr, off, pre
+
+
+def _activations(pre: torch.Tensor, inr: torch.Tensor) -> torch.Tensor:
+    """``[relu(pre_h)..., 1]`` on in-radius pairs, 0 elsewhere (B, m, K, H+1)."""
+    return torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
+
+
+def bucket_conv_reference(params: MCConvParams, sample_grid: BucketGrid,
+                          source_grid: BucketGrid, wf: torch.Tensor, *, c_out=None,
+                          mean_normalize=False):
+    """Plain version of K9: ``(out (B, M, C | c_out), cnt (B, M))`` in sample
+    point order, 0 for a sample the layout does not keep. ``wf (B, N, C)`` is
+    ``features / pdf`` in source point order."""
+    _check_grids(sample_grid, source_grid)
+    B, M = sample_grid.slot_of_point.shape
+    H = params.w1.shape[1]
+    C = wf.shape[-1]
+    G = wf.new_zeros((B, M, H + 1, C))
+    cnt = wf.new_zeros((B, M))
+    for m0, m1, _, _, f, inr, _, pre in _walk_windows(sample_grid, source_grid, wf, params.w1,
+                                                      params.b1):
+        G[:, m0:m1] = torch.einsum("bmkh,bmkc->bmhc", _activations(pre, inr), f)
+        cnt[:, m0:m1] = inr.sum(dim=-1).to(wf.dtype)
+    kept = kept_points(sample_grid)
+    out = dense_conv.project_reference(params, G, cnt, kept, c_out, mean_normalize)
+    return out, cnt
+
+
+def _cotangent_dG(params: MCConvParams, t: torch.Tensor, C: int, c_out):
+    """``dG[i,h,c] = sum_o t[i,o] Wcat[h,c,o]`` (B, M, H+1, C), ``Wcat = [W2; b2]``."""
+    w2, b2 = params.w2, params.b2
+    H = params.w1.shape[1]
+    if c_out is None:
+        return torch.cat([t[:, :, None, :] * w2, (t * b2)[:, :, None, :]], dim=2)
+    wcat = torch.cat([w2.reshape(H * C, c_out), b2.reshape(C, c_out)])
+    B, M, _ = t.shape
+    return (t.reshape(B * M, c_out) @ wcat.T).reshape(B, M, H + 1, C)
+
+
+def bucket_conv_backward_reference(params: MCConvParams, sample_grid: BucketGrid,
+                                   source_grid: BucketGrid, wf: torch.Tensor, cnt: torch.Tensor,
+                                   dout: torch.Tensor, *, c_out=None, mean_normalize=False):
+    """Plain version of K10: ``(d_wf (B, N, C), dw1 (3, H), db1 (H,), dw2,
+    db2)`` in the shapes of ``MCConvParams``, from the forward's inputs, its
+    count and ``dout (B, M, C | c_out)``. Per pair it forms what K10 forms:
+    d_wf gets ``sum_h a_h dG[i,h,:]``, and ``dpre_h = [pre_h > 0] [in radius]
+    dG[i,h,:] . f~[j,:]`` whose sums against the offset give dW1 and db1;
+    ``[dW2; db2] = sum_i G[i] t[i]`` (K10 sums the same products source by
+    source, from X)."""
+    _check_grids(sample_grid, source_grid)
+    w1, b1, w2, b2 = params
+    H = w1.shape[1]
+    B, N, C = wf.shape
+    kept = kept_points(sample_grid)
+    t = dout * dense_conv._scale(cnt, kept, mean_normalize)[..., None]
+    dG = _cotangent_dG(params, t, C, c_out)
+    d_wf = wf.new_zeros((B * N, C))
+    dw1, db1 = wf.new_zeros((3, H)), wf.new_zeros((H,))
+    dwcat = wf.new_zeros((H + 1, C) if c_out is None else ((H + 1) * C, c_out))
+    rows = (torch.arange(B, device=wf.device) * N)[:, None, None]
+    for m0, m1, _, pidx, f, inr, off, pre in _walk_windows(sample_grid, source_grid, wf, w1, b1):
+        a = _activations(pre, inr)
+        g, tc = dG[:, m0:m1], t[:, m0:m1]
+        d_wf.index_add_(0, (rows + pidx).reshape(-1),
+                        torch.einsum("bmkh,bmhc->bmkc", a, g).reshape(-1, C))
+        Gc = torch.einsum("bmkh,bmkc->bmhc", a, f)
+        if c_out is None:
+            dwcat += (Gc * tc[:, :, None, :]).sum(dim=(0, 1))
+        else:
+            dwcat += Gc.reshape(-1, (H + 1) * C).T @ tc.reshape(-1, c_out)
+        dpre = torch.einsum("bmhc,bmkc->bmkh", g[:, :, :H], f)
+        dpre = torch.where((pre > 0) & inr[..., None], dpre, 0.0)  # the step at pre == 0 is 0
+        dw1 += torch.einsum("bmkh,bmkd->dh", dpre, off)
+        db1 += dpre.sum(dim=(0, 1, 2))
+    dw2, db2 = dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+    return d_wf.reshape(B, N, C), dw1, db1, dw2, db2
+
+
+# ------------------------------------------------------------------ CUDA wrappers
+
+
+def _layout_tensors(grid: BucketGrid):
+    return tuple(x.contiguous() for x in (grid.positions, grid.point_of_slot, grid.cell_count))
+
+
+def _kernel_inputs(what: str, params: MCConvParams, sample_grid: BucketGrid,
+                   source_grid: BucketGrid, wf: torch.Tensor, *extra: torch.Tensor):
+    _check_grids(sample_grid, source_grid)
+    w1, b1, w2, b2 = (x.contiguous() for x in params)
+    smp, src = _layout_tensors(sample_grid), _layout_tensors(source_grid)
+    _build.require_cuda(what, *smp, *src, wf, w1, b1, w2, b2, *extra)
+    if any(x.dtype != torch.float32 for x in (smp[0], src[0], wf, w1, b1, w2, b2, *extra)):
+        raise TypeError(f"{what}: positions, features and params must be float32")
+    H, C = w1.shape[1], wf.shape[-1]
+    if H != dense_conv.HIDDEN or C > dense_conv.MAX_C:
+        raise NotImplementedError(f"{what} is built for H={dense_conv.HIDDEN} and "
+                                  f"C<={dense_conv.MAX_C}; got H={H}, C={C}")
+    return (w1, b1, w2, b2), smp, src
+
+
+def bucket_conv_cuda(params: MCConvParams, sample_grid: BucketGrid, source_grid: BucketGrid,
+                     wf: torch.Tensor, *, c_out=None, mean_normalize=False):
+    """Launch K9 (and, for the full conv, K1's projection GEMM); the
+    arguments and outputs of the plain version."""
+    global launches
+    wf = wf.contiguous()
+    (w1, b1, w2, b2), smp, src = _kernel_inputs("bucket_mc_conv (K9)", params, sample_grid,
+                                                source_grid, wf)
+    B, M = sample_grid.slot_of_point.shape
+    N, C = wf.shape[1], wf.shape[2]
+    H = w1.shape[1]
+    CO = C if c_out is None else c_out
+    if CO > dense_conv.MAX_C:
+        raise NotImplementedError(f"K9 is built for c_out<={dense_conv.MAX_C}; got {c_out}")
+    dev = wf.device
+    depthwise = c_out is None
+    out = torch.zeros((B, M, CO), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((B, M), dtype=torch.float32, device=dev)
+    G = None if depthwise else torch.zeros((B, M, H + 1, C), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    err = lib.bucket_conv_launch(
+        *(_build.ptr(x) for x in (*smp, *src, wf, w1, b1, w2, b2)),
+        B, M, N, C, H, sample_grid.res, sample_grid.cap, source_grid.cap,
+        radius_sq(source_grid.radius), float(source_grid.radius), int(mean_normalize),
+        int(depthwise), _build.ptr(out if depthwise else G), _build.ptr(cnt), stream,
+    )
+    _build.check(err, "bucket_conv_kernel (K9)")
+    if not depthwise:
+        scale = dense_conv._scale(cnt, kept_points(sample_grid), mean_normalize).contiguous()
+        err = lib.mcconv_project_full_launch(
+            _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
+            B * M, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
+        )
+        _build.check(err, "mcconv_project_full_kernel (K9)")
+    launches += 1
+    return out, cnt
+
+
+def _ordered_sum(part: torch.Tensor, lib, stream, what: str) -> torch.Tensor:
+    """Sum ``part (Z, L)`` over its rows in a fixed order with K2's reduction
+    kernel: in one pass, or for many rows in two (rows ``z1 * 256 + z2``
+    over z1, then over z2), which keeps every thread's serial sum short.
+    ``part`` is zero-padded to a multiple of 256 rows by its allocator
+    (``_partials``)."""
+    Z, L = part.shape
+    if Z <= 4 * _REDUCE_SPLIT:
+        out = torch.empty((L,), dtype=torch.float32, device=part.device)
+        _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z, L, _build.ptr(out),
+                                                  stream), what)
+        return out
+    mid = torch.empty((_REDUCE_SPLIT * L,), dtype=torch.float32, device=part.device)
+    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z // _REDUCE_SPLIT,
+                                              _REDUCE_SPLIT * L, _build.ptr(mid), stream), what)
+    out = torch.empty((L,), dtype=torch.float32, device=part.device)
+    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(mid), _REDUCE_SPLIT, L,
+                                              _build.ptr(out), stream), what)
+    return out
+
+
+def _partials(Z: int, L: int, dev) -> torch.Tensor:
+    """Zeroed (Z', L) partial sums, Z' = Z rounded up to a multiple of 256
+    when there are many: a block of an empty cell writes none of its rows."""
+    if Z > 4 * _REDUCE_SPLIT:
+        Z = -(-Z // _REDUCE_SPLIT) * _REDUCE_SPLIT
+    return torch.zeros((Z, L), dtype=torch.float32, device=dev)
+
+
+def bucket_conv_backward_cuda(params: MCConvParams, sample_grid: BucketGrid,
+                              source_grid: BucketGrid, wf: torch.Tensor, cnt: torch.Tensor,
+                              dout: torch.Tensor, *, c_out=None, mean_normalize=False):
+    """Launch K10 (with K2's GEMMs around it for the full conv, and K2's
+    reduction for the partial sums); the arguments and outputs of the plain
+    version."""
+    global backward_launches
+    wf = wf.contiguous()
+    t = (dout * dense_conv._scale(cnt, kept_points(sample_grid), mean_normalize)[..., None])
+    t = t.contiguous()
+    (w1, b1, w2, b2), smp, src = _kernel_inputs("bucket_mc_conv backward (K10)", params,
+                                                sample_grid, source_grid, wf, t)
+    B, M = sample_grid.slot_of_point.shape
+    N, C = wf.shape[1], wf.shape[2]
+    H = w1.shape[1]
+    H1 = H + 1
+    CO = C if c_out is None else c_out
+    if CO > dense_conv.MAX_C or tuple(t.shape) != (B, M, CO):
+        raise ValueError(f"bucket conv backward (K10): dout {tuple(dout.shape)} does not match "
+                         f"B={B}, M={M}, c_out={CO}")
+    dev = wf.device
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    depthwise = c_out is None
+    R, cap_p = source_grid.res, source_grid.cap
+    chunk_rows = min(cap_p, BLOCK_ROWS)
+    n_chunks = -(-cap_p // chunk_rows)
+    CB = min(max(C, CO), BWD_CHANNELS)
+    n_cb = -(-max(C, CO) // CB)
+    n_blocks = R**3 * n_chunks
+    w1part = _partials(B * n_blocks * n_cb, 4 * H, dev)
+    if depthwise:
+        dG, out, w2part = t, torch.zeros((B, N, C), dtype=torch.float32, device=dev), \
+            _partials(B * n_blocks, H1 * C, dev)
+    else:
+        dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
+        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
+                                            B * M, CO, H * C, H1 * C, _build.ptr(dG), stream)
+        _build.check(err, "mcconv_bwd_dg_full_kernel (K10 dG)")
+        out, w2part = torch.zeros((B, N, H1, CO), dtype=torch.float32, device=dev), w1part
+    err = lib.bucket_conv_bwd_launch(
+        *(_build.ptr(x) for x in (*smp, *src, wf, t, dG, w1, b1, w2, b2)),
+        B, M, N, C, CO, H, R, sample_grid.cap, cap_p, chunk_rows, n_chunks, CB,
+        radius_sq(source_grid.radius), float(source_grid.radius), int(depthwise),
+        _build.ptr(out), _build.ptr(w1part), _build.ptr(w2part), stream,
+    )
+    _build.check(err, "bucket_conv_bwd_kernel (K10)")
+    w1b1 = _ordered_sum(w1part, lib, stream, "mcconv_bwd_reduce_kernel (K10 dW1, db1)")
+    w1b1 = w1b1.reshape(4, H)
+    if depthwise:
+        d_wf = out
+        dwcat = _ordered_sum(w2part, lib, stream, "mcconv_bwd_reduce_kernel (K10 dW2, db2)")
+        dwcat = dwcat.reshape(H1, C)
+    else:
+        # d_wf = X . Wr^T and [dW2; db2] = wf^T X: K2's two GEMMs, as K6
+        rows, K = B * N, H1 * CO
+        wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
+        d_wf = torch.empty((B, N, C), dtype=torch.float32, device=dev)
+        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(out), _build.ptr(wr), _build.ptr(wr),
+                                            rows, K, C, C, _build.ptr(d_wf), stream)
+        _build.check(err, "mcconv_bwd_dg_full_kernel (K10 d_wf)")
+        dwcat = dense_conv.wcat_grad(wf, out, rows, C, K).reshape(C, H1, CO).transpose(0, 1)
+    backward_launches += 1
+    return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+# ------------------------------------------------------------------ autograd
+
+
+class BucketMCConvFunction(torch.autograd.Function):
+    """``(w1, b1, w2, b2, wf) -> out``: K9 forward and K10 backward on CUDA
+    tensors, their plain versions on CPU tensors. ``wf`` is ``features /
+    pdf`` in source point order; the layouts get no gradient."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, wf, sample_grid, source_grid, c_out, mean_normalize):
+        fwd = bucket_conv_reference if wf.device.type == "cpu" else bucket_conv_cuda
+        out, cnt = fwd(MCConvParams(w1, b1, w2, b2), sample_grid, source_grid, wf, c_out=c_out,
+                       mean_normalize=mean_normalize)
+        ctx.save_for_backward(w1, b1, w2, b2, wf, cnt)
+        ctx.grids = (sample_grid, source_grid)
+        ctx.conv = (c_out, mean_normalize)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        w1, b1, w2, b2, wf, cnt = ctx.saved_tensors
+        c_out, mean = ctx.conv
+        bwd = (bucket_conv_backward_reference if wf.device.type == "cpu"
+               else bucket_conv_backward_cuda)
+        d_wf, dw1, db1, dw2, db2 = bwd(MCConvParams(w1, b1, w2, b2), *ctx.grids, wf, cnt,
+                                       dout.contiguous(), c_out=c_out, mean_normalize=mean)
+        return dw1, db1, dw2, db2, d_wf, None, None, None, None
+
+
+def bucket_mc_conv(params: MCConvParams, sample_grid: BucketGrid, sample_mask: torch.Tensor,
+                   source_grid: BucketGrid, features: torch.Tensor, pdf: torch.Tensor, *,
+                   c_out: int | None = None, mean_normalize: bool = False) -> torch.Tensor:
+    """Monte-Carlo conv over cell-bucket layouts (``mcconv_kernel.py:814``).
+
+    ``sample_grid`` / ``source_grid`` bucketize the out-level / in-level
+    points at cell edge = conv radius (``core.buckets.build_buckets``);
+    ``features (B, N, C)`` and ``pdf (B, N)`` belong to the in-level points.
+    Every in-radius pair of kept points contributes, with no neighbour
+    capacity. Returns ``(B, M, C | c_out)``, 0 for masked and dropped
+    samples. Differentiable through ``BucketMCConvFunction``."""
+    wf = torch.where(kept_points(source_grid)[..., None], features / pdf[..., None], 0.0)
+    out = BucketMCConvFunction.apply(*params, wf, sample_grid, source_grid, c_out,
+                                     mean_normalize)
+    return torch.where(sample_mask[..., None], out, 0.0)

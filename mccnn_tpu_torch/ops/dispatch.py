@@ -5,9 +5,9 @@ routes on the TPU (``dispatch.py:63-79``): ``dense`` when the site fits the
 dense envelope, else ``bucket`` when ``ceil(1/r) >= 4``, else ``jnp`` (the
 reference's K-capacity conv). The conv layer promotes ``bucket`` to ``tile``
 when the cache holds a tile capacity. The device then picks kernel or plain
-version inside each backend. Ported backends: ``dense`` (K1 / K2) and
-``tile`` (K5); ``bucket`` (K9) and ``jnp`` (the K-capacity conv) raise where
-they are reached (``models/layers.py``). ``mode`` forces a backend, as the
+version inside each backend. Ported backends: ``dense`` (K1 / K2), ``tile``
+(K5 / K6) and ``bucket`` (K9 / K10); ``jnp`` (the K-capacity conv) raises
+where it is reached (``models/layers.py``). ``mode`` forces a backend, as the
 reference's ``MCCNN_TPU_CONV_BACKEND`` variable does; the port takes it as an
 argument.
 """

@@ -13,9 +13,12 @@ first batch, so the big levels take the z-order tile kernels (K5, K7, K8 and,
 in training, K6 for the tile convs' backward); a denser batch re-sizes it, in
 training and in evaluation (``tasks/common.py``). Training runs the model
 through ``Runner.train_epoch``, on the card or, with ``--device cpu``, on the
-plain PyTorch path. Not ported (they raise): ``--tile-pairs 0`` (the bucket
-conv, K9) and the spatially sharded trainer (``--spatial-shards`` /
-``--data-shards`` > 1).
+plain PyTorch path. ``--tile-pairs 0`` means "no capacity given", as in the
+reference's CLI: the Runner then sizes one from the first batch. (The
+capacity-free bucket path, K9 / K10, is for direct users of
+``MCSeg(tile_pairs=None)``; this CLI never takes it, as the reference's does
+not.) Not ported (it raises): the spatially sharded trainer
+(``--spatial-shards`` / ``--data-shards`` > 1).
 
 Usage::
 
@@ -204,13 +207,15 @@ def main(argv=None):
     p.add_argument("--radii", type=str, default=None,
                    help="comma-separated Poisson radii per level (default 0.05,0.15,0.4)")
     p.add_argument("--neighbor-k", type=int, default=None,
-                   help="the reference's K-capacity knob; kept for parity, not read")
+                   help="MCSeg's neighbor_k: the capacity of a capacity-free level's "
+                   "self-neighbour lists (the CLI always sizes a tile capacity above the "
+                   "dense bound, so it is read only by models without one)")
     p.add_argument("--augment", action="store_true",
                    help="with --spatial-shards: per-epoch augmentation (not ported yet)")
     p.add_argument("--tile-pairs", type=int, default=None,
                    help="static z-order tile-pair capacity of the big-N conv / pdf / sampler "
-                   "sites; default: sized from the first batch when --points exceeds the "
-                   "dense bound. 0 asks for the bucket conv, which is not ported")
+                   "sites; default, and 0: sized from the first batch when --points exceeds "
+                   "the dense bound (0 does not reach the bucket conv, as in the reference)")
     p.add_argument("--whole-scene-cap", type=int, default=None,
                    help="evaluate full scenes in one pass each, padded to this many points")
     p.add_argument("--conv-backend", choices=("auto", "tile"), default="auto",
@@ -224,12 +229,6 @@ def main(argv=None):
             "--spatial-shards / --data-shards: the spatially sharded trainer "
             "(mccnn_tpu/parallel/) is ported with the distribution slice (ROADMAP queue 1)"
         )
-    if args.tile_pairs == 0:
-        raise NotImplementedError(
-            "--tile-pairs 0 forces the cell-bucket conv (K9, mccnn_tpu/ops/pallas/"
-            "mcconv_kernel.py:293), which is not ported; leave --tile-pairs unset"
-        )
-
     rng = np.random.default_rng(args.seed)
     if args.synthetic:
         n_classes = args.n_classes or 8
@@ -244,10 +243,12 @@ def main(argv=None):
     weights = torch.from_numpy(datasets.class_weights_from(train_src.labels, n_classes))
 
     kw = {"n_classes": n_classes, "radii": _parse_radii(args.radii) or (0.05, 0.15, 0.4),
-          "tile_pairs": args.tile_pairs, "conv_backend": args.conv_backend,
+          "tile_pairs": args.tile_pairs or None, "conv_backend": args.conv_backend,
           "generator": torch.Generator().manual_seed(args.seed)}
     if args.grow:
         kw["grow"] = args.grow
+    if args.neighbor_k:
+        kw["neighbor_k"] = args.neighbor_k
     if args.bn_decay_steps:
         kw["bn_schedule_steps"] = args.bn_decay_steps
     model = MCSeg(**kw)

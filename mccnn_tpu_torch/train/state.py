@@ -11,16 +11,19 @@ A step runs the model in training mode (batch BN moments, running-statistic
 updates, dropout from the state's generator), the loss, the backward through
 the MC convs' K2 and K6 (on CUDA tensors) and one optimizer update, in place.
 
-A model with tile sites (``tile_sites``) reports the steps its tile kernels
-dropped (``tile_overflow``, ``train/state.py:106-115`` of the reference). A
-step whose forward dropped any commits nothing: no backward, no optimizer
+A model with a tile capacity (``tile_sites`` and ``tile_pairs`` set)
+reports the steps its tile kernels dropped (``tile_overflow``,
+``train/state.py:106-115`` of the reference). A step whose forward dropped
+any commits nothing: no backward, no optimizer
 update, and its BN running statistics and dropout generators are put back as
 they were, so that the caller can grow the budgets and run the same step
 again with the same draws, as the reference re-runs a discarded step from
 the same state and ``rng`` (``tasks/common.py:345-381``). Checking after the
 forward gives the reference's answer (it checks after the whole step) and
 saves the backward; it waits for the device once a step, for tile models
-only.
+only. A model without a capacity (MCSeg on the bucket path, whose grid
+overflow drops points silently, as in the reference) takes one forward, one
+backward and the update, and nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -171,10 +174,9 @@ def make_train_step(
     tensors on the model's device. A tile model's metrics carry
     ``tile_overflow``; when it is nonzero the step committed nothing (see the
     module docstring). Otherwise nothing here waits for the device."""
-    tiles = hasattr(model, "tile_sites")
-
     def step(batch: dict) -> tuple[torch.Tensor, dict]:
         model.train()
+        tiles = hasattr(model, "tile_sites") and model.tile_pairs is not None
         if tiles:
             restore = _uncommitted(model)
             out, overflow = model(*_model_args(batch), with_overflow=True)

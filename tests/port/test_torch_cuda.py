@@ -16,11 +16,18 @@ import torch
 
 from mccnn_tpu_torch.api.builder import SpatialCache
 from mccnn_tpu_torch.api.hierarchy import HierarchyLevel, PointHierarchy
+from mccnn_tpu_torch.core.buckets import build_buckets
 from mccnn_tpu_torch.core.mcconv import init_mcconv_params
 from mccnn_tpu_torch.core.pdf import kde_density
 from mccnn_tpu_torch.core.sampling import poisson_disk, sweep_cells
 from mccnn_tpu_torch.models.layers import MCConv
-from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel, tile_conv
+from mccnn_tpu_torch.ops.cuda import (
+    dense_conv,
+    density_kernel,
+    mcconv_kernel,
+    poisson_kernel,
+    tile_conv,
+)
 from mccnn_tpu_torch.ops.dispatch import dense_fits, pick_backend
 
 
@@ -191,23 +198,108 @@ def test_unported_sites_raise():
     for site in [(1024, 1, 128, 496), (496, 128, 256, 40), (40, 256, 1024, 1)]:
         # MCClassS's three sites sit inside the envelope
         assert pick_backend(site[0], 0.2, site[1], site[2], site[3]) == "dense"
-    # The tile sites are ported; the bucket conv and the K-capacity conv raise.
+    # The tile and bucket sites are ported; the K-capacity conv raises.
     pts, mask = cloud(5, B=1, N=64, masked=0)
     level = HierarchyLevel(points=pts, mask=mask, radius=0.0, sample=None)
     hier = PointHierarchy(levels=(level, level))
     feats = torch.ones((1, 64, 4))
-    for backend, match in [("bucket", "K9"), ("jnp", "K-capacity")]:
-        conv = MCConv(4, None)
-        with pytest.raises(NotImplementedError, match=match):
-            conv(SpatialCache(hier, conv_backend=backend), 0, 1, 0.2, feats)
-    out = MCConv(4, None)(SpatialCache(hier, tile_pairs=1 << 30, conv_backend="bucket"),
-                          0, 1, 0.2, feats)  # a capacity promotes bucket to tile
-    assert out.shape == (1, 64, 4)
+    with pytest.raises(NotImplementedError, match="K-capacity"):
+        MCConv(4, None)(SpatialCache(hier, conv_backend="jnp"), 0, 1, 0.2, feats)
+    for cache in (SpatialCache(hier, conv_backend="bucket"),  # the bucket conv
+                  SpatialCache(hier, tile_pairs=1 << 30, conv_backend="bucket")):  # -> tile
+        assert MCConv(4, None)(cache, 0, 1, 0.2, feats).shape == (1, 64, 4)
     big = torch.zeros((1, 8193, 3))
     with pytest.raises(NotImplementedError, match="K-capacity"):
         kde_density(big, torch.ones((1, 8193), dtype=torch.bool), 0.1)
-    with pytest.raises(NotImplementedError, match="neighbour-list"):
-        poisson_disk(big[:, :4097], torch.ones((1, 4097), dtype=torch.bool), 0.1, 64)
+    # the neighbour-list sampler takes N > 4096 without a tile capacity
+    ss = poisson_disk(big[:, :4097], torch.ones((1, 4097), dtype=torch.bool), 0.1, 64)
+    assert int(ss.mask.sum()) == 1  # 4097 copies of one point: one selection
+
+
+# ------------------------------------------------------------ the bucket kernels
+
+
+def _bucket_inputs(device, c_in, c_out, cap_p=32, cap_s=16, scale=1.0):
+    """Two clouds of 300 sources and 90 samples (a masked tail in each) in
+    layouts at r = 0.25 (R = 4); ``cap_p = 8`` overflows source cells.
+    ``scale`` < 1 crowds the sources into a few cells and takes them as the
+    samples too, so that a cell of more than 128 slots spans several kernel
+    blocks on both sides."""
+    src, smask = cloud(2, N=300, device=device)
+    smp, qmask = cloud(3, N=90, masked=5, device=device)
+    if scale < 1:
+        src = src * scale
+        smp, qmask = src, smask
+    gp = build_buckets(src, smask, 0.25, cap_p)
+    gs = build_buckets(smp, qmask, 0.25, cap_s)
+    g = torch.Generator().manual_seed(4)
+    params = init_mcconv_params(g, c_in, c_out, device=device)
+    params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device))
+    feats = torch.randn((2, 300, c_in), generator=g).to(device)
+    pdf = (torch.rand((2, 300), generator=g) + 0.5).to(device)
+    wf = torch.where(mcconv_kernel.kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
+    dout = torch.randn((2, smp.shape[1], c_in if c_out is None else c_out), generator=g)
+    dout = dout.to(device)
+    return params, gs, gp, wf, dout
+
+
+BUCKET_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale
+    (1, 16, False, 32, 16, 1.0), (8, None, True, 32, 16, 1.0), (8, None, False, 8, 16, 1.0),
+    (40, 3, True, 8, 16, 1.0), (4, None, False, 136, 136, 0.3), (2, 5, True, 136, 136, 0.3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", BUCKET_CASES)
+def test_bucket_conv_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean, cap_p,
+                                                              cap_s, scale):
+    params, gs, gp, wf, _ = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+    # the small cap drops sources, and so do the crowded cells
+    assert (int(gp.overflow.max()) > 0) == (cap_p == 8 or scale < 1)
+    if scale < 1:  # cells of more than 128 kept points: several blocks a cell
+        assert int(gp.cell_count.max()) > 128 and int(gs.cell_count.max()) > 128
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    before = mcconv_kernel.launches
+    got, gcnt = mcconv_kernel.bucket_conv_cuda(params, gs, gp, wf, **kw)
+    again, _ = mcconv_kernel.bucket_conv_cuda(params, gs, gp, wf, **kw)
+    want, wcnt = mcconv_kernel.bucket_conv_reference(params, gs, gp, wf, **kw)
+    torch.cuda.synchronize()
+    assert mcconv_kernel.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(gcnt, wcnt)
+    # fp32 sums over the window's pairs and channels in another order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", BUCKET_CASES)
+def test_bucket_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean,
+                                                                       cap_p, cap_s, scale):
+    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    _, cnt = mcconv_kernel.bucket_conv_reference(params, gs, gp, wf, **kw)
+    args = (params, gs, gp, wf, cnt, dout)
+    before = mcconv_kernel.backward_launches
+    got = mcconv_kernel.bucket_conv_backward_cuda(*args, **kw)
+    again = mcconv_kernel.bucket_conv_backward_cuda(*args, **kw)
+    want = mcconv_kernel.bucket_conv_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert mcconv_kernel.backward_launches == before + 2
+    for name, a, b, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two calls differ"  # no atomics
+        # fp32 sums in another order; the plain version rounds pre_h as the
+        # kernel does, so no pair's ReLU step falls differently
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=name)
+
+
+def test_bucket_kernel_wrappers_refuse_cpu_tensors():
+    params, gs, gp, wf, dout = _bucket_inputs("cpu", 2, None)
+    cnt = torch.ones(dout.shape[:2])
+    before = (mcconv_kernel.launches, mcconv_kernel.backward_launches)
+    for call in (lambda: mcconv_kernel.bucket_conv_cuda(params, gs, gp, wf),
+                 lambda: mcconv_kernel.bucket_conv_backward_cuda(params, gs, gp, wf, cnt, dout)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert (mcconv_kernel.launches, mcconv_kernel.backward_launches) == before
 
 
 # ------------------------------------------------------------ the tile kernels

@@ -404,9 +404,8 @@ def test_predict_scene_batches_blocks_unpadded_and_covers_the_scene(tmp_path):
 
 
 def test_scannet_cli_unported_options_raise(tmp_path):
+    # (--tile-pairs 0 runs: test_torch_bucket_models.py)
     base = ["--synthetic", "--eval-only", "--device", "cpu", "--log-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="K9"):
-        scannet.main(base + ["--tile-pairs", "0"])
     with pytest.raises(NotImplementedError, match="sharded"):
         scannet.main(base + ["--spatial-shards", "2"])
 

@@ -115,6 +115,9 @@ SEG_SITES = [("stem", 0, 0, SEG_RADII[0], 1, SEG_GROW),
 SEG_NEIGHBOR_K = 32  # MCSeg's default neighbor_k: the level-0 sampler's list capacity
 BUCKET_TRAIN_STEPS = 4  # timed MCSeg bucket train steps at B = 8 after one warm-up
 MODELNET_BUCKET_N = 4096  # tasks.modelnet --points: MCClassS's conv_0_1 leaves the dense envelope
+# MCClassS's conv_0_1 at N = MODELNET_BUCKET_N (the trainer's B = TRAIN_B): the
+# bucket site of tasks.modelnet --points 4096, full conv 1 -> GROW at r = 0.2
+MODELNET_SITE = ("modelnet_conv_0_1", 0, 1, 0.2, 1, GROW)
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -232,13 +235,13 @@ def pair_counts(smp, qmask, src, smask, radius) -> tuple[int, int]:
     return int(valid.sum()), int(inr.sum())
 
 
-def request(rng: np.random.Generator, b: int) -> dict:
+def request(rng: np.random.Generator, b: int, n: int = N) -> dict:
     from mccnn_tpu_torch.data.datasets import _normalize_np
     from mccnn_tpu_torch.data.synthetic import classification_batch
 
-    pts, _ = classification_batch(rng, b, N)
+    pts, _ = classification_batch(rng, b, n)
     pts = np.stack([_normalize_np(p) for p in pts])
-    return {"points": pts, "mask": np.ones((b, N), bool)}
+    return {"points": pts, "mask": np.ones((b, n), bool)}
 
 
 def levels(req: dict, dev) -> list:
@@ -1196,8 +1199,6 @@ def bucket_hierarchy(dev):
     and in-radius pair counts. Returns the card's levels and its cache."""
     from mccnn_tpu_torch.api.builder import SpatialCache
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
-    from mccnn_tpu_torch.ops.cuda.mcconv_kernel import _OFFSETS, kept_points
-
     batch = scene_batch(SEED + 12, SEG_B)
     pts, mask = (torch.from_numpy(batch[k]) for k in ("points", "mask"))
     with torch.inference_mode():
@@ -1219,23 +1220,48 @@ def bucket_hierarchy(dev):
           f"cpu_s={cpu_s:.1f}", flush=True)
     require(same, "the card's bucket hierarchy differs from the CPU plain path's")
     cache = SpatialCache(h_gpu)
-    off = _OFFSETS.to(dev)
-    for name, i, o, radius, _, _ in SEG_SITES:
-        gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
-        Rp = gs.padded_res
-        cell = (gs.slot_of_point // gs.cap).long()
-        kept = kept_points(gs)
-        near = cell.clamp_max(Rp**3 - 1)[..., None] + (off[:, 0] * Rp + off[:, 1]) * Rp + off[:, 2]
-        win = torch.gather(gp.cell_count, 1, near.clamp(0, Rp**3 - 1).reshape(SEG_B, -1))
-        cand = int((win.reshape(near.shape).sum(-1) * kept).sum())
-        (src, smask), (smp, qmask) = ((l.points, l.mask) for l in (h_gpu.levels[i],
-                                                                     h_gpu.levels[o]))
-        print(f"bucket site {name} r={radius}: R={gs.res} cap sample/source={gs.cap}/{gp.cap} "
-              f"slots a cloud sample/source={gs.n_slots}/{gp.n_slots} overflow per cloud "
-              f"sample={gs.overflow.tolist()} source={gp.overflow.tolist()} "
-              f"candidate_pairs={cand} in_radius_pairs={inr_pairs(smp, qmask, src, smask, radius)}",
-              flush=True)
-    return [(l.points, l.mask) for l in h_gpu.levels], cache
+    lv = [(l.points, l.mask) for l in h_gpu.levels]
+    for site in SEG_SITES:
+        bucket_site_stats(lv, cache, site)
+    return lv, cache
+
+
+def bucket_site_stats(lv, cache, site) -> None:
+    """Print a bucket site's grids (R, caps, slots), the overflow of each side
+    per cloud, and its candidate and in-radius pair counts."""
+    from mccnn_tpu_torch.ops.cuda.mcconv_kernel import _OFFSETS, kept_points
+
+    name, i, o, radius, _, _ = site
+    gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
+    Rp, b = gs.padded_res, gs.slot_of_point.shape[0]
+    cell = (gs.slot_of_point // gs.cap).long()
+    off = _OFFSETS.to(cell.device)
+    near = cell.clamp_max(Rp**3 - 1)[..., None] + (off[:, 0] * Rp + off[:, 1]) * Rp + off[:, 2]
+    win = torch.gather(gp.cell_count, 1, near.clamp(0, Rp**3 - 1).reshape(b, -1))
+    cand = int((win.reshape(near.shape).sum(-1) * kept_points(gs)).sum())
+    (src, smask), (smp, qmask) = lv[i], lv[o]
+    print(f"bucket site {name} B={b} r={radius}: R={gs.res} cap sample/source={gs.cap}/{gp.cap} "
+          f"slots a cloud sample/source={gs.n_slots}/{gp.n_slots} overflow per cloud "
+          f"sample={gs.overflow.tolist()} source={gp.overflow.tolist()} "
+          f"candidate_pairs={cand} in_radius_pairs={inr_pairs(smp, qmask, src, smask, radius)}",
+          flush=True)
+
+
+def modelnet_bucket_levels(dev):
+    """MCClassS's hierarchy of a B=TRAIN_B x 4096 ModelNet batch, built on the
+    card as ``tasks.modelnet --points 4096`` builds it, and its cache."""
+    from mccnn_tpu_torch.api.builder import SpatialCache
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+
+    req = request(np.random.default_rng(SEED + 17), TRAIN_B, MODELNET_BUCKET_N)
+    with torch.inference_mode():
+        hier = build_hierarchy(torch.from_numpy(req["points"]).to(dev),
+                               torch.from_numpy(req["mask"]).to(dev), (0.1, 0.4),
+                               global_level=True)
+    cache = SpatialCache(hier)
+    lv = [(l.points, l.mask) for l in hier.levels]
+    bucket_site_stats(lv, cache, MODELNET_SITE)
+    return lv, cache
 
 
 def bucket_site_inputs(gen, dev, lv, cache, site):
@@ -1254,15 +1280,16 @@ def bucket_site_inputs(gen, dev, lv, cache, site):
     return params, gs, gp, wf
 
 
-def check_bucket_conv(dev, lv, cache) -> tuple:
-    """K9 at the four bucket sites of the block batch's capacity-free MCSeg."""
+def check_bucket_conv(dev, sites) -> tuple:
+    """K9 at each ``(levels, cache, site)``: the four bucket sites of the block
+    batch's capacity-free MCSeg and MCClassS's conv_0_1 at 4096 points."""
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
 
     gen = torch.Generator().manual_seed(SEED + 13)
     err = ms = pms = bms = 0.0
-    by = "operations"
+    bounds = []  # (bound_ms, by) of each site: the row is bound as its largest site
     with torch.no_grad():
-        for site in SEG_SITES:
+        for lv, cache, site in sites:
             name, i, o, _, c, co = site
             params, gs, gp, wf = bucket_site_inputs(gen, dev, lv, cache, site)
             b, M, N = gs.slot_of_point.shape[0], lv[o][0].shape[1], lv[i][0].shape[1]
@@ -1288,24 +1315,26 @@ def check_bucket_conv(dev, lv, cache) -> tuple:
             if co is not None:
                 flops += 2 * int(mk.kept_points(gs).sum()) * H1 * c * co
             b_ms, by = bound(nbytes, flops)
+            bounds.append((b_ms, by))
             print(f"K9 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
                   f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
                   f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
                   flush=True)
             err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
-    return (err, ms, pms, bms, by, None)
+    return (err, ms, pms, bms, max(bounds)[1], None)
 
 
-def check_bucket_backward(dev, lv, cache) -> tuple:
-    """K10 at the four bucket sites of the block batch, with a seeded dout."""
+def check_bucket_backward(dev, sites) -> tuple:
+    """K10 at each ``(levels, cache, site)`` of ``check_bucket_conv``, with a
+    seeded dout."""
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
 
     gen = torch.Generator().manual_seed(SEED + 14)
     names = ("d_wf", "dw1", "db1", "dw2", "db2")
     err = ms = pms = bms = 0.0
-    by = "operations"
+    bounds = []  # (bound_ms, by) of each site: the row is bound as its largest site
     with torch.no_grad():
-        for site in SEG_SITES:
+        for lv, cache, site in sites:
             name, i, o, _, c, co = site
             params, gs, gp, wf = bucket_site_inputs(gen, dev, lv, cache, site)
             b, M, N = gs.slot_of_point.shape[0], lv[o][0].shape[1], lv[i][0].shape[1]
@@ -1345,18 +1374,23 @@ def check_bucket_backward(dev, lv, cache) -> tuple:
             flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
                       pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
             b_ms, by = bound(nbytes, flops)
+            bounds.append((b_ms, by))
             print(f"K10 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
                   f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
                   f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
                   flush=True)
             err, ms, pms, bms = max(err, e_site), ms + k_ms, pms + p_ms, bms + b_ms
-    return (err, ms, pms, bms, by, None)
+    return (err, ms, pms, bms, max(bounds)[1], None)
 
 
 def check_bucket_kernels(dev) -> dict:
-    """The bucket hierarchy, then K9 and K10 against their plain versions."""
+    """The bucket hierarchies, then K9 and K10 against their plain versions at
+    the shapes of both bucket paths: MCSeg's block batch and tasks.modelnet
+    --points 4096."""
     lv, cache = bucket_hierarchy(dev)
-    return {"K9": check_bucket_conv(dev, lv, cache), "K10": check_bucket_backward(dev, lv, cache)}
+    sites = [(lv, cache, site) for site in SEG_SITES]
+    sites.append((*modelnet_bucket_levels(dev), MODELNET_SITE))
+    return {"K9": check_bucket_conv(dev, sites), "K10": check_bucket_backward(dev, sites)}
 
 
 def serve_mcseg_bucket(dev) -> dict:
@@ -1557,10 +1591,10 @@ def main() -> int:
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
-        if kid in tile_results or kid in bucket_results:  # ScanNet shapes: eval and training
-            rows = [tile_results.get(kid) or bucket_results[kid]]
-            paths = seg_launches if kid in tile_results else bucket_launches
-            batch = SEG_B
+        if kid in tile_results:  # ScanNet shapes: eval and training
+            rows, paths, batch = [tile_results[kid]], seg_launches, SEG_B
+        elif kid in bucket_results:  # MCSeg's block batch and modelnet --points 4096
+            rows, paths, batch = [bucket_results[kid]], bucket_launches, [SEG_B, TRAIN_B]
         else:
             rows = results[kid]
             paths = {"train": train_launches}

@@ -9,10 +9,8 @@ conv drains them. ``conv_backend`` forces the conv backend at every site
 ("auto" routes by shape, ``ops/dispatch.py``): the port's counterpart of the
 reference's ``MCCNN_TPU_CONV_BACKEND`` variable, an argument here. The
 bucket conv (K9 / K10) reads one cell-bucket layout per ``(level, conv
-radius)``, built on first use at ``bucket_cap`` slots a cell (None: the
-reference's per-level ``default_cap``). ``neighbor_k`` is the capacity of the
-reference's K-nearest neighbourhoods; the port's K-capacity conv, which would
-read it, is not ported (ROADMAP queue 1 item 4).
+radius)``, built on first use at the reference's per-level ``default_cap``
+slots a cell.
 """
 
 from __future__ import annotations
@@ -29,9 +27,7 @@ from .hierarchy import PointHierarchy
 @dataclass
 class SpatialCache:
     hierarchy: PointHierarchy
-    neighbor_k: int = 32
     kde_window: float = 0.25
-    bucket_cap: int | None = None
     # Static tile-pair capacity sized for the level-0 sites; deeper levels
     # run lossless. None: no tile sites.
     tile_pairs: int | None = None
@@ -63,7 +59,7 @@ class SpatialCache:
         key = (level, float(radius))
         if key not in self._buckets:
             lvl = self.hierarchy.levels[level]
-            cap = self.bucket_cap or default_cap(lvl.points.shape[1], float(radius))
+            cap = default_cap(lvl.points.shape[1], float(radius))
             self._buckets[key] = build_buckets(lvl.points, lvl.mask, float(radius), cap)
         return self._buckets[key]
 

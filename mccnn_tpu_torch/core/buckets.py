@@ -17,7 +17,9 @@ exactly (the stable sort by cell, the rank within a cell, the trash slot),
 and it runs on the tensors' device. Empty slots are marked by ``slot_mask``
 alone: their ``positions`` are 0, where the reference parks them at the far
 ``SENTINEL`` coordinate for its kernels' distance test. Nothing here relies
-on far coordinates.
+on far coordinates. The kernels read features and write outputs in point
+order through ``point_of_slot``, so the reference's ``bucketize`` /
+``unbucketize`` (per-point values to slot order and back) have no use here.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ from typing import NamedTuple
 import torch
 
 from .grid import cell_coords
-
-SENTINEL = 1.0e6  # the reference's empty-slot coordinate; the port does not use it
 
 
 class BucketGrid(NamedTuple):
@@ -122,24 +122,6 @@ def build_buckets(points: torch.Tensor, mask: torch.Tensor, radius: float, cap: 
     return BucketGrid(slot_of_point=slot, point_of_slot=point_of_slot, slot_mask=slot_mask,
                       positions=positions, res=R, cap=cap, radius=float(radius),
                       overflow=overflow, cell_count=cell_count)
-
-
-def bucketize(grid: BucketGrid, values: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
-    """Per-point values ``(B, N, ...)`` in slot order ``(B, S + 1, ...)``."""
-    B, S1 = grid.point_of_slot.shape
-    idx = grid.point_of_slot.long().reshape(B, S1, *([1] * (values.dim() - 2)))
-    out = torch.gather(values, 1, idx.expand(B, S1, *values.shape[2:]))
-    m = grid.slot_mask.reshape(B, S1, *([1] * (values.dim() - 2)))
-    return torch.where(m, out, fill)
-
-
-def unbucketize(grid: BucketGrid, slot_values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Per-slot values back to point order ``(B, N, ...)``; masked and dropped
-    points read the trash slot and get 0."""
-    B, N = grid.slot_of_point.shape
-    idx = grid.slot_of_point.long().reshape(B, N, *([1] * (slot_values.dim() - 2)))
-    out = torch.gather(slot_values, 1, idx.expand(B, N, *slot_values.shape[2:]))
-    return torch.where(mask.reshape(B, N, *([1] * (slot_values.dim() - 2))), out, 0)
 
 
 def default_cap(n_points: int, radius: float, *, slack: float = 3.0) -> int:

@@ -80,10 +80,10 @@ def grid_res_for_radius(radius: float, cell_scale: float = 1.0, max_res: int = 5
     return min(res, max_res)
 
 
-def pair_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Squared distances ``(B, Na, Nb)`` between ``a (B, Na, 3)`` and ``b (B, Nb, 3)``.
+def row_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared distances between broadcastable rows ``a (..., 3)`` and ``b (..., 3)``.
 
-    One explicit formula, ``sq_a + sq_b - 2 * (xa*xb + ya*yb + za*zb)``,
+    The port's one d2 expression, ``sq_a + sq_b - 2 * (xa*xb + ya*yb + za*zb)``,
     evaluated left to right with one rounding per elementwise op. The CUDA
     kernels evaluate the same expression with round-to-nearest intrinsics
     (no FMA contraction), so an in-radius test ``d2 <= r2`` gives the same
@@ -94,23 +94,13 @@ def pair_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
     sq_a = ax * ax + ay * ay + az * az
     sq_b = bx * bx + by * by + bz * bz
-    dot = (
-        ax[:, :, None] * bx[:, None, :]
-        + ay[:, :, None] * by[:, None, :]
-        + az[:, :, None] * bz[:, None, :]
-    )
-    return (sq_a[:, :, None] + sq_b[:, None, :]) - 2.0 * dot
-
-
-def row_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``pair_d2``'s expression between broadcastable rows ``a (..., 3)`` and
-    ``b (..., 3)``: the same elementwise ops in the same order, so a pair
-    gets the same bits as in ``pair_d2`` and in the kernels."""
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    sq_a = ax * ax + ay * ay + az * az
-    sq_b = bx * bx + by * by + bz * bz
     return (sq_a + sq_b) - 2.0 * (ax * bx + ay * by + az * bz)
+
+
+def pair_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``row_d2`` of every pair: ``(B, Na, Nb)`` between ``a (B, Na, 3)`` and
+    ``b (B, Nb, 3)`` (the squared norms are formed once per point)."""
+    return row_d2(a[:, :, None, :], b[:, None, :, :])
 
 
 def radius_sq(radius: float) -> float:

@@ -46,28 +46,6 @@ constexpr int kThreads = 256;
 constexpr int kOut = 8;       // (sample, channel) outputs per thread
 constexpr int kMaxCB = 64;    // channels per block
 
-// The 27 window cells of padded cell `pid` (z fastest) and the prefix sums of
-// their kept counts; returns the window's kept total. Every thread calls it.
-__device__ __forceinline__ int window_prefix(const int* __restrict__ count, int pid, int Rp,
-                                             int* wcell, int* wstart) {
-  if (threadIdx.x < 27) {
-    const int k = threadIdx.x;
-    const int dx = k / 9 - 1, dy = (k / 3) % 3 - 1, dz = k % 3 - 1;
-    wcell[k] = pid + (dx * Rp + dy) * Rp + dz;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int k = 0; k < 27; ++k) {
-      wstart[k] = acc;
-      acc += count[wcell[k]];
-    }
-    wstart[27] = acc;
-  }
-  __syncthreads();
-  return wstart[27];
-}
-
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ smp_pts,
@@ -95,8 +73,7 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
   const size_t cells = (size_t)Rp * Rp * Rp;
   const int cell = blockIdx.x / nsc, chunk = blockIdx.x % nsc;
   const int cb = blockIdx.y, b = blockIdx.z;
-  const int cx = cell / (R * R), cy = (cell / R) % R, cz = cell % R;
-  const int pid = ((cx + 1) * Rp + (cy + 1)) * Rp + (cz + 1);
+  const int pid = bucket_padded_cell(cell, R);
   const int s0 = chunk * TS;
   const int ns = min(TS, smp_cnt[b * cells + pid] - s0);
   if (ns <= 0) return;  // the whole block leaves before any barrier
@@ -115,7 +92,7 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
   }
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) sw1[i] = w1[i];
   for (int i = threadIdx.x; i < H; i += blockDim.x) sb1[i] = b1[i];
-  const int total = window_prefix(src_cnt + b * cells, pid, Rp, wcell, wstart);
+  const int total = bucket_window_prefix(src_cnt + b * cells, pid, Rp, wcell, wstart);
 
   float acc[kOut][H1];
   float count[kOut];
@@ -132,10 +109,7 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
     const int nj = min(kTJ, total - j0);
     __syncthreads();  // the previous chunk's plane and rows are consumed
     for (int t = threadIdx.x; t < nj; t += blockDim.x) {
-      const int j = j0 + t;
-      int k = 0;
-      while (wstart[k + 1] <= j) ++k;
-      const size_t slot = b * pslots + (size_t)wcell[k] * capP + (j - wstart[k]);
+      const size_t slot = b * pslots + bucket_window_slot(wcell, wstart, j0 + t, capP);
       const float x = src_pos[3 * slot], y = src_pos[3 * slot + 1], z = src_pos[3 * slot + 2];
       spos[4 * t] = x;
       spos[4 * t + 1] = y;
@@ -150,19 +124,9 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
     }
     for (int i = threadIdx.x; i < nj * ns; i += blockDim.x) {
       const int j = i / ns, s = i % ns;
-      const float px = spos[4 * j], py = spos[4 * j + 1], pz = spos[4 * j + 2];
-      const float qx = qpos[4 * s], qy = qpos[4 * s + 1], qz = qpos[4 * s + 2];
-      const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * s + 3], px, py, pz, spos[4 * j + 3]);
-      const bool in = d2 <= r2;
-      const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
-                  oz = mc_offset(pz, qz, radius);
-      float* pl = plane + (size_t)j * H1 * TS + s;
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
-        pl[h * TS] = in ? fmaxf(pre, 0.f) : 0.f;
-      }
-      pl[H * TS] = in ? 1.f : 0.f;
+      mc_ah_column<H>(plane + (size_t)j * H1 * TS + s, TS, qpos[4 * s], qpos[4 * s + 1],
+                      qpos[4 * s + 2], qpos[4 * s + 3], spos[4 * j], spos[4 * j + 1],
+                      spos[4 * j + 2], spos[4 * j + 3], sw1, sb1, r2, radius);
     }
     __syncthreads();
 #pragma unroll

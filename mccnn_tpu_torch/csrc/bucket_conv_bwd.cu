@@ -87,8 +87,7 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
   const size_t cells = (size_t)Rp * Rp * Rp;
   const int cell = blockIdx.x / npc, chunk = blockIdx.x % npc;
   const int cb = blockIdx.y, b = blockIdx.z;
-  const int cx = cell / (R * R), cy = (cell / R) % R, cz = cell % R;
-  const int pid = ((cx + 1) * Rp + (cy + 1)) * Rp + (cz + 1);
+  const int pid = bucket_padded_cell(cell, R);
   const int s0 = chunk * TP;
   const int np = min(TP, src_cnt[b * cells + pid] - s0);
   if (np <= 0) return;  // the whole block leaves before any barrier; its partials stay 0
@@ -112,26 +111,12 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
     const int h = i / kMaxCB, cl = i % kMaxCB;
     sw2[i] = depthwise && cl < nd ? w2[h * C + c0 + cl] : 0.f;
   }
-  if (threadIdx.x < 27) {
-    const int k = threadIdx.x;
-    const int dx = k / 9 - 1, dy = (k / 3) % 3 - 1, dz = k % 3 - 1;
-    wcell[k] = pid + (dx * Rp + dy) * Rp + dz;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int k = 0; k < 27; ++k) {
-      wstart[k] = acc;
-      acc += smp_cnt[b * cells + wcell[k]];
-    }
-    wstart[27] = acc;
-  }
+  const int total = bucket_window_prefix(smp_cnt + b * cells, pid, Rp, wcell, wstart);
   for (int i = threadIdx.x; i < np * kMaxCB; i += blockDim.x) {
     const int s = i / kMaxCB, cl = i % kMaxCB;
     sfeat[i] = cl < nd ? wf[((size_t)b * N + pidx[s]) * C + c0 + cl] : 0.f;
   }
   __syncthreads();
-  const int total = wstart[27];
 
   float acc[kOut][H1];
 #pragma unroll
@@ -146,10 +131,7 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
     const int nj = min(kTJ, total - j0);
     __syncthreads();  // the previous chunk's plane and slices are consumed
     for (int t = threadIdx.x; t < nj; t += blockDim.x) {
-      const int j = j0 + t;
-      int k = 0;
-      while (wstart[k + 1] <= j) ++k;
-      const size_t slot = b * sslots + (size_t)wcell[k] * capS + (j - wstart[k]);
+      const size_t slot = b * sslots + bucket_window_slot(wcell, wstart, j0 + t, capS);
       const float x = smp_pos[3 * slot], y = smp_pos[3 * slot + 1], z = smp_pos[3 * slot + 2];
       qpos[4 * t] = x;
       qpos[4 * t + 1] = y;
@@ -171,19 +153,9 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
     }
     for (int i = threadIdx.x; i < nj * np; i += blockDim.x) {
       const int j = i / np, s = i % np;
-      const float px = ppos[4 * s], py = ppos[4 * s + 1], pz = ppos[4 * s + 2];
-      const float qx = qpos[4 * j], qy = qpos[4 * j + 1], qz = qpos[4 * j + 2];
-      const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * j + 3], px, py, pz, ppos[4 * s + 3]);
-      const bool in = d2 <= r2;
-      const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
-                  oz = mc_offset(pz, qz, radius);
-      float* pl = plane + (size_t)j * H1 * TP + s;
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
-        pl[h * TP] = in ? fmaxf(pre, 0.f) : 0.f;
-      }
-      pl[H * TP] = in ? 1.f : 0.f;
+      mc_ah_column<H>(plane + (size_t)j * H1 * TP + s, TP, qpos[4 * j], qpos[4 * j + 1],
+                      qpos[4 * j + 2], qpos[4 * j + 3], ppos[4 * s], ppos[4 * s + 1],
+                      ppos[4 * s + 2], ppos[4 * s + 3], sw1, sb1, r2, radius);
     }
     __syncthreads();
 #pragma unroll

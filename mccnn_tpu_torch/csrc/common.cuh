@@ -37,4 +37,65 @@ __device__ __forceinline__ float mc_preact(float ox, float oy, float oz,
                    b1[h]);
 }
 
+// One a_h column of a pair (sample q, source p): a_h = relu(pre_h) for h < H
+// and a_H = 1 where d2 <= r2, all 0 otherwise, at pl[h * stride]. The bucket
+// kernels (K9, K10) fill their planes with it; asq / psq are |q|^2 / |p|^2.
+template <int H>
+__device__ __forceinline__ void mc_ah_column(float* pl, int stride, float qx, float qy,
+                                             float qz, float qsq, float px, float py, float pz,
+                                             float psq, const float* w1, const float* b1,
+                                             float r2, float radius) {
+  const bool in = pair_d2_rn(qx, qy, qz, qsq, px, py, pz, psq) <= r2;
+  const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
+              oz = mc_offset(pz, qz, radius);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const float pre = mc_preact(ox, oy, oz, w1, b1, H, h);
+    pl[h * stride] = in ? fmaxf(pre, 0.f) : 0.f;
+  }
+  pl[H * stride] = in ? 1.f : 0.f;
+}
+
+// Cell-bucket layouts (mccnn_tpu_torch/core/buckets.py): (R+2)^3 padded cells,
+// z fastest, `cap` slots a cell, the kept points of a cell in its first
+// count[cell] slots. A bucket kernel's block takes real cell `cell` (of R^3);
+// this is its padded id.
+__device__ __forceinline__ int bucket_padded_cell(int cell, int R) {
+  const int Rp = R + 2;
+  const int cx = cell / (R * R), cy = (cell / R) % R, cz = cell % R;
+  return ((cx + 1) * Rp + (cy + 1)) * Rp + (cz + 1);
+}
+
+// The 27 window cells of padded cell `pid` (z fastest) into wcell, and the
+// prefix sums of their kept counts into wstart[0..27]; returns the window's
+// kept total. Every thread of the block calls it (two barriers).
+__device__ __forceinline__ int bucket_window_prefix(const int* __restrict__ count, int pid,
+                                                    int Rp, int* wcell, int* wstart) {
+  if (threadIdx.x < 27) {
+    const int k = threadIdx.x;
+    const int dx = k / 9 - 1, dy = (k / 3) % 3 - 1, dz = k % 3 - 1;
+    wcell[k] = pid + (dx * Rp + dy) * Rp + dz;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int k = 0; k < 27; ++k) {
+      wstart[k] = acc;
+      acc += count[wcell[k]];
+    }
+    wstart[27] = acc;
+  }
+  __syncthreads();
+  return wstart[27];
+}
+
+// The slot (within one cloud's layout) of the window's j-th kept point, in
+// window order: cell by cell, each cell's kept slots in order.
+__device__ __forceinline__ size_t bucket_window_slot(const int* wcell, const int* wstart, int j,
+                                                     int cap) {
+  int k = 0;
+  while (wstart[k + 1] <= j) ++k;
+  return (size_t)wcell[k] * cap + (j - wstart[k]);
+}
+
 #define MCCNN_LAUNCH_RETURN() return static_cast<int>(cudaGetLastError())

@@ -82,7 +82,7 @@ class MCClassS(nn.Module):
                                   device=points.device)
         hier = build_hierarchy(points, mask, self.radii, neighbor_k=self.neighbor_k,
                                global_level=True)
-        cache = SpatialCache(hier, neighbor_k=self.neighbor_k)
+        cache = SpatialCache(hier)
         x = features
         for lvl, (conv, bn_relu) in enumerate(zip(self.convs.values(), self.bn_relus)):
             out_level = lvl + 1

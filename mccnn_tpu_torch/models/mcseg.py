@@ -138,8 +138,7 @@ class MCSeg(nn.Module):
             hier = build_hierarchy(points, mask, self.radii, neighbor_k=self.neighbor_k,
                                    global_level=False, tile_pairs=self.tile_pairs,
                                    tile_steps=self.tile_steps)
-        cache = SpatialCache(hier, neighbor_k=self.neighbor_k, tile_pairs=self.tile_pairs,
-                             tile_steps=self.tile_steps,
+        cache = SpatialCache(hier, tile_pairs=self.tile_pairs, tile_steps=self.tile_steps,
                              conv_backend=self.conv_backend)
         for lvl in hier.levels:
             if lvl.sample is not None and lvl.sample.overflow is not None:

@@ -46,7 +46,7 @@ import test_torch_mcseg as seg_t
 
 N_SEG, N_CLS = 4104, 3200  # above DENSE_SAMPLER_MAX_N; above DENSE_MAX_N
 SEG_RADII = (0.08, 0.15)
-K_SEG, K_CLS = 256, 496  # the JAX models' neighbor_k: above every in-radius count
+K_SEG, K_CLS = 128, 496  # the JAX models' neighbor_k: above every in-radius count
 N_CLASSES, GROW = 5, 8
 
 

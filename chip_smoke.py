@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port's paths on one NVIDIA GPU: MCClassS serving and
 training, ScanNet segmentation serving and training (MCSeg on the z-order tile
-kernels), and the capacity-free bucket path (MCSeg without a tile capacity, and
-MCClassS above 3072 points, on the cell-bucket kernels).
+kernels), the capacity-free bucket path (MCSeg without a tile capacity, and
+MCClassS above 3072 points, on the cell-bucket kernels), and the rest of the
+classification zoo (MCClass, MCClassH) with the per-h dense conv pair K1v1 /
+K2v1 that ``MCCNN_DENSE_V1=1`` selects.
 
     python3 chip_smoke.py
 
@@ -75,10 +77,28 @@ MCClassS above 3072 points, on the cell-bucket kernels).
    ``make_train_step`` with K9 and K10 launched.
 15. ``tasks.modelnet.main --synthetic --points 4096`` at B=32: three steps and
    one evaluation, with MCClassS's conv_0_1 on K9 and K10.
-16. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, K5-K10 at the ScanNet shapes; each with its least possible time on
-   the card, ``bound_ms``, from the bytes and operations of this run's
-   inputs), the card line, and last ``{"ok": true, "device": {...}}``.
+16. K1v1 and K2v1 (the per-h dense conv and its backward) at the 14 dense
+   conv sites of MCClass (grow 64, radii 0.1 / 0.2 / 0.4) and MCClassH (grow
+   128) for batches of 8 and 32 clouds of 1024 points: each against its
+   plain version and against K1 / K2 on the same inputs, bit for bit on
+   repeat; at B=32 the times of both, of their plain versions, of K1 / K2 and
+   of one torch.matmul of the GEMM part, and the bounds.
+17. MCClass and MCClassH at their published widths (seeded weights and BN
+   statistics) served through ``serve.Predictor`` at B=8: the first two
+   clouds against the CPU plain path (B=2; every head of MCClassH), batch
+   latencies and a profiled batch (busy share).
+18. One train step of each (drop rates 0) at B=4 on the card against the CPU
+   plain path, with MCSeg's BN-ReLU flip gate.
+19. ``tasks.modelnet.main --model MCClass`` and ``--model MCClassH --protocol
+   gradient`` at B=32, N=1024: two epochs of 3 steps (the second profiled)
+   and one evaluation with 2 votes, K1-K4 launched.
+20. The same MCClass training under ``MCCNN_DENSE_V1=1`` in a child process:
+   its printed counters must show K1v1 / K2v1 launched and K1 / K2 not.
+21. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+   B=32, K5-K10 at the ScanNet shapes, K1v1 / K2v1 summed over the zoo's 14
+   sites at B=32; each with its least possible time on the card,
+   ``bound_ms``, from the bytes and operations of this run's inputs), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -118,6 +138,34 @@ MODELNET_BUCKET_N = 4096  # tasks.modelnet --points: MCClassS's conv_0_1 leaves 
 # MCClassS's conv_0_1 at N = MODELNET_BUCKET_N (the trainer's B = TRAIN_B): the
 # bucket site of tasks.modelnet --points 4096, full conv 1 -> GROW at r = 0.2
 MODELNET_SITE = ("modelnet_conv_0_1", 0, 1, 0.2, 1, GROW)
+
+# The classification zoo at its published widths (mccnn_tpu/models/mcclass.py,
+# mcclass_h.py), N = 1024: MCClass (grow 64) on the hierarchy 0.1 / 0.2 / 0.4,
+# MCClassH (grow 128) on path A's 0.1 / 0.4 and path B's 0.1 / 0.2 / 0.4.
+ZOO = ("MCClass", "MCClassH")
+ZOO_CPU_B = 2  # served logits, card vs the CPU plain path
+ZOO_STEP_B = 4  # the zoo train steps, card vs the CPU plain path (B >= 3: the head BNs)
+ZOO_TRAIN_STEPS = 3  # tasks.modelnet steps an epoch, two epochs (the second profiled)
+RADII_3 = (0.1, 0.2, 0.4)
+RADII_2 = (0.1, 0.4)
+# Every dense conv site of both models: (name, hierarchy radii, in level,
+# out level, radius (None: the global radius), C, CO (None: depthwise)).
+ZOO_SITES = [
+    ("MCClass stem", RADII_3, 0, 0, 0.1, 1, 64),
+    ("MCClass down_0_1", RADII_3, 0, 1, 0.2, 64, None),
+    ("MCClass same_1", RADII_3, 1, 1, 0.2, 128, None),
+    ("MCClass down_1_2", RADII_3, 1, 2, 0.4, 128, None),
+    ("MCClass same_2", RADII_3, 2, 2, 0.4, 256, None),
+    ("MCClass down_2_3", RADII_3, 2, 3, 0.8, 256, None),
+    ("MCClass same_3", RADII_3, 3, 3, 0.8, 512, None),
+    ("MCClass down_3_4", RADII_3, 3, 4, None, 512, None),
+    ("MCClassH path_a conv_0_1", RADII_2, 0, 1, 0.2, 1, 128),
+    ("MCClassH path_a conv_1_2", RADII_2, 1, 2, 0.8, 128, 256),
+    ("MCClassH path_a conv_2_3", RADII_2, 2, 3, None, 256, 1024),
+    ("MCClassH path_b conv_1_2", RADII_3, 1, 2, 0.4, 1, 128),
+    ("MCClassH path_b conv_2_3", RADII_3, 2, 3, 0.8, 128, 256),
+    ("MCClassH path_b conv_3_4", RADII_3, 3, 4, None, 256, 1024),
+]
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -184,6 +232,26 @@ BUCKET_RTOL = 1e-5
 #     channels and per-block partials in another order; the ReLU steps fall as
 #     in the kernel (the same pre_h rounding), so dW1 / db1 hold to it too.
 BUCKET_BWD_RTOL = 1e-4
+# K1v1 against its plain version and against K1, relative to the site's
+#     largest |output|. Against K1: the same a_h plane (mc_preact) and fold.
+#     Against the plain version taken in float64 over the kernel's own pair
+#     plane (``plain_forward64``): K1v1's fp32 sums over neighbours and
+#     (H+1)*C products alone, which reach 1e-6 of the largest output at the
+#     full sites (the fp32 plain version sits 1.04e-6 from float64 at
+#     MCClassH's global 256 -> 1024 site, 2304 products an output): 3e-6. The
+#     fp32 plain version is held as K1 is (CONV_RTOL): its own sums round as
+#     much again (1.09e-6 from K1v1 at MCClassH's path_a conv_1_2, B = 8).
+V1_FWD_RTOL = 3e-6
+# K2v1 against its plain version and against K2: d_wf, dW2 and db2 within
+#     1e-5 of their largest value (fp32 sums over samples, pairs and block
+#     partials in other orders); dW1 / db1 1e-4 (sums over every pair of the
+#     batch with cancellation; the ReLU steps fall as in the kernels).
+V1_BWD_RTOL = 1e-5
+V1_BWD_W1_RTOL = 1e-4
+# The zoo's mixing layers and head Dense biases feed batch-statistic BNs, so
+# their gradients are 0 up to rounding of sums over the batch's points: both
+# sides below 1e-3 of the largest gradient, as MCSeg's mixes.
+ZOO_ZERO_GRAD_RTOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -244,13 +312,13 @@ def request(rng: np.random.Generator, b: int, n: int = N) -> dict:
     return {"points": pts, "mask": np.ones((b, n), bool)}
 
 
-def levels(req: dict, dev) -> list:
+def levels(req: dict, dev, radii=(0.1, 0.4)) -> list:
     """The path's levels, built by the plain path on the CPU: the kernels then
     see exactly the shapes and padding masks they get there."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
 
     hier = build_hierarchy(
-        torch.from_numpy(req["points"]), torch.from_numpy(req["mask"]), (0.1, 0.4),
+        torch.from_numpy(req["points"]), torch.from_numpy(req["mask"]), radii,
         global_level=True,
     )
     lv = [(l.points.to(dev), l.mask.to(dev)) for l in hier.levels]
@@ -468,14 +536,14 @@ def calibrate_bn(model, batch: dict, rng: np.random.Generator) -> None:
             bn.bias.copy_((0.1 * noise()).float())
 
 
-def same_hierarchy(req: dict, dev) -> bool:
+def same_hierarchy(req: dict, dev, radii=(0.1, 0.4)) -> bool:
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
 
     with torch.inference_mode():
         h_gpu = build_hierarchy(torch.from_numpy(req["points"]).to(dev),
-                                torch.from_numpy(req["mask"]).to(dev), (0.1, 0.4))
+                                torch.from_numpy(req["mask"]).to(dev), radii)
         h_cpu = build_hierarchy(torch.from_numpy(req["points"]),
-                                torch.from_numpy(req["mask"]), (0.1, 0.4))
+                                torch.from_numpy(req["mask"]), radii)
     return all(
         torch.equal(a.sample.idx.cpu(), c.sample.idx) and torch.equal(a.mask.cpu(), c.mask)
         for a, c in zip(h_gpu.levels[1:], h_cpu.levels[1:])
@@ -488,6 +556,7 @@ def counters() -> dict:
                                           poisson_kernel, tile_conv)
 
     return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
+            "K1v1": (dense_conv, "launches_v1"), "K2v1": (dense_conv, "backward_launches_v1"),
             "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches"),
             "K5": (tile_conv, "launches"), "K6": (tile_conv, "backward_launches"),
             "K7": (tile_conv, "kde_launches"),
@@ -991,17 +1060,9 @@ def check_mcseg(dev) -> None:
 def check_mcseg_train_step(dev, bucket: bool = False) -> None:
     """One MCSeg train step (ScanNet defaults, dropout 0) on the card against
     the same step on the CPU plain path, at B=2 x 8192: on the tile path
-    (auto-sized capacity), or with ``bucket`` on the capacity-free bucket path.
-
-    A BN output within rounding of 0 can fall on the other side of its ReLU
-    on the two devices (forward values differ by ~1e-6 after seven convs),
-    and each such flip moves its channel's BN gradients by one point's term,
-    a few 1e-3 of their largest value at 4M values a layer. So the CPU step
-    takes the card's ReLU decisions, and the check requires each one it takes
-    to lie within rounding (``FLIP_SHARE``, ``FLIP_VALUE_RTOL``); the unforced
-    step's worst gradient is printed beside it."""
+    (auto-sized capacity), or with ``bucket`` on the capacity-free bucket path,
+    through ``gated_train_step``."""
     from mccnn_tpu_torch.models import MCSeg
-    from mccnn_tpu_torch.models.layers import BatchNormReluDropout
     from mccnn_tpu_torch.tasks.common import maybe_auto_tile_pairs
     from mccnn_tpu_torch.train import segmentation_loss
 
@@ -1013,11 +1074,41 @@ def check_mcseg_train_step(dev, bucket: bool = False) -> None:
     if not bucket:
         maybe_auto_tile_pairs(model, batch, dev)
     calibrate_bn(model, batch, rng)
-    cpu_model, cpu_forced = copy.deepcopy(model).cpu(), copy.deepcopy(model).cpu()
 
     def loss_fn(out, b):
         return segmentation_loss(out, b["labels"], b["mask"]), {}
 
+    what = f"MCSeg {'bucket ' if bucket else ''}train step B={SEG_CPU_B} N={SEG_N} grow={SEG_GROW}"
+    card, cpu, launches = gated_train_step(
+        what, model, dev, batch, loss_fn,
+        lambda n: n.startswith("mixes.") and n.endswith(".bias"), SEG_ZERO_GRAD_RTOL)
+    path = ("K9", "K10") if bucket else ("K5", "K6")
+    if bucket:
+        require(launches["K5"] == launches["K6"] == launches["K8"] == 0,
+                "a tile kernel was launched in the MCSeg bucket train step")
+    else:
+        for name, out in (("card", card), ("cpu", cpu)):
+            require(int(out[4]["tile_overflow"]) == 0, f"the MCSeg train step overflowed ({name})")
+    for name in path:
+        require(launches[name] > 0, f"{name} was not launched in the MCSeg train step")
+
+
+def gated_train_step(what: str, model, dev, batch: dict, loss_fn, zero_grad,
+                     zero_rtol: float) -> tuple:
+    """One train step of ``model`` on the card against the same step on the
+    CPU plain path; returns ``(card, cpu, launches)`` (``train_one_step``'s
+    tuples and the card step's launch counts).
+
+    A BN output within rounding of 0 can fall on the other side of its ReLU
+    on the two devices (forward values differ by ~1e-6 after a few convs),
+    and each such flip moves its channel's BN gradients by one point's term,
+    a few 1e-3 of their largest value at 4M values a layer. So the CPU step
+    takes the card's ReLU decisions, and the check requires each one it takes
+    to lie within rounding (``FLIP_SHARE``, ``FLIP_VALUE_RTOL``); the unforced
+    step's worst gradient is printed beside it."""
+    from mccnn_tpu_torch.models.layers import BatchNormReluDropout
+
+    cpu_model, cpu_forced = copy.deepcopy(model).cpu(), copy.deepcopy(model).cpu()
     card_on, hooks = {}, []
     for name, mod in model.named_modules():
         if isinstance(mod, BatchNormReluDropout):
@@ -1044,52 +1135,41 @@ def check_mcseg_train_step(dev, bucket: bool = False) -> None:
             mod.forward = forced
     cpu = train_one_step(cpu_forced, "cpu", batch, loss_fn)
     free = train_one_step(cpu_model, "cpu", batch, loss_fn)
-    path = ("K9", "K10") if bucket else ("K5", "K6")
-    if bucket:
-        require(launches["K5"] == launches["K6"] == launches["K8"] == 0,
-                "a tile kernel was launched in the MCSeg bucket train step")
-    else:
-        for name, out in (("card", card), ("cpu", cpu)):
-            require(int(out[4]["tile_overflow"]) == 0, f"the MCSeg train step overflowed ({name})")
-    for name in path:
-        require(launches[name] > 0, f"{name} was not launched in the MCSeg train step")
     unforced = max((float((card[1][n] - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
-                   for n, w in free[1].items() if not n.startswith("mixes."))
+                   for n, w in free[1].items() if not zero_grad(n))
     n_flips, n_active = (sum(v[k] for v in flips.values()) for k in (0, 1))
     worst_flip = max(v[2] for v in flips.values())
-    print(f"MCSeg {'bucket ' if bucket else ''}train step: ReLU decisions that differ between "
-          f"the card and the CPU plain "
+    print(f"{what}: ReLU decisions that differ between the card and the CPU plain "
           f"path: {n_flips} of {n_active} active ({ {k: v[0] for k, v in flips.items() if v[0]} });"
           f" largest flipped |value| {worst_flip:.3e} of its BN's largest; without the card's "
           f"decisions the worst gradient is {unforced[0]:.3e} of its largest value "
           f"({unforced[1]}) and the loss {abs(free[0] - card[0]) / abs(free[0]):.3e} relative",
           flush=True)
     require(n_flips <= FLIP_SHARE * n_active,
-            f"MCSeg train step: {n_flips} BN-ReLU decisions differ between the card and the CPU "
+            f"{what}: {n_flips} BN-ReLU decisions differ between the card and the CPU "
             f"plain path, more than {FLIP_SHARE:g} of {n_active} active values")
     require(worst_flip <= FLIP_VALUE_RTOL,
-            f"MCSeg train step: a BN-ReLU decision differs at a value {worst_flip:.3e} of its "
+            f"{what}: a BN-ReLU decision differs at a value {worst_flip:.3e} of its "
             f"BN's largest, beyond rounding ({FLIP_VALUE_RTOL:g})")
-    compare_train_steps(f"MCSeg {'bucket ' if bucket else ''}train step B={SEG_CPU_B} N={SEG_N} "
-                        f"grow={SEG_GROW}", card, cpu,
-                        lambda n: n.startswith("mixes.") and n.endswith(".bias"),
-                        SEG_ZERO_GRAD_RTOL)
+    compare_train_steps(what, card, cpu, zero_grad, zero_rtol)
+    return card, cpu, launches
 
 
-def profile_forward(model, pts, mask, what: str, reps: int = 3) -> None:
-    """``reps`` eval forwards under torch.profiler, after one warm-up: wall
-    and device time a forward, the device's busy share, the device events a
-    forward and the kernels that take the most device time."""
+def profile_forward(forward, what: str, reps: int = 3) -> float:
+    """``reps`` eval forwards (``forward()``) under torch.profiler, after one
+    warm-up: wall and device time a forward, the device's busy share, the
+    device events a forward and the kernels that take the most device time.
+    Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        model(pts, mask, with_overflow=True)
+        forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                model(pts, mask, with_overflow=True)
+                forward()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     device = [e for e in prof.key_averages()
@@ -1101,6 +1181,7 @@ def profile_forward(model, pts, mask, what: str, reps: int = 3) -> None:
           f"busy_share={device_ms / wall_ms:.4f} device_events={events:.0f} top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / reps:.3f} ms"
                       for e in top), flush=True)
+    return device_ms / wall_ms
 
 
 def profile_mcseg(dev) -> None:
@@ -1114,11 +1195,13 @@ def profile_mcseg(dev) -> None:
                   generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
     maybe_auto_tile_pairs(model, blocks, dev)
     pts, mask = (torch.from_numpy(blocks[k]).to(dev) for k in ("points", "mask"))
-    profile_forward(model, pts, mask, f"block batch B={SEG_B} N={SEG_N}")
+    profile_forward(lambda: model(pts, mask, with_overflow=True),
+                    f"block batch B={SEG_B} N={SEG_N}")
     wpts, wmask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 9))
     model.tile_pairs = auto_tile_pairs(wpts, wmask, 2 * SEG_RADII[0])
     model.tile_steps = auto_tile_steps(model, wpts, wmask)
-    profile_forward(model, wpts, wmask, f"whole scene N={SEG_CAP} (valid {int(wmask.sum())})")
+    profile_forward(lambda: model(wpts, wmask, with_overflow=True),
+                    f"whole scene N={SEG_CAP} (valid {int(wmask.sum())})")
 
 
 def run_scannet(whole: bool) -> dict:
@@ -1429,7 +1512,8 @@ def serve_mcseg_bucket(dev) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
     launches = read_counts()
     pts8, mask8 = (torch.from_numpy(blocks[k]).to(dev) for k in ("points", "mask"))
-    profile_forward(model, pts8, mask8, f"bucket block batch B={SEG_B} N={SEG_N}")
+    profile_forward(lambda: model(pts8, mask8, with_overflow=True),
+                    f"bucket block batch B={SEG_B} N={SEG_N}")
     t0 = time.perf_counter()
     want = Predictor(cpu_model, SEG_CPU_B).predict(small)
     cpu_s = time.perf_counter() - t0
@@ -1521,6 +1605,317 @@ def run_modelnet_bucket() -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the classification zoo
+
+
+def dense_bound(b, M, Ns, c, co, valid, inr, nq, backward) -> tuple[float, str]:
+    """``bound`` of the dense conv's function at a site (K1's and K2's work;
+    the v1 kernels' too, whose backward reads no G): positions, features,
+    params, count and dout read once, outputs written once; the pairs'
+    arithmetic and the projection's products over the ``nq`` valid samples."""
+    K = (H + 1) * c
+    cw, wbytes, proj = (c, K, K) if co is None else (co, K * co, K * co)
+    if not backward:
+        nbytes = 4 * (b * M * 3 + b * Ns * 3 + b * Ns * c + 4 * H + wbytes + b * M * cw
+                      + b * M) + b * (M + Ns)
+        return bound(nbytes, 8 * valid + inr * (6 + 6 * H + 2 * K) + 2 * nq * proj)
+    nbytes = 4 * (b * M * 3 + b * Ns * 3 + 2 * b * Ns * c + 8 * H + 2 * wbytes + b * M
+                  + b * M * cw) + b * (M + Ns)
+    return bound(nbytes, 4 * nq * proj + 8 * valid
+                 + inr * (6 + 6 * H + 2 * K + 2 * H * c + 8 * H))
+
+
+def plain_forward64(params, smp, qmask, src, smask, wf, radius, co):
+    """The plain forward in float64 over the kernels' fp32 pair plane (the
+    in-radius test and pre_h as ``mc_preact`` rounds it): ``(B, M, C | co)``."""
+    from mccnn_tpu_torch.core.mcconv import MCConvParams
+    from mccnn_tpu_torch.ops.cuda import dense_conv
+
+    inr, _, pre = dense_conv._pair_terms(params, smp, qmask, src, smask, radius,
+                                         kernel_rounding=True)
+    a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
+    G = torch.einsum("bmnh,bnc->bmhc", a.double(), wf.double())
+    cnt = inr.sum(dim=-1).double()
+    p64 = MCConvParams(*(t.double() for t in params))
+    return dense_conv.project_reference(p64, G, cnt, qmask, co, False)
+
+
+def check_v1_kernels(dev, b: int, timed: bool) -> dict:
+    """K1v1 and K2v1 at every dense conv site of MCClass and MCClassH for a
+    batch of ``b`` clouds of N points (hierarchies built by the CPU plain path),
+    each against its plain version and against K1 / K2 on the same inputs,
+    bit for bit on repeat; with ``timed``, CUDA-event times of the kernels,
+    their plain versions, K1 / K2 and one torch.matmul of the GEMM part (full
+    sites), and the bounds. Returns the rows of the kernels line."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
+
+    req = request(np.random.default_rng(SEED + 20 + b), b)
+    lvs = {radii: levels(req, dev, radii) for radii in (RADII_3, RADII_2)}
+    gen = torch.Generator().manual_seed(SEED + 20)
+    rows = {"K1v1": [], "K2v1": []}
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    with torch.no_grad():
+        for site, radii, i, o, radius, c, co in ZOO_SITES:
+            radius = GLOBAL_RADIUS if radius is None else radius
+            (src, smask), (smp, qmask) = lvs[radii][i], lvs[radii][o]
+            M, Ns = smp.shape[1], src.shape[1]
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, Ns, 1)) if c == 1 else
+                     torch.randn((b, Ns, c), generator=gen)).to(dev)
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            wf = dense_conv._weighted_features(feats, pdf, smask)
+            fargs = (params, smp, qmask, src, smask, wf, radius, co, False)
+            out, cnt = dense_conv._forward_cuda_v1(*fargs)
+            again, _ = dense_conv._forward_cuda_v1(*fargs)
+            want, wcnt, G = dense_conv._forward_reference(*fargs)
+            want64 = plain_forward64(params, smp, qmask, src, smask, wf, radius, co)
+            k1, k1cnt, _ = dense_conv._forward_cuda(*fargs)
+            torch.cuda.synchronize()
+            scale = float(want64.abs().max())
+            e_plain = float((out.double() - want64).abs().max()) / scale
+            e_fp32 = float((out - want).abs().max()) / scale
+            e_k1 = float((out - k1).abs().max()) / scale
+            del want64
+            require(bool(torch.equal(out, again)), f"K1v1 differs between two calls at {site}")
+            require(bool(torch.equal(cnt, wcnt)) and bool(torch.equal(cnt, k1cnt)),
+                    f"K1v1 neighbour counts differ at {site}")
+            dout = torch.randn((b, M, c if co is None else co), generator=gen).to(dev)
+            bargs = (params, smp, qmask, src, smask, wf, radius, cnt, dout)
+            got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
+            rep = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
+            bwant = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, c_out=co)
+            k2 = dense_conv.dense_mc_conv_backward_cuda(params, smp, qmask, src, smask, wf,
+                                                        radius, G, cnt, dout, c_out=co)
+            torch.cuda.synchronize()
+            parts, b_err = [], 0.0
+            for name, a, a2, w, w2 in zip(names, got, rep, bwant, k2):
+                require(bool(torch.equal(a, a2)),
+                        f"K2v1 {name} differs between two calls at {site}")
+                top = max(float(w.abs().max()), 1e-30)
+                e_w, e_k2 = float((a - w).abs().max()) / top, float((a - w2).abs().max()) / top
+                tol = V1_BWD_W1_RTOL if name in ("dw1", "db1") else V1_BWD_RTOL
+                require(e_w <= tol and e_k2 <= tol,
+                        f"K2v1 {name} at {site}: {e_w:.3e} of its largest value from the plain "
+                        f"version, {e_k2:.3e} from K2 (limit {tol:g})")
+                parts.append(f"{name} {e_w:.2e}/{e_k2:.2e}")
+                b_err = max(b_err, float((a - w).abs().max()))
+            mode = "depthwise" if co is None else "full"
+            line = (f"v1 B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co}: K1v1 rel_err "
+                    f"plain_f64={e_plain:.3e} K1={e_k1:.3e} plain_f32={e_fp32:.3e} (max |out| "
+                    f"{scale:.3e}); K2v1 rel_err plain/K2 {', '.join(parts)}; "
+                    f"bitwise_repeatable=True")
+            require(e_plain <= V1_FWD_RTOL and e_k1 <= V1_FWD_RTOL and e_fp32 <= CONV_RTOL,
+                    f"K1v1 at {site}: {e_plain:.3e} of the largest output from its plain "
+                    f"version in float64 (limit {V1_FWD_RTOL:g}), {e_k1:.3e} from K1 (limit "
+                    f"{V1_FWD_RTOL:g}), {e_fp32:.3e} from the fp32 plain version (limit "
+                    f"{CONV_RTOL:g})")
+            if timed:
+                valid, inr = pair_counts(smp, qmask, src, smask, radius)
+                nq = int(qmask.sum())
+                ms = time_ms(lambda: dense_conv._forward_cuda_v1(*fargs))
+                pms = time_ms(lambda: dense_conv._forward_reference(*fargs), iters=3)
+                k1ms = time_ms(lambda: dense_conv._forward_cuda(*fargs))
+                bms = time_ms(lambda: dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co))
+                bpms = time_ms(lambda: dense_conv.dense_mc_conv_v1_backward_reference(
+                    *bargs, c_out=co), iters=3)
+                k2ms = time_ms(lambda: dense_conv.dense_mc_conv_backward_cuda(
+                    params, smp, qmask, src, smask, wf, radius, G, cnt, dout, c_out=co))
+                fb, fby = dense_bound(b, M, Ns, c, co, valid, inr, nq, False)
+                bb, bby = dense_bound(b, M, Ns, c, co, valid, inr, nq, True)
+                lms = blms = None
+                if co is not None:
+                    R, K = b * M, (H + 1) * c
+                    Gf, W = G.reshape(R, K), wcat(params, c, co)
+                    t = dout.reshape(R, co).contiguous()
+                    lms = time_ms(lambda: torch.matmul(Gf, W))
+                    blms = time_ms(lambda: (torch.matmul(t, W.T), torch.matmul(Gf.T, t)))
+                line += (f"; K1v1 ms={ms:.4f} plain_ms={pms:.4f} K1_ms={k1ms:.4f} "
+                         f"bound_ms={fb:.6f} ({fby}) matmul_ms={lms}; K2v1 ms={bms:.4f} "
+                         f"plain_ms={bpms:.4f} K2_ms={k2ms:.4f} bound_ms={bb:.6f} ({bby}) "
+                         f"matmul_ms={blms}")
+                rows["K1v1"].append((e_plain * scale, ms, pms, fb, fby, lms))
+                rows["K2v1"].append((b_err, bms, bpms, bb, bby, blms))
+            print(line, flush=True)
+    return rows
+
+
+def zoo_model(name: str, **kw):
+    from mccnn_tpu_torch.models import MCClass, MCClassH
+
+    cls = MCClass if name == "MCClass" else MCClassH
+    return cls(N_CLASSES, generator=torch.Generator().manual_seed(SEED), **kw)
+
+
+def serve_zoo(dev) -> dict:
+    """MCClass and MCClassH (seeded weights and BN statistics) served through
+    ``serve.Predictor`` at B = 8: the first two clouds against the CPU plain
+    path at B = 2 (identical hierarchies; every head of MCClassH), batch
+    latencies, K1 / K3 / K4 launched and no backward, and a profiled batch."""
+    from mccnn_tpu_torch.serve import Predictor
+
+    launches = {}
+    for k, name in enumerate(ZOO):
+        rng = np.random.default_rng(SEED + 30 + k)
+        model = zoo_model(name).to(dev)
+        calibrate_bn(model, request(rng, SERVE_B), rng)
+        cpu_predictor = Predictor(copy.deepcopy(model).cpu(), ZOO_CPU_B)
+        predictor = Predictor(model, SERVE_B)
+        reqs = [request(rng, SERVE_B) for _ in range(4)]
+        torch.cuda.synchronize()
+        reset_counts()
+        lat, served = [], []
+        for req in reqs:
+            t0 = time.perf_counter()
+            served.append(predictor.predict(req))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        launches[name] = read_counts()
+        small = {key: v[:ZOO_CPU_B] for key, v in reqs[0].items()}
+        same = all(same_hierarchy(small, dev, radii)
+                   for radii in ((RADII_3,) if name == "MCClass" else (RADII_2, RADII_3)))
+        want = cpu_predictor.predict(small)
+        got, want = ([x[:ZOO_CPU_B].cpu() for x in served[0]], list(want)) if name == "MCClassH" \
+            else ([served[0][:ZOO_CPU_B].cpu()], [want])
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        tops = [float(w.abs().max()) for w in want]
+        pts, mask = (torch.from_numpy(reqs[1][key]).to(dev) for key in ("points", "mask"))
+        busy = profile_forward(lambda: model(pts, mask), f"{name} served batch B={SERVE_B} N={N}")
+        print(f"{name} serving (Predictor, published widths, B={SERVE_B} N={N}): "
+              f"latencies_ms={[round(x, 3) for x in lat]} (the first warms up) "
+              f"card vs CPU plain path (B={ZOO_CPU_B}) max_abs_err={errs} max_abs_logit={tops} "
+              f"hierarchy_equal_to_cpu={same} busy_share={busy:.4f} "
+              f"launches={launches[name]}", flush=True)
+        require(same, f"{name}: the card's hierarchy differs from the CPU plain path's")
+        for g, w, e, top in zip(got, want, errs, tops):
+            require(bool(torch.isfinite(g).all()) and tuple(g.shape) == (ZOO_CPU_B, N_CLASSES),
+                    f"{name}: served logits {tuple(g.shape)} not finite or misshapen")
+            require(e <= LOGIT_RTOL * top, f"{name}: served logits disagree with the CPU plain "
+                    f"path ({e:.3e} of {top:.3e})")
+        for kid in ("K1", "K3", "K4"):
+            require(launches[name][kid] > 0, f"{kid} was not launched while serving {name}")
+        for kid in ("K2", "K1v1", "K2v1"):
+            require(launches[name][kid] == 0, f"{kid} was launched while serving {name}")
+    return launches
+
+
+def zoo_zero_grad(param: str) -> bool:
+    """Dense biases that feed a batch-statistic BN (gradient 0 up to rounding):
+    MCClass's ``mix_{o}`` and the heads' FC biases."""
+    if param.startswith("mixes.mix_"):
+        return param.endswith(".bias")
+    return param.startswith(("fcs.", "heads.")) and param.endswith(".dense.bias")
+
+
+def check_zoo_train_steps(dev) -> dict:
+    """One train step of MCClass and of MCClassH (published widths, drop
+    rates 0, seeded BN statistics) at B = ZOO_STEP_B on the card against the
+    CPU plain path, through ``gated_train_step``."""
+    from mccnn_tpu_torch.tasks.modelnet import make_loss
+
+    launches = {}
+    for k, name in enumerate(ZOO):
+        rng = np.random.default_rng(SEED + 40 + k)
+        batch = request(rng, ZOO_STEP_B)
+        batch["labels"] = rng.integers(0, N_CLASSES, size=ZOO_STEP_B).astype(np.int32)
+        kw = {"drop_rate": 0.0} | ({"point_drop_rate": 0.0} if name == "MCClass" else {})
+        model = zoo_model(name, **kw).to(dev)
+        calibrate_bn(model, batch, rng)
+        _, _, launches[name] = gated_train_step(
+            f"{name} train step B={ZOO_STEP_B} N={N}", model, dev, batch, make_loss(name),
+            zoo_zero_grad, ZOO_ZERO_GRAD_RTOL)
+        for kid in ("K1", "K2", "K3", "K4"):
+            require(launches[name][kid] > 0, f"{kid} was not launched in the {name} train step")
+    return launches
+
+
+def run_zoo_trainer(name: str, extra=()) -> dict:
+    """``tasks.modelnet --model name`` at the CLI's shape (B = 32, N = 1024,
+    published widths): two epochs of ZOO_TRAIN_STEPS steps (the second
+    profiled) and one voting evaluation; K1-K4 must launch."""
+    from mccnn_tpu_torch.tasks import modelnet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--model", name, "--batch", str(TRAIN_B), "--points", str(N),
+                "--n-classes", str(N_CLASSES), "--epochs", "2", "--steps-per-epoch",
+                str(ZOO_TRAIN_STEPS), "--eval-every", "2", "--votes", "2",
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck"),
+                "--profile-dir", os.path.join(tmp, "prof"), *extra]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = modelnet.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(tmp, f"modelnet_{name}.metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    train = [r for r in recs if r["tag"] == "train"]
+    evals = [r for r in recs if r["tag"] == "eval"]
+    require(len(train) == 2 and all(r["steps"] == ZOO_TRAIN_STEPS for r in train)
+            and len(evals) == 1, f"{name} trainer records: {recs}")
+    print(f"trainer (tasks.modelnet --model {name} {' '.join(extra)}, B={TRAIN_B}, N={N}, "
+          f"published widths, {N_CLASSES} classes, default dropout): losses="
+          f"{[round(r['loss'], 6) for r in train]} warm_step_ms={train[0]['warm_step_ms']:.3f} "
+          f"(second epoch, profiled: {train[1]['warm_step_ms']:.3f}, busy_share "
+          f"{train[1]['profile_busy_share']:.4f}, device_ms {train[1]['profile_device_ms']:.3f} "
+          f"over {ZOO_TRAIN_STEPS} steps) eval_accuracy={res['best_accuracy']:.4f} "
+          f"(2 votes) total_sec={seconds:.2f} launches={launches}", flush=True)
+    require(all(np.isfinite(r["loss"]) for r in train), f"{name}: the trainer's loss")
+    for kid in ("K1", "K2", "K3", "K4"):
+        require(launches[kid] > 0, f"{kid} was not launched by tasks.modelnet --model {name}")
+    return launches
+
+
+_V1_CHILD = r"""
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from mccnn_tpu_torch.ops.cuda import dense_conv
+from mccnn_tpu_torch.tasks import modelnet
+assert dense_conv._USE_V1, "MCCNN_DENSE_V1=1 did not reach the module"
+with tempfile.TemporaryDirectory() as tmp:
+    res = modelnet.main(["--synthetic", "--model", "MCClass", "--batch", "%d", "--points", "%d",
+                         "--n-classes", "%d", "--epochs", "1", "--steps-per-epoch", "%d",
+                         "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", tmp + "/ck"])
+    with open(tmp + "/modelnet_MCClass.metrics.jsonl") as f:
+        train = [json.loads(l) for l in f if '"train"' in l]
+print("V1_COUNTS " + json.dumps({
+    "launches": chip_smoke.read_counts(), "loss": train[0]["loss"],
+    "warm_step_ms": train[0].get("warm_step_ms"), "best_accuracy": res["best_accuracy"]}))
+"""
+
+
+def run_v1_trainer() -> dict:
+    """MCClass training through ``tasks.modelnet`` under ``MCCNN_DENSE_V1=1``
+    in a child process: its printed counters must show K1v1 and K2v1 launched
+    and K1 and K2 not; a failed child fails the script."""
+    env = dict(os.environ, MCCNN_DENSE_V1="1")
+    code = _V1_CHILD % (TRAIN_B, N, N_CLASSES, ZOO_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.path.dirname(
+        os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"the MCCNN_DENSE_V1=1 trainer failed ({proc.returncode}): "
+            f"{proc.stderr[-3000:]}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("V1_COUNTS ")]
+    require(len(line) == 1,
+            f"the MCCNN_DENSE_V1=1 trainer printed no counters: {proc.stdout[-2000:]}")
+    res = json.loads(line[0][len("V1_COUNTS "):])
+    counts = res["launches"]
+    print(f"trainer under MCCNN_DENSE_V1=1 (child process, tasks.modelnet --model MCClass, "
+          f"B={TRAIN_B}, N={N}, {ZOO_TRAIN_STEPS} steps and one eval): {res} "
+          f"child_sec={seconds:.2f}", flush=True)
+    require(bool(np.isfinite(res["loss"])), "the MCCNN_DENSE_V1=1 trainer's loss")
+    require(counts["K1v1"] > 0 and counts["K2v1"] > 0,
+            "K1v1 / K2v1 were not launched under MCCNN_DENSE_V1=1")
+    require(counts["K1"] == 0 and counts["K2"] == 0,
+            "K1 / K2 were launched under MCCNN_DENSE_V1=1")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1567,6 +1962,16 @@ def main() -> int:
                        "mcseg_bucket_train": train_mcseg_bucket(dev),
                        "modelnet_4096": run_modelnet_bucket()}
 
+    check_v1_kernels(dev, SERVE_B, timed=False)
+    v1_results = check_v1_kernels(dev, TRAIN_B, timed=True)
+    zoo_serve = serve_zoo(dev)
+    zoo_step = check_zoo_train_steps(dev)
+    zoo_launches = {f"{name}_serve": zoo_serve[name] for name in ZOO}
+    zoo_launches |= {f"{name}_train_step": zoo_step[name] for name in ZOO}
+    zoo_launches["MCClass_train"] = run_zoo_trainer("MCClass")
+    zoo_launches["MCClassH_train"] = run_zoo_trainer("MCClassH", ("--protocol", "gradient"))
+    v1_launches = {"MCClass_train_v1": run_v1_trainer()}
+
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
                "mccnn_tpu/ops/pallas/dense_conv.py:360"),
@@ -1588,6 +1993,10 @@ def main() -> int:
                "mccnn_tpu/ops/pallas/mcconv_kernel.py:293"),
         "K10": ("bucket_mc_conv_backward", "mccnn_tpu_torch/csrc/bucket_conv_bwd.cu",
                 "mccnn_tpu/ops/pallas/mcconv_kernel.py:366"),
+        "K1v1": ("dense_mc_conv_v1", "mccnn_tpu_torch/csrc/dense_conv_v1.cu",
+                 "mccnn_tpu/ops/pallas/dense_conv.py:99"),
+        "K2v1": ("dense_mc_conv_v1_backward", "mccnn_tpu_torch/csrc/dense_conv_v1_bwd.cu",
+                 "mccnn_tpu/ops/pallas/dense_conv.py:129"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
@@ -1595,12 +2004,15 @@ def main() -> int:
             rows, paths, batch = [tile_results[kid]], seg_launches, SEG_B
         elif kid in bucket_results:  # MCSeg's block batch and modelnet --points 4096
             rows, paths, batch = [bucket_results[kid]], bucket_launches, [SEG_B, TRAIN_B]
+        elif kid in v1_results:  # the zoo's 14 dense sites at the trainer's batch
+            rows, paths, batch = v1_results[kid], v1_launches, TRAIN_B
         else:
             rows = results[kid]
             paths = {"train": train_launches}
             batch = TRAIN_B
         by_path = {k: v[kid] for k, v in {"serve": serve_launches, "train": train_launches,
-                                          **seg_launches, **bucket_launches}.items()}
+                                          **seg_launches, **bucket_launches, **zoo_launches,
+                                          **v1_launches}.items()}
         lib_ms = [r[5] for r in rows]
         kernels.append({
             "name": f"{kid} {name}",
@@ -1615,7 +2027,7 @@ def main() -> int:
             "plain_ms": sum(r[2] for r in rows),
             "bound_ms": sum(r[3] for r in rows),
             "bound_by": max(rows, key=lambda r: r[3])[4],
-            "library_ms": None if None in lib_ms else sum(lib_ms),
+            "library_ms": sum(lib) if (lib := [x for x in lib_ms if x is not None]) else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

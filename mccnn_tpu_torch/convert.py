@@ -11,12 +11,24 @@ module names:
   FullyConnected_k/{BatchNorm_0,MaskedBatchNorm_0}/*   -> fcs.k.bn.*
   logits/{kernel,bias}                                 -> logits.{weight,bias}
 
-and, for MCSeg's explicit names:
+and, for MCSeg's and MCClass's explicit names:
 
-  {stem,enc_i_j,dec_i_j}/kernel_*                      -> convs.<name>.kernel_*
+  {stem,enc_i_j,dec_i_j,down_i_j,same_i}/kernel_*      -> convs.<name>.kernel_*
   {stem_bn,enc_bn_k,enc_mix_bn_k,dec_bn_k,dec_mix_bn_k}/MaskedBatchNorm_0/*
                                                        -> bns.<name>.bn.*
-  {enc,dec}_mix_k/Dense_0/{kernel,bias}                -> mixes.<name>.{weight,bias}
+  {enc,dec}_mix_k, mix_k, same_mix_k/Dense_0/{kernel,bias}
+                                                       -> mixes.<name>.{weight,bias}
+
+and MCClassH's two trunks and three heads:
+
+  path_{a,b}/<a leaf of the rules above>               -> path_{a,b}.<its name>
+  {a,b,joint}_fc{1,2}/Dense_0/{kernel,bias}            -> heads.<name>.dense.*
+  {a,b,joint}_fc{1,2}/{BatchNorm_0,MaskedBatchNorm_0}/* -> heads.<name>.bn.*
+  {a,b,joint}_logits/{kernel,bias}                     -> heads.<name>.{weight,bias}
+
+Flax numbers its auto-named modules (``BatchNormReluDropout_k``,
+``FullyConnected_k``) per scope in call order, and the port's ``bn_relus`` /
+``fcs`` lists hold them in the same order.
 
 Flax ``Dense`` kernels are (in, out); torch ``Linear`` weights are (out, in),
 so those are transposed. Any flax leaf left unused, and any torch parameter or
@@ -43,12 +55,21 @@ _RULES = [
     (r"FullyConnected_(\d+)/Dense_0/bias", r"fcs.\1.dense.bias", False),
     (r"FullyConnected_(\d+)/(?:BatchNorm_0|MaskedBatchNorm_0)/(scale|bias|mean|var|count)",
      r"fcs.\1.bn.\2", False),
-    # MCSeg's explicit names (mccnn_tpu/models/mcseg.py:66-139)
-    (r"(stem|enc_\d+_\d+|dec_\d+_\d+)/(kernel_(?:w1|b1|w2|b2))", r"convs.\1.\2", False),
+    # MCSeg's and MCClass's explicit names (mccnn_tpu/models/mcseg.py:66-139,
+    # mcclass.py:45-84)
+    (r"(stem|enc_\d+_\d+|dec_\d+_\d+|down_\d+_\d+|same_\d+)/(kernel_(?:w1|b1|w2|b2))",
+     r"convs.\1.\2", False),
     (r"((?:stem|enc|enc_mix|dec|dec_mix)_bn(?:_\d+)?)/MaskedBatchNorm_0/"
      r"(scale|bias|mean|var|count)", r"bns.\1.bn.\2", False),
-    (r"((?:enc|dec)_mix_\d+)/Dense_0/kernel", r"mixes.\1.weight", True),
-    (r"((?:enc|dec)_mix_\d+)/Dense_0/bias", r"mixes.\1.bias", False),
+    (r"((?:enc_|dec_|same_)?mix_\d+)/Dense_0/kernel", r"mixes.\1.weight", True),
+    (r"((?:enc_|dec_|same_)?mix_\d+)/Dense_0/bias", r"mixes.\1.bias", False),
+    # MCClassH's heads (mccnn_tpu/models/mcclass_h.py:133-146)
+    (r"((?:a|b|joint)_fc[12])/Dense_0/kernel", r"heads.\1.dense.weight", True),
+    (r"((?:a|b|joint)_fc[12])/Dense_0/bias", r"heads.\1.dense.bias", False),
+    (r"((?:a|b|joint)_fc[12])/(?:BatchNorm_0|MaskedBatchNorm_0)/(scale|bias|mean|var|count)",
+     r"heads.\1.bn.\2", False),
+    (r"((?:a|b|joint)_logits)/kernel", r"heads.\1.weight", True),
+    (r"((?:a|b|joint)_logits)/bias", r"heads.\1.bias", False),
     (r"logits/kernel", "logits.weight", True),
     (r"logits/bias", "logits.bias", False),
 ]
@@ -65,6 +86,10 @@ def _flatten(tree, prefix=""):
 
 def torch_name(flax_path: str) -> tuple[str, bool]:
     """The torch state-dict key (and whether to transpose) for a flax leaf path."""
+    trunk = re.fullmatch(r"(path_[ab])/(.+)", flax_path)  # MCClassH's trunks
+    if trunk:
+        name, transpose = torch_name(trunk.group(2))
+        return f"{trunk.group(1)}.{name}", transpose
     for pattern, template, transpose in _RULES:
         m = re.fullmatch(pattern, flax_path)
         if m:

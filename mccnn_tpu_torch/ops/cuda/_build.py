@@ -55,6 +55,9 @@ SIGNATURES = {
     "mcconv_bwd_dg_depthwise_launch": [P, P, P, I, I, I, P, P],
     "mcconv_bwd_dw2_depthwise_launch": [P, P, I, I, I, I, I, P, P],
     "mcconv_bwd_reduce_launch": [P, I, I, P, P],
+    "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
+    "mcconv_v1_bwd_tiles": [I, I, I, I],
+    "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
     "tile_conv_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, I,
                          P, P, P],
     "tile_conv_bwd_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 4,

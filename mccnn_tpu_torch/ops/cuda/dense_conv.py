@@ -17,8 +17,21 @@ kernel applies (W2, b2). The forward keeps G for the backward, whose GEMM
 parts (dG, dW2) and pair parts (d_f~, dW1, db1) split the same way (see the
 sources' headers). Everything is fp32.
 
+K1v1 and K2v1 replace the reference's per-h variant of the same pair,
+``_fwd_kernel`` (``:99``, called at ``:584``) and ``_bwd_kernel`` (``:129``,
+called at ``:617``), which ``MCCNN_DENSE_V1=1`` selects (``:735-736``). They
+compute K1's and K2's function in one launch each and keep no G: K1v1
+(``csrc/dense_conv_v1.cu``) folds each sample tile's G into (W2, b2) in the
+block that formed it, and K2v1 (``csrc/dense_conv_v1_bwd.cu``) forms the
+pair planes again from the forward's inputs and count. Their plain versions
+are ``dense_mc_conv_reference`` and ``dense_mc_conv_v1_backward_reference``.
+
 ``dense_mc_conv`` routes through ``DenseMCConvFunction`` on both devices:
-K1 / K2 for CUDA tensors, the plain versions for CPU tensors. The Function
+K1 / K2 for CUDA tensors, the plain versions for CPU tensors. With
+``MCCNN_DENSE_V1=1`` in the environment when this module is imported
+(``_USE_V1``, read at call time, as the reference reads its flag) it routes
+through ``DenseMCConvV1Function`` instead: K1v1 / K2v1 for CUDA tensors, the
+plain versions for CPU tensors. The Function
 differentiates with respect to the weighted features ``f~ = features / pdf``
 and the kernel MLP; ``features / pdf`` stays outside it, so autograd carries
 ``d_f~`` on to the features. Positions, masks and the pdf get no gradient
@@ -26,6 +39,8 @@ through the Function, as the reference's ``_core_bwd`` returns zeros for them.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -37,9 +52,18 @@ MAX_C = 1024  # the pair kernels keep TS * C <= 1024 outputs per block
 HIDDEN = 8  # the pair kernels' accumulators are unrolled for H = 8
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
 
-# Launches of K1 and of K2 since the last reset (see density_kernel.py).
+# The reference's variant switch (mccnn_tpu/ops/pallas/dense_conv.py:735-736):
+# read once here, consulted at every call.
+_USE_V1 = os.environ.get("MCCNN_DENSE_V1") == "1"
+# K2v1's parameter partials (one per block, the block's run of source tiles
+# summed into it) stay within this many floats: 256 MiB.
+_V1_PARTIAL_FLOATS = 64 << 20
+
+# Launches of K1, K2, K1v1 and K2v1 since the last reset (see density_kernel.py).
 launches = 0
 backward_launches = 0
+launches_v1 = 0
+backward_launches_v1 = 0
 
 
 def _weighted_features(features, pdf, source_mask):
@@ -65,6 +89,34 @@ def _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius):
 
 def _offsets(sample_pts, source_pts, radius):
     return (source_pts[:, None, :, :] - sample_pts[:, :, None, :]) / radius  # (B, M, N, 3)
+
+
+def _kernel_preact(off, w1, b1):
+    """``pre_h`` rounded as ``common.cuh::mc_preact`` forms it on the card,
+    ``fma(oz, w1z, fma(oy, w1y, ox * w1x)) + b1``, each fused multiply-add in
+    float64 and rounded once: the backward's ReLU step ``pre > 0`` then falls
+    the same way in a kernel and in its plain version, even for a pair whose
+    ``pre`` is within an ulp of 0."""
+    d = torch.float64
+    x = off[..., 0:1] * w1[0]
+    y = (off[..., 1:2].to(d) * w1[1].to(d) + x.to(d)).to(off.dtype)
+    z = (off[..., 2:3].to(d) * w1[2].to(d) + y.to(d)).to(off.dtype)
+    return z + b1
+
+
+def _pair_terms(params, sample_pts, sample_mask, source_pts, source_mask, radius,
+                kernel_rounding=False):
+    """``(in radius (B, M, N), offsets (B, M, N, 3), pre (B, M, N, H))``.
+    ``kernel_rounding`` forms the offsets by a division by a device tensor and
+    pre as ``mc_preact`` (``_kernel_preact``), so the ReLU steps fall as in
+    the kernels."""
+    inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
+    if not kernel_rounding:
+        off = _offsets(sample_pts, source_pts, radius)
+        return inr, off, off @ params.w1 + params.b1
+    r = torch.full((), float(radius), dtype=sample_pts.dtype, device=sample_pts.device)
+    off = (source_pts[:, None, :, :] - sample_pts[:, :, None, :]) / r
+    return inr, off, _kernel_preact(off, params.w1, params.b1)
 
 
 def _forward_reference(params, sample_pts, sample_mask, source_pts, source_mask, wf,
@@ -193,10 +245,16 @@ def dense_mc_conv_backward_reference(
     H+1, C)`` and count, and ``dout (B, M, C | c_out)``, returns ``(d_wf (B, N,
     C), dw1 (3, H), db1 (H,), dw2, db2)`` in the shapes of ``MCConvParams``.
     """
+    t = dout * _scale(cnt, sample_mask, mean_normalize)[..., None]
+    terms = _pair_terms(params, sample_pts, sample_mask, source_pts, source_mask, radius)
+    return _backward_reference(params, *terms, wf, G, t, c_out)
+
+
+def _backward_reference(params, inr, off, pre, wf, G, t, c_out):
+    """K2's plain backward from the pair terms, G and ``t = s * dout``."""
     w1, b1, w2, b2 = params
     H = w1.shape[1]
     B, M, H1, C = G.shape
-    t = dout * _scale(cnt, sample_mask, mean_normalize)[..., None]
     if c_out is None:
         dG = torch.cat([t[:, :, None, :] * w2, (t * b2)[:, :, None, :]], dim=2)
         dw2 = (G[:, :, :H] * t[:, :, None, :]).sum(dim=(0, 1))
@@ -208,9 +266,6 @@ def dense_mc_conv_backward_reference(
         dwcat = G.reshape(B * M, H1 * C).T @ tr
         dw2 = dwcat[: H * C].reshape(w2.shape)
         db2 = dwcat[H * C :].reshape(b2.shape)
-    inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
-    off = _offsets(sample_pts, source_pts, radius)
-    pre = off @ w1 + b1  # (B, M, N, H)
     a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
     d_wf = torch.einsum("bmnh,bmhc->bnc", a, dG)
     dpre = torch.einsum("bmhc,bnc->bmnh", dG[:, :, :H], wf)
@@ -349,6 +404,140 @@ def _split_wcat(dwcat, H, C, c_out, w2, b2):
     return flat[: H * C * c_out].reshape(w2.shape), flat[H * C * c_out :].reshape(b2.shape)
 
 
+# ------------------------------------------------------------------ K1v1 and K2v1
+
+
+def _check_v1(name, tensors, C, H):
+    _build.require_cuda(name, *tensors)
+    if any(t.dtype != torch.float32 for t in tensors if t.is_floating_point()):
+        raise TypeError(f"{name}: positions, features, params, counts and dout must be float32")
+    if H != HIDDEN or C > MAX_C:
+        raise NotImplementedError(f"{name} is built for H={HIDDEN} and C<={MAX_C}; "
+                                  f"got H={H}, C={C}")
+
+
+def _forward_cuda_v1(params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
+                     c_out, mean_normalize):
+    """Launch K1v1 (one kernel: pairs, G in the block, projection): ``(out, cnt)``."""
+    global launches_v1
+    w1, b1, w2, b2 = (t.contiguous() for t in params)
+    sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
+    source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
+    wf = wf.contiguous()
+    B, M, _ = sample_pts.shape
+    N, C, H = source_pts.shape[1], wf.shape[-1], w1.shape[1]
+    _check_v1("dense_mc_conv (K1v1)", (sample_pts, sample_mask, source_pts, source_mask, wf,
+                                       w1, b1, w2, b2), C, H)
+    dev = sample_pts.device
+    out = torch.zeros((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((B, M), dtype=torch.float32, device=dev)
+    if B * M == 0 or N == 0:
+        return out, cnt
+    err = _build.library().mcconv_v1_fwd_launch(
+        _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
+        _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
+        _build.ptr(w2), _build.ptr(b2), B, M, N, C, c_out or 0, H, int(mean_normalize),
+        radius_sq(radius), float(radius), _build.ptr(out), _build.ptr(cnt),
+        _build.stream_of(sample_pts),
+    )
+    _build.check(err, "mcconv_v1_fwd_kernel (K1v1)")
+    launches_v1 += 1
+    return out, cnt
+
+
+def dense_mc_conv_v1_backward_reference(
+    params: MCConvParams,
+    sample_pts: torch.Tensor,
+    sample_mask: torch.Tensor,
+    source_pts: torch.Tensor,
+    source_mask: torch.Tensor,
+    wf: torch.Tensor,
+    radius: float,
+    cnt: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    c_out: int | None = None,
+    mean_normalize: bool = False,
+):
+    """Plain PyTorch version of K2v1: K2's arguments without G, which it forms
+    again from the pairs (as ``_core_bwd`` passes v1 the count only,
+    ``dense_conv.py:758-769``). Pre-activations are rounded as ``mc_preact``,
+    so the ReLU steps fall as in the kernel. Returns ``(d_wf, dw1, db1, dw2,
+    db2)`` in the shapes of ``MCConvParams``."""
+    inr, off, pre = _pair_terms(params, sample_pts, sample_mask, source_pts, source_mask,
+                                radius, kernel_rounding=True)
+    a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
+    G = torch.einsum("bmnh,bnc->bmhc", a, wf)
+    t = dout * _scale(cnt, sample_mask, mean_normalize)[..., None]
+    return _backward_reference(params, inr, off, pre, wf, G, t, c_out)
+
+
+def dense_mc_conv_v1_backward_cuda(
+    params: MCConvParams,
+    sample_pts: torch.Tensor,
+    sample_mask: torch.Tensor,
+    source_pts: torch.Tensor,
+    source_mask: torch.Tensor,
+    wf: torch.Tensor,
+    radius: float,
+    cnt: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    c_out: int | None = None,
+    mean_normalize: bool = False,
+):
+    """Launch K2v1 on CUDA tensors; the arguments and outputs of its plain version.
+
+    Each block walks a run of (cloud, source tile) units and sums their
+    [dW2; db2] into its own partial of ``L = (H+1) * C * (c_out or 1)``
+    floats; at most ``_V1_PARTIAL_FLOATS`` of them in all, and at most
+    ``_TARGET_BLOCKS`` blocks. K2's reduction kernel sums the partials in
+    block order."""
+    global backward_launches_v1
+    w1, b1, w2, b2 = (t.contiguous() for t in params)
+    sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
+    source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
+    wf, cnt, dout = wf.contiguous(), cnt.contiguous(), dout.contiguous()
+    B, M, _ = sample_pts.shape
+    N, C, H = source_pts.shape[1], wf.shape[-1], w1.shape[1]
+    CO = C if c_out is None else c_out
+    _check_v1("dense_mc_conv_v1_backward_cuda (K2v1)",
+              (sample_pts, sample_mask, source_pts, source_mask, wf, w1, b1, w2, b2, cnt,
+               dout), C, H)
+    if tuple(cnt.shape) != (B, M) or tuple(dout.shape) != (B, M, CO):
+        raise ValueError(f"dense_mc_conv_v1_backward_cuda: cnt {tuple(cnt.shape)} / dout "
+                         f"{tuple(dout.shape)} do not match B={B}, M={M}, CO={CO}")
+    dev = sample_pts.device
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    L = (H + 1) * C * (1 if c_out is None else c_out)
+    d_wf, w1b1 = zeros(B, N, C), zeros(4, H)
+    dwcat = zeros(H + 1, C) if c_out is None else zeros(L)  # the layout _split_wcat takes
+    if B * M == 0 or N == 0:
+        return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+    lib = _build.library()
+    stream = _build.stream_of(sample_pts)
+    tiles = lib.mcconv_v1_bwd_tiles(N, M, C, c_out or 0)
+    if tiles <= 0:
+        raise ValueError(f"dense_mc_conv_v1_backward_cuda: refused shape N={N}, M={M}, C={C}, "
+                         f"CO={c_out}")
+    blocks = max(1, min(B * tiles, _TARGET_BLOCKS, _V1_PARTIAL_FLOATS // L))
+    part_w, part_p = zeros(blocks, L), zeros(blocks, 4 * H)
+    err = lib.mcconv_v1_bwd_launch(
+        _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
+        _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
+        _build.ptr(w2), _build.ptr(b2), _build.ptr(cnt), _build.ptr(dout), B, M, N, C,
+        c_out or 0, H, int(mean_normalize), radius_sq(radius), float(radius), blocks,
+        _build.ptr(d_wf), _build.ptr(part_w), _build.ptr(part_p), stream,
+    )
+    _build.check(err, "mcconv_v1_bwd_kernel (K2v1)")
+    for part, out, what in ((part_w, dwcat, "dW2, db2"), (part_p, w1b1, "dW1, db1")):
+        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), blocks, part.shape[1],
+                                           _build.ptr(out), stream)
+        _build.check(err, f"mcconv_bwd_reduce_kernel (K2v1 {what})")
+    backward_launches_v1 += 1
+    return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
 # ------------------------------------------------------------------ autograd
 
 
@@ -382,13 +571,48 @@ class DenseMCConvFunction(torch.autograd.Function):
         return dw1, db1, dw2, db2, d_wf, None, None, None, None, None, None, None
 
 
+class DenseMCConvV1Function(torch.autograd.Function):
+    """The v1 route of ``DenseMCConvFunction``: K1v1 forward and K2v1 backward
+    on CUDA tensors, the plain versions on CPU tensors. It saves the inputs
+    and the count, not G: K2v1 forms the pair planes again."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts, source_mask,
+                radius, c_out, mean_normalize):
+        params = MCConvParams(w1, b1, w2, b2)
+        args = (params, sample_pts, sample_mask, source_pts, source_mask, wf, radius, c_out,
+                mean_normalize)
+        if wf.device.type == "cpu":
+            out, cnt, _ = _forward_reference(*args)
+        else:
+            out, cnt = _forward_cuda_v1(*args)
+        ctx.save_for_backward(w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts,
+                              source_mask, cnt)
+        ctx.conv = (radius, c_out, mean_normalize)
+        ctx.mark_non_differentiable(cnt)
+        return out, cnt
+
+    @staticmethod
+    def backward(ctx, dout, _dcnt):
+        w1, b1, w2, b2, wf, smp, qmask, src, smask, cnt = ctx.saved_tensors
+        radius, c_out, mean = ctx.conv
+        bwd = (dense_mc_conv_v1_backward_reference if wf.device.type == "cpu"
+               else dense_mc_conv_v1_backward_cuda)
+        d_wf, dw1, db1, dw2, db2 = bwd(
+            MCConvParams(w1, b1, w2, b2), smp, qmask, src, smask, wf, radius, cnt, dout,
+            c_out=c_out, mean_normalize=mean,
+        )
+        return dw1, db1, dw2, db2, d_wf, None, None, None, None, None, None, None
+
+
 def dense_mc_conv(params, sample_pts, sample_mask, source_pts, source_mask,
                   features, pdf, radius, *, c_out=None, mean_normalize=False,
                   with_count=False):
     """The dense MC conv, differentiable: CPU tensor -> plain versions, CUDA
-    tensor -> K1 forward and K2 backward."""
+    tensor -> K1 forward and K2 backward (K1v1 and K2v1 under ``_USE_V1``)."""
     wf = _weighted_features(features, pdf, source_mask)
-    out, cnt = DenseMCConvFunction.apply(
+    fn = DenseMCConvV1Function if _USE_V1 else DenseMCConvFunction
+    out, cnt = fn.apply(
         *params, wf, sample_pts, sample_mask, source_pts, source_mask, float(radius),
         c_out, mean_normalize,
     )

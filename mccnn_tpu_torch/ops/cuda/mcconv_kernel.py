@@ -45,7 +45,7 @@ from ...core.buckets import BucketGrid
 from ...core.grid import radius_sq, row_d2
 from ...core.mcconv import MCConvParams
 from . import _build, dense_conv
-from .tile_conv import _kernel_preact, _wr
+from .tile_conv import _wr
 
 # Launches of K9 and of K10 since the last reset (see density_kernel.py).
 launches = 0
@@ -116,7 +116,7 @@ def _walk_windows(sample_grid: BucketGrid, source_grid: BucketGrid, wf: torch.Te
         pidx = _gather_rows(source_grid.point_of_slot, cand)
         inr = (row_d2(q[:, :, None, :], p) <= r2) & pv
         off = (p - q[:, :, None, :]) / r_dev
-        pre = _kernel_preact(off, w1, b1)
+        pre = dense_conv._kernel_preact(off, w1, b1)
         yield m0, m0 + slot.shape[1], kept, pidx, _gather_rows(wf, pidx), inr, off, pre
 
 

@@ -71,8 +71,8 @@ def poisson_sweep_cuda(
     if N > MAX_N:
         raise NotImplementedError(
             f"poisson_sweep_cuda holds a cloud in shared memory (N <= {MAX_N}); "
-            f"got N={N}. Larger levels take the tile sampler, ported with the "
-            "big-scene slice (ROADMAP queue 2, K8)."
+            f"got N={N}. core.sampling.poisson_disk sends a larger level to the tile "
+            "sampler (K8) when a tile capacity is set, else to the neighbour-list sampler."
         )
     sel = torch.empty((B, N), dtype=torch.bool, device=points.device)
     if B * N == 0:

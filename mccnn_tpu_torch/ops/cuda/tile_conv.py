@@ -486,19 +486,6 @@ def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tenso
 # ---------------------------------------------------------------- K6: its backward
 
 
-def _kernel_preact(off, w1, b1):
-    """``pre_h`` rounded as ``common.cuh::mc_preact`` forms it on the card,
-    ``fma(oz, w1z, fma(oy, w1y, ox * w1x)) + b1``, each fused multiply-add in
-    float64 and rounded once: the backward's ReLU step ``pre > 0`` then falls
-    the same way in K6 and here, even for a pair whose ``pre`` is within an
-    ulp of 0."""
-    d = torch.float64
-    x = off[..., 0:1] * w1[0]
-    y = (off[..., 1:2].to(d) * w1[1].to(d) + x.to(d)).to(off.dtype)
-    z = (off[..., 2:3].to(d) * w1[2].to(d) + y.to(d)).to(off.dtype)
-    return z + b1
-
-
 def _cotangent(lay: ConvLayout, cnt, dout, mean_normalize):
     """``t = s * dout`` on the sorted sample rows, with the forward's per-sample
     factor (``dense_conv._scale``): the cotangent of G's projection."""
@@ -556,7 +543,7 @@ def tile_conv_backward_sorted_reference(params: MCConvParams, lay: ConvLayout,
         g = batched_gather(dG, smp_rows).reshape(B * Sc, -1, H, C)
         inr = (pair_d2(q, p) <= r2) & qv[:, :, None] & pv[:, None, :]  # (B*Sc, Q, T)
         off = (p[:, None, :, :] - q[:, :, None, :]) / r_dev
-        pre = _kernel_preact(off, w1, b1)
+        pre = dense_conv._kernel_preact(off, w1, b1)
         a = torch.cat([torch.relu(pre), torch.ones_like(pre[..., :1])], dim=-1) * inr[..., None]
         X.index_add_(0, tiles, torch.einsum("sqph,sqo->spho", a, u))
         dpre = torch.einsum("sqhc,spc->sqph", g, f)

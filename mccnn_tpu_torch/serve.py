@@ -3,7 +3,8 @@
 
 ``Predictor`` keeps the reference's static-batch serving contract: a request
 smaller than ``batch_size`` is padded by repeating row 0 and the result is
-sliced back; a larger one is refused. Requests move to the model's device.
+sliced back (each output of a tuple, as MCClassH's ``(joint, a, b)``, as the
+reference's ``jax.tree.map`` slices them); a larger one is refused. Requests move to the model's device.
 The StableHLO bundles of the reference have no counterpart yet
 (``torch.export`` comes later).
 """
@@ -42,7 +43,8 @@ class Predictor:
     def predict(self, batch: dict) -> torch.Tensor:
         """``batch``: ``points (b, N, 3)``, ``mask (b, N)`` and optional
         ``features (b, N, C)``, numpy arrays or tensors. Returns ``(b, ...)``
-        outputs on the model's device."""
+        outputs on the model's device (a tuple of them for a model that
+        returns one)."""
         b = int(batch["points"].shape[0])
         if b > self.batch_size:
             raise ValueError(
@@ -59,4 +61,5 @@ class Predictor:
             if b < self.batch_size:
                 t = torch.cat([t, t[:1].expand(self.batch_size - b, *t.shape[1:])])
             args.append(t.to(self.device))
-        return self._predict(*args)[:b]
+        out = self._predict(*args)
+        return tuple(x[:b] for x in out) if isinstance(out, tuple) else out[:b]

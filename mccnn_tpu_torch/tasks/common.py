@@ -37,7 +37,9 @@ from ..train.metrics import MetricsLogger
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
-    """The reference's flags (``common.py:26-85``) plus ``--device``."""
+    """The reference's flags (``common.py:26-85``) plus ``--device``, less
+    ``--pt-drop-max``: only classification reads it, so ``tasks/modelnet.py``
+    adds it (the reference's shared flag is silently ignored elsewhere)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--data", type=str, default=None, help="dataset root")
     p.add_argument("--synthetic", action="store_true", help="procedural data")
@@ -51,11 +53,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=0.0)
     p.add_argument("--grad-clip", type=float, default=None)
     p.add_argument("--grow", type=int, default=None, help="model width knob")
-    p.add_argument(
-        "--pt-drop-max", type=float, default=0.0,
-        help="train-time point-dropout augmentation: per-cloud drop ratio drawn "
-        "from U(0, this) (the reference's ptDropOut)",
-    )
     p.add_argument(
         "--bn-decay-steps", type=int, default=None,
         help="enable the reference's BN decaying-momentum schedule (0.5 -> 0.99 "
@@ -287,11 +284,12 @@ class Runner:
         return {"profile_device_ms": device_ms, "profile_busy_share": device_ms / wall_ms,
                 "profile_device_events": sum(e.count for e in device)}
 
-    def eval_logits(self, batch: dict) -> torch.Tensor:
+    def eval_logits(self, batch: dict) -> torch.Tensor | tuple[torch.Tensor, ...]:
         """Eval-mode logits of one batch, as given: the reference pads a ragged
         batch to ``--batch`` for one compiled shape (``common.py:322-343``);
         eager PyTorch needs none, and in eval mode no cloud's result depends
-        on another's.
+        on another's. A model that returns a tuple (MCClassH's ``(joint, a,
+        b)``) gives the tuple; the task picks its logits.
 
         A model with tile sites reports its dropped steps; a batch that drops
         any grows the budgets to cover it and runs again (``common.py:405-423``)."""

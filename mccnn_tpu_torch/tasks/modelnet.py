@@ -1,16 +1,17 @@
 """ModelNet40 classification — train / eval CLI (port of ``mccnn_tpu/tasks/modelnet.py``).
 
-Adam with staircase decay, augmentation (rotation, jitter, scaling, point
-dropout), non-uniform sampling protocols, periodic eval with voting (``k``
-fresh resamplings per model, averaged logits) and checkpoints. This slice
-trains MCClassS; MCClass and MCClassH come with the rest of the
-classification zoo (ROADMAP queue 1, slice 3).
+Model selection (MCClassS, MCClass, MCClassH), Adam with staircase decay,
+augmentation (rotation, jitter, scaling, point dropout), non-uniform sampling
+protocols, periodic eval with voting (``k`` fresh resamplings per model,
+averaged logits) and checkpoints. MCClassH trains on its joint + per-path
+loss; its accuracy and voting take the joint head's logits.
 
 Usage::
 
   python -m mccnn_tpu_torch.tasks.modelnet --synthetic --epochs 2        # on the GPU
   python -m mccnn_tpu_torch.tasks.modelnet --synthetic --device cpu --epochs 1 \\
       --steps-per-epoch 2 --batch 2 --points 128 --grow 8                 # plain path
+  python -m mccnn_tpu_torch.tasks.modelnet --synthetic --model MCClassH --protocol gradient
   python -m mccnn_tpu_torch.tasks.modelnet --data /data/modelnet40_normal_resampled
 """
 
@@ -20,38 +21,42 @@ import numpy as np
 import torch
 
 from ..data import datasets, synthetic
-from ..models import MCClassS
-from ..train import accuracy, classification_loss
+from ..models import MCClass, MCClassH, MCClassS
+from ..train import accuracy, classh_loss, classification_loss
 from .common import Runner, base_parser
 
-MODELS = ("MCClassS", "MCClass", "MCClassH")
+MODELS = {"MCClassS": MCClassS, "MCClass": MCClass, "MCClassH": MCClassH}
 
 
 def build_model(name: str, n_classes: int, grow: int | None,
-                bn_decay_steps: int | None = None, seed: int = 0) -> MCClassS:
-    if name != "MCClassS":
-        raise NotImplementedError(
-            f"{name} is ported with the rest of the classification zoo (slice 3); "
-            "this slice trains MCClassS"
-        )
+                bn_decay_steps: int | None = None, seed: int = 0) -> torch.nn.Module:
     kw = {"n_classes": n_classes, "generator": torch.Generator().manual_seed(seed)}
     if grow:
         kw["grow"] = grow
     if bn_decay_steps:
         kw["bn_schedule_steps"] = bn_decay_steps
-    return MCClassS(**kw)
+    return MODELS[name](**kw)
 
 
 def make_loss(name: str):
-    if name != "MCClassS":
-        raise NotImplementedError(f"the {name} loss comes with slice 3")
+    if name == "MCClassH":
 
-    def loss_fn(out, batch):
-        return classification_loss(out, batch["labels"]), {
-            "acc": accuracy(out, batch["labels"])
-        }
+        def loss_fn(out, batch):
+            return classh_loss(out, batch["labels"]), {"acc": accuracy(out[0], batch["labels"])}
+
+    else:
+
+        def loss_fn(out, batch):
+            return classification_loss(out, batch["labels"]), {
+                "acc": accuracy(out, batch["labels"])
+            }
 
     return loss_fn
+
+
+def _logits(out):
+    """The deployment logits: MCClassH's joint head (``modelnet.py:58-59``)."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 class SyntheticSource:
@@ -89,7 +94,7 @@ def evaluate(runner: Runner, source, args, votes: int, rng) -> dict:
             protocol=args.protocol,
             drop_remainder=False,
         ):
-            logits_parts.append(runner.eval_logits(batch).cpu().numpy())
+            logits_parts.append(_logits(runner.eval_logits(batch)).cpu().numpy())
             labels_parts.append(batch["labels"])
         logits = np.concatenate(logits_parts)[:n]
         labels_ref = np.concatenate(labels_parts)[:n]
@@ -103,12 +108,16 @@ def evaluate(runner: Runner, source, args, votes: int, rng) -> dict:
 
 
 def main(argv=None):
-    p = base_parser("ModelNet40 classification (MCClassS; MCClass / MCClassH to come)")
-    p.add_argument("--model", default="MCClassS", choices=MODELS)
+    p = base_parser("ModelNet40 classification (MCClassS / MCClass / MCClassH)")
+    p.add_argument("--model", default="MCClassS", choices=sorted(MODELS))
     p.add_argument("--votes", type=int, default=1, help="eval voting rounds")
     p.add_argument("--n-classes", type=int, default=None)
     # classification trains with ptDropOut on by default (reference DataSet)
-    p.set_defaults(pt_drop_max=0.3)
+    p.add_argument(
+        "--pt-drop-max", type=float, default=0.3,
+        help="train-time point-dropout augmentation: per-cloud drop ratio drawn "
+        "from U(0, this) (the reference's ptDropOut)",
+    )
     args = p.parse_args(argv)
 
     rng = np.random.default_rng(args.seed)

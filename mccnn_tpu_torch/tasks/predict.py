@@ -1,14 +1,18 @@
-"""Classify point-cloud files with MCClassS (port of ``mccnn_tpu/tasks/predict.py``).
+"""Classify point-cloud files with the classification zoo (port of
+``mccnn_tpu/tasks/predict.py``).
 
 Clouds are read (txt / ply / npz), normalized to the unit cube, resampled to
 ``--points`` and served in batches of ``--batch`` through
 ``serve.Predictor``; one JSON line per file gives the label, its probability
-and the top 5. Weights come from ``--weights file.npz`` (flat
-``params/...`` and ``batch_stats/...`` keys of the JAX model's variables,
-read by ``convert.py``) or from ``--init-seed``. Usage::
+and the top 5. ``--model`` picks MCClassS (default), MCClass or MCClassH,
+whose joint head is the output (``predict.py:127-131``). Weights come from
+``--weights file.npz`` (flat ``params/...`` and ``batch_stats/...`` keys of
+the JAX model's variables, read by ``convert.py``) or from ``--init-seed``.
+Usage::
 
     python -m mccnn_tpu_torch.tasks.predict --weights modelnet.npz chair.txt *.ply
     python -m mccnn_tpu_torch.tasks.predict --init-seed 0 --device cpu cloud.npz
+    python -m mccnn_tpu_torch.tasks.predict --model MCClassH --device cpu cloud.npz
 """
 
 from __future__ import annotations
@@ -22,9 +26,9 @@ import torch
 
 from ..convert import load_flax_variables, load_npz_variables
 from ..data.datasets import _normalize_np, pad_points
-from ..models import MCClassS
 from ..serve import Predictor
 from ..utils import io as pcio
+from .modelnet import MODELS, _logits
 
 
 def read_cloud(path: str) -> np.ndarray:
@@ -50,9 +54,12 @@ def classify(logits: np.ndarray) -> dict:
     }
 
 
-def build_model(args) -> MCClassS:
-    gen = torch.Generator().manual_seed(args.init_seed)
-    model = MCClassS(n_classes=args.n_classes, grow=args.grow, generator=gen)
+def build_model(args) -> torch.nn.Module:
+    kw = {"n_classes": args.n_classes,
+          "generator": torch.Generator().manual_seed(args.init_seed)}
+    if args.grow:
+        kw["grow"] = args.grow
+    model = MODELS[args.model](**kw)
     if args.weights:
         load_flax_variables(model, load_npz_variables(args.weights))
     return model.to(args.device)
@@ -64,8 +71,9 @@ def main(argv=None):
     p.add_argument("--weights", default=None, help="flat .npz of the JAX variables")
     p.add_argument("--init-seed", type=int, default=0,
                    help="seed of the random weights when --weights is not given")
+    p.add_argument("--model", default="MCClassS", choices=sorted(MODELS))
     p.add_argument("--n-classes", type=int, default=40)
-    p.add_argument("--grow", type=int, default=128)
+    p.add_argument("--grow", type=int, default=None, help="model width (default: the model's)")
     p.add_argument("--points", type=int, default=1024)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device", default="cuda")
@@ -93,9 +101,9 @@ def main(argv=None):
                 "points": np.stack(clouds),
                 "mask": np.ones((len(clouds), args.points), bool),
             }
-            logits = predictor.predict(batch).cpu().numpy()
+            logits = _logits(predictor.predict(batch)).cpu().numpy()
             for i, f in enumerate(files):
-                rec = {"file": f, "model": "MCClassS", **classify(logits[i])}
+                rec = {"file": f, "model": args.model, **classify(logits[i])}
                 print(json.dumps(rec), file=sink)
                 records.append(rec)
     finally:

@@ -1,7 +1,13 @@
 """Training: losses, optimizer, train state and step, metrics, checkpoints
 (port of ``mccnn_tpu/train``)."""
 
-from .losses import accuracy, classification_loss, masked_accuracy, segmentation_loss
+from .losses import (
+    accuracy,
+    classh_loss,
+    classification_loss,
+    masked_accuracy,
+    segmentation_loss,
+)
 from .state import (
     TrainState,
     batch_to_device,
@@ -14,6 +20,7 @@ __all__ = [
     "TrainState",
     "accuracy",
     "batch_to_device",
+    "classh_loss",
     "classification_loss",
     "init_state",
     "make_optimizer",

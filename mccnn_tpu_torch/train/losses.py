@@ -1,8 +1,8 @@
-"""Task losses (port of ``mccnn_tpu/train/losses.py:15-17, 44-65``).
+"""Task losses (port of ``mccnn_tpu/train/losses.py:15-30, 44-65``).
 
-Classification: the mean softmax cross-entropy and the accuracy. Segmentation:
-the masked, optionally class-weighted per-point cross-entropy and the masked
-accuracy. ``classh_loss`` comes with MCClassH (ROADMAP queue 1, slice 3).
+Classification: the mean softmax cross-entropy, MCClassH's joint + per-path
+loss and the accuracy. Segmentation: the masked, optionally class-weighted
+per-point cross-entropy and the masked accuracy.
 """
 
 from __future__ import annotations
@@ -14,6 +14,16 @@ import torch.nn.functional as F
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over the batch (integer labels)."""
     return F.cross_entropy(logits, labels.long())
+
+
+def classh_loss(logits: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                labels: torch.Tensor, path_weight: float = 0.5) -> torch.Tensor:
+    """MCClassH's loss: the joint head's plus ``path_weight`` times the sum of
+    the two paths' (``losses.py:20-30``)."""
+    joint, a, b = logits
+    return classification_loss(joint, labels) + path_weight * (
+        classification_loss(a, labels) + classification_loss(b, labels)
+    )
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

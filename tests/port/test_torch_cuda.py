@@ -145,6 +145,88 @@ def test_conv_autograd_runs_k1_and_k2(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
 
 
+V1_CASES = [(1, 16, False), (8, 4, True), (8, None, False), (8, None, True), (300, 2, False),
+            (40, 600, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean", V1_CASES)
+def test_v1_kernels_match_plain_and_k1_k2_and_repeat_bitwise(cuda, c_in, c_out, mean):
+    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, c_in, c_out)
+    wf = dense_conv._weighted_features(feats, pdf, smask)
+    fargs = (params, smp, qmask, src, smask, wf, 0.3, c_out, mean)
+    before = (dense_conv.launches_v1, dense_conv.backward_launches_v1)
+    out, cnt = dense_conv._forward_cuda_v1(*fargs)
+    again, _ = dense_conv._forward_cuda_v1(*fargs)
+    want, wcnt, G = dense_conv._forward_reference(*fargs)
+    k1, _, _ = dense_conv._forward_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(cnt, wcnt)  # no atomics
+    scale = float(want.abs().max())
+    # fp32 sums over neighbours and channels in other orders (TF32 off)
+    for ref in (want, k1):
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
+    bargs = (params, smp, qmask, src, smask, wf, 0.3, cnt, dout)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
+    again = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
+    want = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, **kw)
+    k2 = dense_conv.dense_mc_conv_backward_cuda(params, smp, qmask, src, smask, wf, 0.3, G,
+                                                cnt, dout, **kw)
+    torch.cuda.synchronize()
+    assert (dense_conv.launches_v1, dense_conv.backward_launches_v1) == (before[0] + 2,
+                                                                         before[1] + 2)
+    for name, a, a2, w, w2 in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want, k2):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, a2), f"{name}: two calls differ"
+        # fp32 sums over pairs, channels and partials in other orders; the
+        # plain version and K2 round pre_h as mc_preact does (the same ReLU steps)
+        for ref in (w, w2):
+            torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()),
+                                       msg=name)
+
+
+@pytest.mark.cuda
+def test_v1_route_runs_k1v1_and_k2v1(cuda, monkeypatch):
+    monkeypatch.setattr(dense_conv, "_USE_V1", True)
+    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, 8, 4)
+
+    def grads(device):
+        p = [t.detach().to(device).requires_grad_() for t in params]
+        f = feats.detach().to(device).requires_grad_()
+        out = dense_conv.dense_mc_conv(
+            type(params)(*p), smp.to(device), qmask.to(device), src.to(device),
+            smask.to(device), f, pdf.to(device), 0.3, c_out=4)
+        (out * dout.to(device)).sum().backward()
+        return [t.grad.cpu() for t in (*p, f)]
+
+    counters = lambda: (dense_conv.launches, dense_conv.backward_launches,  # noqa: E731
+                        dense_conv.launches_v1, dense_conv.backward_launches_v1)
+    before = counters()
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert counters() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    for g, w in zip(got, grads("cpu")):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
+def test_v1_wrappers_refuse_cpu_tensors():
+    pts, mask = cloud(6, N=32)
+    params = init_mcconv_params(torch.Generator().manual_seed(0), 1, 2)
+    feats = torch.ones((2, 32, 1))
+    calls = [
+        lambda: dense_conv._forward_cuda_v1(params, pts, mask, pts, mask, feats, 0.2, 2, False),
+        lambda: dense_conv.dense_mc_conv_v1_backward_cuda(
+            params, pts, mask, pts, mask, feats, 0.2, torch.ones((2, 32)),
+            torch.ones((2, 32, 2)), c_out=2),
+    ]
+    before = (dense_conv.launches_v1, dense_conv.backward_launches_v1)
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert (dense_conv.launches_v1, dense_conv.backward_launches_v1) == before
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     pts, mask = cloud(6, N=32)
     cids, colors = sweep_cells(pts, 0.2)

@@ -21,7 +21,7 @@ from mccnn_tpu_torch.convert import load_flax_variables, load_npz_variables, tor
 from mccnn_tpu_torch.data.datasets import _normalize_np
 from mccnn_tpu_torch.data.synthetic import classification_batch
 from mccnn_tpu_torch.models import MCClassS
-from mccnn_tpu_torch.models.layers import MaskedBatchNorm, set_dropout_generator
+from mccnn_tpu_torch.models.layers import MaskedBatchNorm, MCConv, set_dropout_generator
 from mccnn_tpu_torch.serve import Predictor, make_predict_fn
 from mccnn_tpu_torch.tasks import predict as predict_task
 from parity_utils import boundary_free
@@ -65,7 +65,7 @@ def _seed_statistics(model, pts, mask, rng):
     predict = make_predict_fn(model)
     args = (torch.from_numpy(pts), torch.from_numpy(mask))
     with torch.no_grad():
-        for conv in model.convs.values():
+        for conv in [m for m in model.modules() if isinstance(m, MCConv)]:
             conv.kernel_b1.copy_(torch.from_numpy(rng.normal(size=conv.kernel_b1.shape) * 0.1))
             conv.kernel_b2.copy_(torch.from_numpy(rng.normal(size=conv.kernel_b2.shape) * 0.1))
     for bn in [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]:

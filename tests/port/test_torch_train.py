@@ -488,5 +488,6 @@ def test_modelnet_cli_trains_checkpoints_and_resumes(tmp_path):
     assert [r["tag"] for r in recs].count("eval") == 1
     assert sorted(p.name for p in (tmp_path / "prof").iterdir()) == ["ops.txt", "trace.json"]
     assert "self_cpu_time_total" in (tmp_path / "prof" / "ops.txt").read_text()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        modelnet.main([*common, "--model", "MCClassH", "--epochs", "1"])
+    if not torch.cuda.is_available():  # --device defaults to cuda and never falls back
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            modelnet.main([a for a in common if a not in ("--device", "cpu")] + ["--epochs", "1"])

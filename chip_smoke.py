@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch + CUDA port's paths on one NVIDIA GPU: MCClassS serving and
 training, ScanNet segmentation serving and training (MCSeg on the z-order tile
 kernels), the capacity-free bucket path (MCSeg without a tile capacity, and
-MCClassS above 3072 points, on the cell-bucket kernels), and the rest of the
+MCClassS above 3072 points, on the cell-bucket kernels), the rest of the
 classification zoo (MCClass, MCClassH) with the per-h dense conv pair K1v1 /
-K2v1 that ``MCCNN_DENSE_V1=1`` selects.
+K2v1 that ``MCCNN_DENSE_V1=1`` selects, and normal estimation (MCNorm,
+MCNormS) and ShapeNet part segmentation with the Poisson sweep variants K3v2 /
+K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects.
 
     python3 chip_smoke.py
 
@@ -94,11 +96,32 @@ K2v1 that ``MCCNN_DENSE_V1=1`` selects.
    and one evaluation with 2 votes, K1-K4 launched.
 20. The same MCClass training under ``MCCNN_DENSE_V1=1`` in a child process:
    its printed counters must show K1v1 / K2v1 launched and K1 / K2 not.
-21. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+21. K3v2, K3v3 and K3v4 (the Poisson sweep variants) at every sweep of
+   MCNorm (N = 1024 at r 0.1, 496 at r 0.4), MCNormS (r 0.15), ShapeNet's
+   MCSeg (r 0.025 / 0.1 / 0.4) and MCClassS for batches of 32 clouds, and
+   MCClassS's at 8: each against its plain version and K3, bit for bit and
+   bit for bit on repeat (K3v3 where the batch's colour runs fit their
+   windows, as the reference runs it), with the times of each, its plain
+   version and K3, and the bound.
+22. MCNorm (grow 64, seeded weights and BN statistics) served through
+   ``serve.Predictor`` at B=8: the first two clouds against the CPU plain
+   path, latencies and a profiled batch.
+23. One MCNorm and one ShapeNet-MCSeg train step (drop rates 0) at B=4 on the
+   card against the CPU plain path, with MCSeg's BN-ReLU flip gate.
+24. ``tasks.normals.main`` (MCNorm and MCNormS) and ``tasks.shapenet.main``
+   ``--synthetic`` at the defaults (B=32, N=1024): two epochs of three steps
+   (the second profiled) and one evaluation each, a finite loss, K1-K4
+   launched, the warm step time and the kernels that take the most device
+   time.
+25. The same ``tasks.normals`` run under ``MCCNN_POISSON_SWEEP=v2``, ``v3``
+   and ``v4``, each in a child process: its counters must show that
+   variant's kernel launched and no other variant's.
+26. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
    B=32, K5-K10 at the ScanNet shapes, K1v1 / K2v1 summed over the zoo's 14
-   sites at B=32; each with its least possible time on the card,
-   ``bound_ms``, from the bytes and operations of this run's inputs), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's two sweeps at
+   B=32; each with its least possible time on the card, ``bound_ms``, from
+   the bytes and operations of this run's inputs), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -166,6 +189,19 @@ ZOO_SITES = [
     ("MCClassH path_b conv_2_3", RADII_3, 2, 3, 0.8, 128, 256),
     ("MCClassH path_b conv_3_4", RADII_3, 3, 4, None, 256, 1024),
 ]
+
+# Normal estimation and ShapeNet part segmentation at the CLIs' defaults
+# (mccnn_tpu/tasks/normals.py, shapenet.py): MCNorm (grow 64, radii 0.1 /
+# 0.4), MCNormS (radius 0.15) and MCSeg with 4 parts and a 16-category one-hot
+# (grow 64, radii 0.025 / 0.1 / 0.4), N = 1024.
+NORM_RADII, NORMS_RADIUS = (0.1, 0.4), 0.15
+SHAPENET_RADII, SHAPENET_PARTS, SHAPENET_CATS = (0.025, 0.1, 0.4), 4, 16
+NORM_STEP_B = 4  # the MCNorm / ShapeNet train steps, card vs the CPU plain path
+TASK_TRAIN_STEPS = 3  # tasks.normals / tasks.shapenet steps before their evaluation
+# The Poisson sweep variants (MCCNN_POISSON_SWEEP): kernel id -> (counter,
+# the variant's value, its plain version and kernel in ops/cuda/poisson_kernel.py)
+SWEEP_VARIANTS = {"K3v2": ("launches_v2", "v2"), "K3v3": ("launches_v3", "v3"),
+                  "K3v4": ("launches_v4", "v4")}
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -517,6 +553,8 @@ def calibrate_bn(model, batch: dict, rng: np.random.Generator) -> None:
     predict = make_predict_fn(model)
     dev = next(model.parameters()).device
     args = [torch.from_numpy(batch[k]).to(dev) for k in ("points", "mask")]
+    if "category_onehot" in batch:  # MCSeg on ShapeNet
+        args += [None, torch.from_numpy(batch["category_onehot"]).to(dev)]
     bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
     for bn in bns:
         seen = []
@@ -561,7 +599,8 @@ def counters() -> dict:
             "K5": (tile_conv, "launches"), "K6": (tile_conv, "backward_launches"),
             "K7": (tile_conv, "kde_launches"),
             "K8": (tile_conv, "cover_launches"),
-            "K9": (mcconv_kernel, "launches"), "K10": (mcconv_kernel, "backward_launches")}
+            "K9": (mcconv_kernel, "launches"), "K10": (mcconv_kernel, "backward_launches"),
+            **{kid: (poisson_kernel, attr) for kid, (attr, _) in SWEEP_VARIANTS.items()}}
 
 
 def reset_counts() -> None:
@@ -1916,6 +1955,279 @@ def run_v1_trainer() -> dict:
     return counts
 
 
+def normals_batch_of(b: int, seed: int) -> dict:
+    """A ``tasks.normals`` batch: ``b`` synthetic spheres drawn to N points,
+    with their normals."""
+    from mccnn_tpu_torch.tasks.normals import NormalsSource
+
+    src = NormalsSource.synthetic(b, seed)
+    return next(src.batches(b, N, np.random.default_rng(seed)))
+
+
+def shapenet_batch_of(b: int, seed: int) -> dict:
+    """A ``tasks.shapenet`` batch: ``b`` synthetic part clouds of N points with
+    their part labels and category one-hots."""
+    from mccnn_tpu_torch.tasks.shapenet import SyntheticSegSource
+
+    src = SyntheticSegSource(b, SHAPENET_PARTS, SHAPENET_CATS, seed)
+    return next(src.batches(b, N, np.random.default_rng(seed)))
+
+
+def sweep_sites(b: int, models) -> list:
+    """Every Poisson sweep of ``models``' hierarchies on a batch of ``b``
+    clouds of that model's data: (model, level, points, mask, radius), the
+    levels built by the plain path on the CPU."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+
+    sources = {
+        "MCNorm": lambda: (normals_batch_of(b, SEED + 50), NORM_RADII),
+        "MCNormS": lambda: (normals_batch_of(b, SEED + 51), (NORMS_RADIUS,)),
+        "ShapeNet MCSeg": lambda: (shapenet_batch_of(b, SEED + 52), SHAPENET_RADII),
+        "MCClassS": lambda: (request(np.random.default_rng(SEED + 53 + b), b), RADII_2),
+    }
+    sites = []
+    for model in models:
+        batch, radii = sources[model]()
+        hier = build_hierarchy(torch.from_numpy(batch["points"]), torch.from_numpy(batch["mask"]),
+                               radii)
+        for lvl, r in enumerate(radii):
+            sites.append((model, lvl, hier.levels[lvl].points, hier.levels[lvl].mask, r))
+    return sites
+
+
+def check_sweep_variants(dev, b: int, models) -> dict:
+    """K3v2, K3v3 and K3v4 at every sweep of ``models``' hierarchies on a batch
+    of ``b`` clouds: each against its plain version and against K3, bit for
+    bit, and bit for bit on repeat (K3v3 where the reference runs it: its
+    colour runs fit their windows; K3v4 folds 4 clouds a block, the default
+    SB); times of each, of its plain version and of K3, and the bound (the
+    bytes of positions, mask, cells and colours in and the selection out, or
+    the in-radius pairs' d2, as K3's). Returns MCNorm's rows, for the kernels
+    line."""
+    from mccnn_tpu_torch.core.sampling import sweep_cells
+    from mccnn_tpu_torch.ops.cuda import poisson_kernel as pk
+
+    rows = {kid: [] for kid in SWEEP_VARIANTS}
+    with torch.no_grad():
+        for model, lvl, pts, mask, r in sweep_sites(b, models):
+            pts, mask = pts.to(dev), mask.to(dev)
+            cids, colors = sweep_cells(pts, r)
+            args = (pts, mask, cids, colors, r)
+            k3 = pk.poisson_sweep_cuda(*args)
+            require(torch.equal(k3, pk.poisson_sweep_reference(*args)),
+                    f"K3 differs from its plain version at {model} level {lvl}")
+            k3_ms = time_ms(lambda: pk.poisson_sweep_cuda(*args))
+            _, inr = pair_counts(pts, mask, pts, mask, r)
+            Bn, Nn = pts.shape[:2]
+            bms, by = bound(Bn * Nn * (12 + 1 + 4 + 4 + 1), 8 * inr)
+            layout = pk.v3_layout(mask, cids, colors)
+            fits = layout.order.shape[1] > pk.SWEEP_WINDOW and bool(layout.fits)
+            runs = {"K3v2": (pk.poisson_sweep_v2_cuda, pk.poisson_sweep_v2_reference, {}),
+                    "K3v3": (pk.poisson_sweep_v3_cuda, pk.poisson_sweep_v3_reference,
+                             {"layout": layout}),
+                    "K3v4": (pk.poisson_sweep_v4_cuda, pk.poisson_sweep_v4_reference,
+                             {"sb": int(pk._SB)})}
+            parts = []
+            for kid, (kernel, plain, kw) in runs.items():
+                if kid == "K3v3" and not fits:
+                    parts.append("K3v3 not run (a colour run overflows its window: the "
+                                 "reference takes the default sweep, K3)")
+                    continue
+                got, again = kernel(*args, **kw), kernel(*args, **kw)
+                want = plain(*args, **kw)
+                torch.cuda.synchronize()
+                diff, diff_k3 = int((got != want).sum()), int((got != k3).sum())
+                require(diff == 0 and diff_k3 == 0,
+                        f"{kid} differs from its plain version ({diff} flags) or K3 ({diff_k3}) "
+                        f"at {model} level {lvl} B={Bn} N={Nn} r={r}")
+                require(torch.equal(got, again), f"{kid} differs between two calls at {model}")
+                ms = time_ms(lambda: kernel(*args, **kw))
+                pms = time_ms(lambda: plain(*args, **kw), iters=5)
+                parts.append(f"{kid} kernel_ms={ms:.4f} plain_ms={pms:.4f} differing_flags=0")
+                if model == "MCNorm":
+                    rows[kid].append((float(diff), ms, pms, bms, by, None))
+            print(f"sweep variants {model} level {lvl} B={Bn} N={Nn} r={r}: "
+                  f"selected={int(k3.sum())} K3_ms={k3_ms:.4f} bound_ms={bms:.6f} ({by}) v3_fits="
+                  f"{fits}; " + "; ".join(parts), flush=True)
+    return rows
+
+
+def mcnorm_model():
+    from mccnn_tpu_torch.tasks import normals
+
+    return normals.build_model("MCNorm", None, seed=SEED)
+
+
+def serve_mcnorm(dev) -> dict:
+    """MCNorm (grow 64, seeded weights and BN statistics) served through
+    ``serve.Predictor`` at B = 8: the first two clouds against the CPU plain
+    path (B = 2, identical hierarchies), batch latencies, K1 / K3 / K4
+    launched and no backward or variant kernel, and a profiled batch."""
+    from mccnn_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(SEED + 60)
+    model = mcnorm_model().to(dev)
+    calibrate_bn(model, normals_batch_of(SERVE_B, SEED + 61), rng)
+    cpu_predictor = Predictor(copy.deepcopy(model).cpu(), ZOO_CPU_B)
+    predictor = Predictor(model, SERVE_B)
+    reqs = [normals_batch_of(SERVE_B, SEED + 62 + k) for k in range(4)]
+    torch.cuda.synchronize()
+    reset_counts()
+    lat, served = [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        served.append(predictor.predict(req))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    small = {key: reqs[0][key][:ZOO_CPU_B] for key in ("points", "mask")}
+    same = same_hierarchy(small, dev, NORM_RADII)
+    want = cpu_predictor.predict(small)
+    got = served[0][:ZOO_CPU_B].cpu()
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    pts, mask = (torch.from_numpy(reqs[1][key]).to(dev) for key in ("points", "mask"))
+    busy = profile_forward(lambda: model(pts, mask), f"MCNorm served batch B={SERVE_B} N={N}")
+    print(f"MCNorm serving (Predictor, grow 64, radii {NORM_RADII}, B={SERVE_B} N={N}): "
+          f"latencies_ms={[round(x, 3) for x in lat]} (the first warms up) card vs CPU plain "
+          f"path (B={ZOO_CPU_B}) max_abs_err={err:.3e} max_abs_normal={top:.3e} "
+          f"hierarchy_equal_to_cpu={same} busy_share={busy:.4f} launches={launches}", flush=True)
+    require(same, "MCNorm: the card's hierarchy differs from the CPU plain path's")
+    require(tuple(got.shape) == (ZOO_CPU_B, N, 3) and bool(torch.isfinite(got).all()),
+            f"MCNorm: served normals {tuple(got.shape)} not finite or misshapen")
+    require(err <= LOGIT_RTOL * top, f"MCNorm: served normals disagree with the CPU plain path "
+            f"({err:.3e} of {top:.3e})")
+    for kid in ("K1", "K3", "K4"):
+        require(launches[kid] > 0, f"{kid} was not launched while serving MCNorm")
+    for kid in ("K2", *SWEEP_VARIANTS):
+        require(launches[kid] == 0, f"{kid} was launched while serving MCNorm")
+    return launches
+
+
+def check_norm_seg_train_steps(dev) -> dict:
+    """One MCNorm and one ShapeNet-MCSeg train step (defaults, dropout 0,
+    seeded BN statistics) at B = NORM_STEP_B on the card against the CPU
+    plain path, through ``gated_train_step``."""
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.tasks import normals, shapenet
+
+    mix_bias = lambda n: n.startswith("mixes.") and n.endswith(".bias")  # noqa: E731
+    launches = {}
+    cases = [("MCNorm", normals_batch_of(NORM_STEP_B, SEED + 71), mcnorm_model, normals.loss_fn),
+             ("ShapeNet MCSeg", shapenet_batch_of(NORM_STEP_B, SEED + 72),
+              lambda: MCSeg(SHAPENET_PARTS, n_categories=SHAPENET_CATS, drop_rate=0.0,
+                            generator=torch.Generator().manual_seed(SEED)),
+              shapenet.loss_fn)]
+    for k, (name, batch, build, loss_fn) in enumerate(cases):
+        rng = np.random.default_rng(SEED + 73 + k)
+        model = build().to(dev)
+        calibrate_bn(model, batch, rng)
+        _, _, launches[name] = gated_train_step(
+            f"{name} train step B={NORM_STEP_B} N={N}", model, dev, batch, loss_fn, mix_bias,
+            SEG_ZERO_GRAD_RTOL)
+        for kid in ("K1", "K2", "K3", "K4"):
+            require(launches[name][kid] > 0, f"{kid} was not launched in the {name} train step")
+    return launches
+
+
+def run_task_trainer(task: str, extra=()) -> dict:
+    """``tasks.normals`` or ``tasks.shapenet`` through its entry point at the
+    CLI's defaults (B = 32, N = 1024, grow 64): two epochs of
+    TASK_TRAIN_STEPS steps (the second profiled: busy share and the kernels
+    that take the most device time) and one evaluation; a finite loss and
+    K1-K4 launched."""
+    from mccnn_tpu_torch.tasks import normals, shapenet
+
+    module = normals if task == "normals" else shapenet
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        argv = ["--synthetic", "--batch", str(TRAIN_B), "--points", str(N), "--epochs", "2",
+                "--steps-per-epoch", str(TASK_TRAIN_STEPS), "--eval-every", "2",
+                "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", os.path.join(tmp, "ck"),
+                "--profile-dir", prof, *extra]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        (log,) = [f for f in os.listdir(tmp) if f.endswith(".metrics.jsonl")]
+        with open(os.path.join(tmp, log)) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(prof, "ops.txt")) as f:
+            table = f.read().split("by self_cuda_time_total\n", 1)[1].splitlines()[:12]
+    train = [r for r in recs if r["tag"] == "train"]
+    evals = [r for r in recs if r["tag"] == "eval"]
+    require(len(train) == 2 and all(r["steps"] == TASK_TRAIN_STEPS for r in train)
+            and len(evals) == 1, f"tasks.{task} records: {recs}")
+    metrics = {k: v for k, v in evals[0].items() if k not in ("t", "step", "tag", "epoch")}
+    print(f"trainer (tasks.{task} {' '.join(extra)}, B={TRAIN_B}, N={N}, defaults): "
+          f"losses={[round(r['loss'], 6) for r in train]} "
+          f"warm_step_ms={train[0]['warm_step_ms']:.3f} (second epoch, profiled: "
+          f"{train[1]['warm_step_ms']:.3f}, busy_share {train[1]['profile_busy_share']:.4f}, "
+          f"device_ms {train[1]['profile_device_ms']:.3f} over {TASK_TRAIN_STEPS} steps) "
+          f"eval={metrics} total_sec={seconds:.2f} launches={launches}", flush=True)
+    print("\n".join(f"  {line}" for line in table), flush=True)
+    require(all(np.isfinite(r["loss"]) for r in train), f"tasks.{task}: the trainer's loss")
+    for kid in ("K1", "K2", "K3", "K4"):
+        require(launches[kid] > 0, f"{kid} was not launched by tasks.{task}")
+    return launches
+
+
+_SWEEP_CHILD = r"""
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from mccnn_tpu_torch.ops.cuda import poisson_kernel
+from mccnn_tpu_torch.tasks import normals
+assert poisson_kernel._SWEEP == %r, "MCCNN_POISSON_SWEEP did not reach the module"
+with tempfile.TemporaryDirectory() as tmp:
+    res = normals.main(["--synthetic", "--batch", "%d", "--points", "%d", "--epochs", "1",
+                        "--steps-per-epoch", "%d", "--device", "cuda", "--log-dir", tmp,
+                        "--ckpt-dir", tmp + "/ck"])
+    with open(tmp + "/normals_MCNorm.metrics.jsonl") as f:
+        train = [json.loads(l) for l in f if '"train"' in l]
+print("SWEEP_COUNTS " + json.dumps({
+    "launches": chip_smoke.read_counts(), "routes": dict(poisson_kernel.routes),
+    "loss": train[0]["loss"], "warm_step_ms": train[0].get("warm_step_ms"),
+    "best_angular_error": res["best_angular_error"]}))
+"""
+
+
+def run_sweep_variant_trainers() -> dict:
+    """``tasks.normals`` (MCNorm, B = 32, N = 1024) under
+    ``MCCNN_POISSON_SWEEP=v2``, ``v3`` and ``v4``, each in a child process:
+    its printed counters must show that variant's kernel launched and no
+    other variant's; a failed child fails the script."""
+    out = {}
+    for kid, (_, variant) in SWEEP_VARIANTS.items():
+        env = dict(os.environ, MCCNN_POISSON_SWEEP=variant)
+        code = _SWEEP_CHILD % (variant, TRAIN_B, N, TASK_TRAIN_STEPS)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the MCCNN_POISSON_SWEEP={variant} trainer failed "
+                f"({proc.returncode}): {proc.stderr[-3000:]}")
+        line = [x for x in proc.stdout.splitlines() if x.startswith("SWEEP_COUNTS ")]
+        require(len(line) == 1, f"the MCCNN_POISSON_SWEEP={variant} trainer printed no "
+                f"counters: {proc.stdout[-2000:]}")
+        res = json.loads(line[0][len("SWEEP_COUNTS "):])
+        counts = res["launches"]
+        print(f"trainer under MCCNN_POISSON_SWEEP={variant} (child process, tasks.normals, "
+              f"B={TRAIN_B}, N={N}, {TASK_TRAIN_STEPS} steps and one eval): {res} "
+              f"child_sec={seconds:.2f}", flush=True)
+        require(bool(np.isfinite(res["loss"])), f"the MCCNN_POISSON_SWEEP={variant} trainer's loss")
+        require(counts[kid] > 0, f"{kid} was not launched under MCCNN_POISSON_SWEEP={variant}")
+        for other in SWEEP_VARIANTS:
+            require(other == kid or counts[other] == 0,
+                    f"{other} was launched under MCCNN_POISSON_SWEEP={variant}")
+        out[f"normals_train_{variant}"] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1972,6 +2284,16 @@ def main() -> int:
     zoo_launches["MCClassH_train"] = run_zoo_trainer("MCClassH", ("--protocol", "gradient"))
     v1_launches = {"MCClass_train_v1": run_v1_trainer()}
 
+    sweep_results = check_sweep_variants(dev, TRAIN_B, ("MCNorm", "MCNormS", "ShapeNet MCSeg",
+                                                         "MCClassS"))
+    check_sweep_variants(dev, SERVE_B, ("MCClassS",))
+    norm_launches = {"MCNorm_serve": serve_mcnorm(dev)}
+    norm_launches |= {f"{k}_train_step": v for k, v in check_norm_seg_train_steps(dev).items()}
+    norm_launches["normals_train"] = run_task_trainer("normals")
+    norm_launches["normals_MCNormS_train"] = run_task_trainer("normals", ("--model", "MCNormS"))
+    norm_launches["shapenet_train"] = run_task_trainer("shapenet")
+    sweep_launches = run_sweep_variant_trainers()
+
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
                "mccnn_tpu/ops/pallas/dense_conv.py:360"),
@@ -1997,6 +2319,12 @@ def main() -> int:
                  "mccnn_tpu/ops/pallas/dense_conv.py:99"),
         "K2v1": ("dense_mc_conv_v1_backward", "mccnn_tpu_torch/csrc/dense_conv_v1_bwd.cu",
                  "mccnn_tpu/ops/pallas/dense_conv.py:129"),
+        "K3v2": ("poisson_sweep_v2", "mccnn_tpu_torch/csrc/poisson_sweep_v2.cu",
+                 "mccnn_tpu/ops/pallas/poisson_kernel.py:105"),
+        "K3v3": ("poisson_sweep_v3", "mccnn_tpu_torch/csrc/poisson_sweep_v3.cu",
+                 "mccnn_tpu/ops/pallas/poisson_kernel.py:293"),
+        "K3v4": ("poisson_sweep_v4", "mccnn_tpu_torch/csrc/poisson_sweep_v4.cu",
+                 "mccnn_tpu/ops/pallas/poisson_kernel.py:171"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
@@ -2006,13 +2334,18 @@ def main() -> int:
             rows, paths, batch = [bucket_results[kid]], bucket_launches, [SEG_B, TRAIN_B]
         elif kid in v1_results:  # the zoo's 14 dense sites at the trainer's batch
             rows, paths, batch = v1_results[kid], v1_launches, TRAIN_B
+        elif kid in sweep_results:  # MCNorm's two sweeps at the trainer's batch
+            variant = SWEEP_VARIANTS[kid][1]
+            rows, batch = sweep_results[kid], TRAIN_B
+            paths = {f"normals_train_{variant}": sweep_launches[f"normals_train_{variant}"]}
         else:
             rows = results[kid]
             paths = {"train": train_launches}
             batch = TRAIN_B
         by_path = {k: v[kid] for k, v in {"serve": serve_launches, "train": train_launches,
                                           **seg_launches, **bucket_launches, **zoo_launches,
-                                          **v1_launches}.items()}
+                                          **v1_launches, **norm_launches,
+                                          **sweep_launches}.items()}
         lib_ms = [r[5] for r in rows]
         kernels.append({
             "name": f"{kid} {name}",

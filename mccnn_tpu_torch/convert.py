@@ -19,7 +19,13 @@ and, for MCSeg's and MCClass's explicit names:
   {enc,dec}_mix_k, mix_k, same_mix_k/Dense_0/{kernel,bias}
                                                        -> mixes.<name>.{weight,bias}
 
-and MCClassH's two trunks and three heads:
+MCNorm's output layer and MCNormS's trunk:
+
+  normals/{kernel,bias}                                -> normals.{weight,bias}
+  trunk/<a leaf of MCNorm>                             -> trunk.<its name>
+
+(MCNorm's convs, ``dec_mix_k`` and ``BatchNormReluDropout_k`` take the rules
+above), and MCClassH's two trunks and three heads:
 
   path_{a,b}/<a leaf of the rules above>               -> path_{a,b}.<its name>
   {a,b,joint}_fc{1,2}/Dense_0/{kernel,bias}            -> heads.<name>.dense.*
@@ -70,6 +76,9 @@ _RULES = [
      r"heads.\1.bn.\2", False),
     (r"((?:a|b|joint)_logits)/kernel", r"heads.\1.weight", True),
     (r"((?:a|b|joint)_logits)/bias", r"heads.\1.bias", False),
+    # MCNorm's output layer (mccnn_tpu/models/mcnorm.py:76)
+    (r"normals/kernel", "normals.weight", True),
+    (r"normals/bias", "normals.bias", False),
     (r"logits/kernel", "logits.weight", True),
     (r"logits/bias", "logits.bias", False),
 ]
@@ -86,7 +95,7 @@ def _flatten(tree, prefix=""):
 
 def torch_name(flax_path: str) -> tuple[str, bool]:
     """The torch state-dict key (and whether to transpose) for a flax leaf path."""
-    trunk = re.fullmatch(r"(path_[ab])/(.+)", flax_path)  # MCClassH's trunks
+    trunk = re.fullmatch(r"(path_[ab]|trunk)/(.+)", flax_path)  # MCClassH's, MCNormS's trunks
     if trunk:
         name, transpose = torch_name(trunk.group(2))
         return f"{trunk.group(1)}.{name}", transpose

@@ -13,7 +13,9 @@ Three of the reference's sweeps are ported, routed as there
   cell-Hilbert tile sweep, whose per-colour "newly covered" query is the K8
   cover count (``ops/cuda/tile_conv.py::TileCoverSweep``);
 * N <= ``DENSE_SAMPLER_MAX_N``: the dense sweep, K3
-  (``ops/cuda/poisson_kernel.py``);
+  (``ops/cuda/poisson_kernel.py``); up to ``VARIANT_MAX_N`` = 1024 points,
+  where the reference runs its Pallas sweep (``sampling.py:133``),
+  ``MCCNN_POISSON_SWEEP`` may pick the variant K3v2, K3v3 or K3v4 instead;
 * larger N without a tile capacity: the neighbour-list sweep
   (``_poisson_neighbor_lists``), whose "newly covered" query reads each
   point's K nearest neighbours (``core/neighbors.py``), so that coverage can
@@ -30,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.cuda.poisson_kernel import poisson_sweep
+from ..ops.cuda.poisson_kernel import VARIANT_MAX_N, poisson_sweep
 from ..ops.cuda.tile_conv import (
     DEFAULT_COVER_CHUNK,
     count_self_steps,
@@ -97,7 +99,8 @@ def poisson_disk(
         selected, overflow = _poisson_tiles(points, mask, coords, cids, colors, radius, res,
                                             tile_pairs, max_steps)
     elif N <= DENSE_SAMPLER_MAX_N:
-        selected = poisson_sweep(points, mask, cids, colors, radius)
+        variant = None if N <= VARIANT_MAX_N else "v1"  # the switch's range
+        selected = poisson_sweep(points, mask, cids, colors, radius, variant)
     else:
         if neighborhood is None:
             neighborhood = self_neighbors(points, mask, radius, k)

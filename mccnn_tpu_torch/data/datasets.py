@@ -1,20 +1,23 @@
-"""Host-side cloud preparation, the ModelNet40 classification source and the
-ScanNet scene source, numpy only (port of ``mccnn_tpu/data/datasets.py:38-170``
-and ``:304-414``).
+"""Host-side cloud preparation, the ModelNet40 classification source, the
+ShapeNet-part source and the ScanNet scene source, numpy only (port of
+``mccnn_tpu/data/datasets.py``).
 
 The port's own copy: it imports nothing of the JAX package. Every batch is a
 dict of numpy arrays, ``points (B, N, 3)`` normalised to the unit cube, ``mask
-(B, N)`` and ``labels (B,)``.
+(B, N)`` and the task's fields (``labels``; ShapeNet adds
+``category_onehot (B, n_categories)``).
 
-``ClassificationSource.batches`` is the reference's numpy branch
-(``datasets.py:119-141``). The reference's default goes through its native
-C++ host pipe (``mccnn_tpu/native/hostpipe.cpp``) for the uniform protocol,
-whose random stream differs; that host code is still to port (ROADMAP queue
-1), so the port always takes the numpy branch.
+The ``batches`` methods are the reference's numpy branches
+(``datasets.py:119-141``, ``:236-255``). The reference's default goes through
+its native C++ host pipe (``mccnn_tpu/native/hostpipe.cpp``) for the uniform
+protocol, whose random stream differs; that host code is still to port
+(ROADMAP queue 1), so the port always takes the numpy branch (the
+reference's with ``MCCNN_HOST_PIPE=numpy``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Iterator
@@ -129,6 +132,98 @@ def load_modelnet40(root: str, split: str = "train") -> ClassificationSource:
         normals=normals,
         labels=np.asarray(labels, np.int32),
         class_names=class_names,
+    )
+
+
+@dataclass
+class PartSegSource:
+    """ShapeNet-part: clouds, per-point part labels and a category per cloud
+    (``datasets.py:173-255``, its numpy branch)."""
+
+    clouds: list  # list of (n_i, 3) float32
+    point_labels: list  # list of (n_i,) int32
+    categories: np.ndarray  # (n_models,) int32
+    n_categories: int
+    n_parts: int
+
+    def batches(
+        self,
+        batch_size: int,
+        n_points: int,
+        rng: np.random.Generator,
+        *,
+        shuffle: bool = True,
+        train_augment: bool = False,
+        protocol: str = "uniform",
+        drop_remainder: bool = True,
+    ) -> Iterator[dict]:
+        """Draw ``n_points`` per cloud under ``protocol`` (rotation about z and
+        jitter with ``train_augment``, no scaling), normalise, and carry the
+        drawn points' part labels and the category as a one-hot."""
+        order = np.arange(len(self.clouds))
+        if shuffle:
+            rng.shuffle(order)
+        for start in range(0, len(order), batch_size):
+            chunk = order[start : start + batch_size]
+            if len(chunk) < batch_size and drop_remainder:
+                return
+            pts_b, lab_b, cat_b = [], [], []
+            for i in chunk:
+                cloud = self.clouds[i]
+                idx = draw(protocol, cloud, n_points, rng)
+                p = cloud[idx]
+                if train_augment:
+                    p = augment.rotate_z(p, rng)
+                    p = augment.jitter(p, rng)
+                pts_b.append(_normalize_np(p))
+                lab_b.append(self.point_labels[i][idx])
+                cat_b.append(self.categories[i])
+            cat = np.asarray(cat_b, np.int32)
+            yield {
+                "points": np.stack(pts_b),
+                "mask": np.ones((len(chunk), n_points), bool),
+                "labels": np.stack(lab_b).astype(np.int32),
+                "category_onehot": np.eye(self.n_categories, dtype=np.float32)[cat],
+            }
+
+
+def load_shapenet_part(root: str, split: str = "train") -> PartSegSource:
+    """The ``shapenetcore_partanno_segmentation_benchmark_v0`` layout
+    (``datasets.py:258-300``): ``<synset>/points/<id>.pts``,
+    ``<synset>/points_label/<id>.seg`` (1-based part labels) and
+    ``train_test_split/shuffled_{split}_file_list.json`` of
+    ``shape_data/<synset>/<id>`` entries. Categories are the sorted synset
+    directories; ``n_parts`` is the largest label seen."""
+    split_file = os.path.join(root, "train_test_split", f"shuffled_{split}_file_list.json")
+    if not os.path.exists(split_file):
+        raise FileNotFoundError(
+            f"ShapeNet-part not found at {root} — expected the "
+            "'shapenetcore_partanno_segmentation_benchmark_v0' layout. Use "
+            "--synthetic for smoke runs without data."
+        )
+    from ..utils.io import read_points_txt
+
+    with open(split_file) as f:
+        files = json.load(f)
+    synsets = sorted(d for d in os.listdir(root)
+                     if os.path.isdir(os.path.join(root, d)) and d.isdigit())
+    syn_index = {s: i for i, s in enumerate(synsets)}
+    clouds, labels, cats = [], [], []
+    max_part = 0
+    for entry in files:
+        _, synset, mid = entry.split("/")
+        clouds.append(read_points_txt(os.path.join(root, synset, "points", mid + ".pts")))
+        seg_path = os.path.join(root, synset, "points_label", mid + ".seg")
+        seg = (np.loadtxt(seg_path, dtype=np.int32, ndmin=1).reshape(-1) - 1).astype(np.int32)
+        labels.append(seg)
+        cats.append(syn_index[synset])
+        max_part = max(max_part, int(seg.max()) + 1)
+    return PartSegSource(
+        clouds=clouds,
+        point_labels=labels,
+        categories=np.asarray(cats, np.int32),
+        n_categories=len(synsets),
+        n_parts=max_part,
     )
 
 

@@ -1,5 +1,5 @@
 """Synthetic point clouds for smoke runs, numpy only
-(port of ``mccnn_tpu/data/synthetic.py:13-72``).
+(port of ``mccnn_tpu/data/synthetic.py``).
 
 The port's own copy: it imports nothing of the JAX package.
 """
@@ -68,3 +68,19 @@ def classification_batch(
         [primitive_cloud(_PRIMS[l], n_points, rng) for l in labels]
     )
     return pts, labels.astype(np.int32)
+
+
+def segmentation_batch(rng: np.random.Generator, batch: int, n_points: int, n_parts: int = 4):
+    """(points, per-point part labels): a primitive cut into ``n_parts`` slabs
+    along z (``synthetic.py:75``)."""
+    pts, _ = classification_batch(rng, batch, n_points)
+    edges = np.linspace(-1.0, 1.0, n_parts + 1)[1:-1]
+    return pts, np.digitize(pts[..., 2], edges).astype(np.int32)
+
+
+def normals_batch(rng: np.random.Generator, batch: int, n_points: int):
+    """Spheres with their analytic normals, the position's direction
+    (``synthetic.py:86``)."""
+    pts = np.stack([primitive_cloud("sphere", n_points, rng) for _ in range(batch)])
+    normals = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    return pts, normals.astype(np.float32)

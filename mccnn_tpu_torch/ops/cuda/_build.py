@@ -45,6 +45,9 @@ F = ctypes.c_float
 SIGNATURES = {
     "kde_density_launch": [P, P, I, I, F, F, F, P, P],
     "poisson_sweep_launch": [P, P, P, P, I, I, F, P, P],
+    "poisson_sweep_v2_launch": [P, P, P, P, I, I, F, P, P, P],
+    "poisson_sweep_v3_launch": [P, P, P, P, P, P, I, I, I, F, P, P],
+    "poisson_sweep_v4_launch": [P, P, P, P, I, I, I, F, P, P],
     "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
     "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P],
     "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],

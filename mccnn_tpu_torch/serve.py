@@ -15,15 +15,20 @@ from typing import Callable
 
 import torch
 
+from .train.state import _model_args
 
 def make_predict_fn(model: torch.nn.Module) -> Callable:
-    """Eval-mode, ``inference_mode`` closure over ``(points, mask[, features])``
-    — the positional contract of ``mccnn_tpu/train/state.py:48-54``."""
+    """Eval-mode, ``inference_mode`` closure over ``(points, mask[, features][,
+    category_onehot])`` — the positional contract of
+    ``mccnn_tpu/train/state.py:48-54`` (the one-hot only when given)."""
     model.eval()
 
-    def predict(points, mask, features=None):
+    def predict(points, mask, features=None, category_onehot=None):
+        batch = {"points": points, "mask": mask, "features": features}
+        if category_onehot is not None:
+            batch["category_onehot"] = category_onehot
         with torch.inference_mode():
-            return model(points, mask, features)
+            return model(*_model_args(batch))
 
     return predict
 
@@ -42,7 +47,8 @@ class Predictor:
 
     def predict(self, batch: dict) -> torch.Tensor:
         """``batch``: ``points (b, N, 3)``, ``mask (b, N)`` and optional
-        ``features (b, N, C)``, numpy arrays or tensors. Returns ``(b, ...)``
+        ``features (b, N, C)`` and ``category_onehot (b, K)`` (MCSeg on
+        ShapeNet), numpy arrays or tensors. Returns ``(b, ...)``
         outputs on the model's device (a tuple of them for a model that
         returns one)."""
         b = int(batch["points"].shape[0])
@@ -52,7 +58,7 @@ class Predictor:
                 "split the request"
             )
         args = []
-        for key in ("points", "mask", "features"):
+        for key in ("points", "mask", "features", "category_onehot"):
             v = batch.get(key)
             if v is None:
                 args.append(None)

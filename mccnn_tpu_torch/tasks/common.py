@@ -33,6 +33,7 @@ from ..ops.cuda.tile_conv import auto_tile_pairs, count_tile_steps
 from ..ops.dispatch import DENSE_MAX_N
 from ..train import batch_to_device, init_state, make_optimizer, make_train_step
 from ..train.checkpoint import Checkpointer
+from ..train.state import _model_args
 from ..train.metrics import MetricsLogger
 
 
@@ -294,7 +295,7 @@ class Runner:
         A model with tile sites reports its dropped steps; a batch that drops
         any grows the budgets to cover it and runs again (``common.py:405-423``)."""
         args = batch_to_device(batch, self.device)
-        inputs = (args["points"], args["mask"], args.get("features"))
+        inputs = _model_args(args)
         self.model.eval()
         with torch.inference_mode():
             if not hasattr(self.model, "tile_sites"):

@@ -5,7 +5,9 @@ from .losses import (
     accuracy,
     classh_loss,
     classification_loss,
+    iou_per_class,
     masked_accuracy,
+    normal_loss,
     segmentation_loss,
 )
 from .state import (
@@ -23,8 +25,10 @@ __all__ = [
     "classh_loss",
     "classification_loss",
     "init_state",
+    "iou_per_class",
     "make_optimizer",
     "make_train_step",
     "masked_accuracy",
+    "normal_loss",
     "segmentation_loss",
 ]

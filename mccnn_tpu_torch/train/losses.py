@@ -1,8 +1,9 @@
-"""Task losses (port of ``mccnn_tpu/train/losses.py:15-30, 44-65``).
+"""Task losses (port of ``mccnn_tpu/train/losses.py``).
 
 Classification: the mean softmax cross-entropy, MCClassH's joint + per-path
-loss and the accuracy. Segmentation: the masked, optionally class-weighted
-per-point cross-entropy and the masked accuracy.
+loss and the accuracy. Normals: the sign-invariant cosine distance.
+Segmentation: the masked, optionally class-weighted per-point cross-entropy,
+the masked accuracy and the per-class intersection / union counts.
 """
 
 from __future__ import annotations
@@ -26,6 +27,19 @@ def classh_loss(logits: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     )
 
 
+def normal_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                eps: float = 1e-8) -> torch.Tensor:
+    """``1 - |cos|`` between predicted and ground-truth normals, averaged over
+    the valid points (``losses.py:33-41``): sign-invariant, since a normal
+    estimated from points alone has no orientation. The norms get ``+ eps``,
+    as in the reference."""
+    p = pred / (torch.linalg.vector_norm(pred, dim=-1, keepdim=True) + eps)
+    t = target / (torch.linalg.vector_norm(target, dim=-1, keepdim=True) + eps)
+    loss = 1.0 - (p * t).sum(-1).abs()
+    m = mask.to(loss.dtype)
+    return (loss * m).sum() / m.sum().clamp_min(1.0)
+
+
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).float().mean()
 
@@ -47,3 +61,15 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     ok = (logits.argmax(-1) == labels) & mask
     return ok.sum() / mask.sum().clamp_min(1)
+
+
+def iou_per_class(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                  n_classes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(intersection, union) int32 counts per class over the valid points
+    (``losses.py:68-84``), to be summed across batches and divided at the end."""
+    pred = logits.argmax(-1)
+    classes = torch.arange(n_classes, device=logits.device)
+    p = (pred[..., None] == classes) & mask[..., None]
+    t = (labels[..., None].long() == classes) & mask[..., None]
+    dims = tuple(range(p.dim() - 1))
+    return (p & t).sum(dims).to(torch.int32), (p | t).sum(dims).to(torch.int32)

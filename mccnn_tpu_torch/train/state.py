@@ -141,8 +141,13 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def _model_args(batch: dict) -> tuple:
-    """(points, mask, features) — the positional contract of the model zoo."""
-    return batch["points"], batch["mask"], batch.get("features")
+    """(points, mask, features[, category_onehot]) — the positional contract
+    of the model zoo (``mccnn_tpu/train/state.py:48-54``): MCSeg also takes
+    the category one-hot of a ShapeNet batch."""
+    args = [batch["points"], batch["mask"], batch.get("features")]
+    if "category_onehot" in batch:
+        args.append(batch["category_onehot"])
+    return tuple(args)
 
 
 def _uncommitted(model: nn.Module) -> Callable[[], None]:

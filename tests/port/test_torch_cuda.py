@@ -68,6 +68,54 @@ def test_poisson_kernel_is_bit_equal_to_plain(cuda, N, radius):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,radius", [(2, 300, 0.12), (4, 1024, 0.1), (4, 496, 0.4),
+                                        (3, 40, 0.4), (8, 1024, 0.025)])
+def test_poisson_variant_kernels_are_bit_equal_to_plain_and_k3(cuda, B, N, radius):
+    """K3v2 / K3v3 / K3v4 against their plain versions and K3, bit for bit,
+    and bit for bit on repeat (v3 where its layout fits, v4 at each SB that
+    folds the batch)."""
+    pts, mask = cloud(7, B=B, N=N, masked=N // 7, device=cuda)
+    cids, colors = sweep_cells(pts, radius)
+    args = (pts, mask, cids, colors, radius)
+    k3 = poisson_kernel.poisson_sweep_cuda(*args)
+    assert torch.equal(k3, poisson_kernel.poisson_sweep_reference(*args))
+    runs = [(poisson_kernel.poisson_sweep_v2_cuda, poisson_kernel.poisson_sweep_v2_reference, {})]
+    layout = poisson_kernel.v3_layout(mask, cids, colors)
+    if layout.order.shape[1] > poisson_kernel.SWEEP_WINDOW and bool(layout.fits):
+        runs.append((poisson_kernel.poisson_sweep_v3_cuda,
+                     poisson_kernel.poisson_sweep_v3_reference, {"layout": layout}))
+    runs += [(poisson_kernel.poisson_sweep_v4_cuda, poisson_kernel.poisson_sweep_v4_reference,
+              {"sb": sb}) for sb in (1, 2, 4) if B % sb == 0]
+    for kernel, plain, kw in runs:
+        got = kernel(*args, **kw)
+        assert torch.equal(got, plain(*args, **kw)), kernel.__name__
+        assert torch.equal(got, k3) and torch.equal(kernel(*args, **kw), got), kernel.__name__
+
+
+@pytest.mark.cuda
+def test_poisson_switch_launches_each_variant_kernel(cuda, monkeypatch):
+    pts, mask = cloud(8, B=2, N=300, masked=50, device=cuda)
+    tight = (0.30 + 0.0015 * torch.rand((1, 300, 3), generator=torch.Generator().manual_seed(0)))
+    counters = lambda: (poisson_kernel.launches, poisson_kernel.launches_v2,  # noqa: E731
+                        poisson_kernel.launches_v3, poisson_kernel.launches_v4)
+    cases = [("v1", pts, mask, (1, 0, 0, 0)), ("v2", pts, mask, (0, 1, 0, 0)),
+             ("v3", pts, mask, (0, 0, 1, 0)), ("v42", pts, mask, (0, 0, 0, 1)),
+             ("v4", pts, mask, (1, 0, 0, 0)),  # B = 2 does not fold 4 a block: K3
+             ("v3", tight.to(cuda), torch.ones((1, 300), dtype=torch.bool, device=cuda),
+              (1, 0, 0, 0))]  # one colour run longer than the window: K3
+    for variant, p, m, want in cases:
+        monkeypatch.setattr(poisson_kernel, "_SWEEP", variant)
+        before = counters()
+        poisson_disk(p, m, 0.12, 128)
+        assert tuple(a - b for a, b in zip(counters(), before)) == want, variant
+    monkeypatch.setattr(poisson_kernel, "_SWEEP", "v2")
+    big, bmask = cloud(9, B=1, N=1100, masked=0, device=cuda)
+    before = counters()
+    poisson_disk(big, bmask, 0.12, 128)  # above 1024 points the switch does not apply
+    assert tuple(a - b for a, b in zip(counters(), before)) == (1, 0, 0, 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_out,mean", [(1, 16, False), (8, 4, True), (8, None, False),
                                              (8, None, True), (300, 2, False)])
 def test_conv_kernel_matches_plain(cuda, c_in, c_out, mean):
@@ -242,6 +290,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ]
     counters = lambda: (density_kernel.launches, poisson_kernel.launches,  # noqa: E731
                         dense_conv.launches, dense_conv.backward_launches)
+    before = counters()
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert counters() == before
+
+
+def test_poisson_variant_wrappers_refuse_cpu_tensors():
+    pts, mask = cloud(6, N=300)
+    cids, colors = sweep_cells(pts, 0.2)
+    args = (pts, mask, cids, colors, 0.2)
+    calls = [lambda: poisson_kernel.poisson_sweep_v2_cuda(*args),
+             lambda: poisson_kernel.poisson_sweep_v3_cuda(*args),
+             lambda: poisson_kernel.poisson_sweep_v4_cuda(*args, sb=2)]
+    counters = lambda: (poisson_kernel.launches_v2, poisson_kernel.launches_v3,  # noqa: E731
+                        poisson_kernel.launches_v4)
     before = counters()
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):

@@ -6,7 +6,10 @@ MCClassS above 3072 points, on the cell-bucket kernels), the rest of the
 classification zoo (MCClass, MCClassH) with the per-h dense conv pair K1v1 /
 K2v1 that ``MCCNN_DENSE_V1=1`` selects, and normal estimation (MCNorm,
 MCNormS) and ShapeNet part segmentation with the Poisson sweep variants K3v2 /
-K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects.
+K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects, and ScanNet under the
+reference's tile switches (``MCCNN_TILE_BWD_V1``, ``MCCNN_TILE_PACK``,
+``MCCNN_TILE_ORDER``, ``MCCNN_TILE_ADJ``, ``MCCNN_TILE_MINOR``) with K6v1 and
+K5p / K6p.
 
     python3 chip_smoke.py
 
@@ -44,7 +47,14 @@ K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects.
    repeats bit for bit; times, bounds and plain times are printed.
    K6 (the tile MC-conv backward) at the same four sites of the batch,
    with a seeded dout: d_wf and every parameter gradient against the plain
-   version, bitwise repetition, times and bounds.
+   version, bitwise repetition, times and bounds. Then the tile switches'
+   kernels at the same sites: K5p and K6p (packed minor records) bit for bit
+   against K5 and K6 and against their plain versions, K6v1 (the per-h
+   backward) within 1e-5 of each gradient's largest value of its plain
+   version and of K6 and bit for bit on repeat, with their times, plain times
+   and bounds; and K5 and K6 at the minor sizes 8, 16, 64 and 128, K7 and K8
+   at 64 and 8, each against its plain version with the capacity sized under
+   that minor.
 9. MCSeg (ScanNet defaults: grow 64, radii 0.05 / 0.15 / 0.4, seeded weights
    and BN statistics) on the card against the CPU plain path at B=2 x 8192
    (B=8 would keep the CPU for minutes), and the card's B=8 block hierarchy
@@ -62,7 +72,12 @@ K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects.
    the CLI's defaults (B=8 x 8192) for 4 steps with ``--tile-pairs 32``, small
    enough that a step drops tile steps, is discarded, re-sized and run again;
    requires a finite loss, at least one ``resize`` record and the launch
-   counters of K1-K6 and K8 moving, and prints the warm time per step.
+   counters of K1-K6 and K8 moving, and prints the warm time per step. The
+   same training at the CLI's defaults (4 steps and its evaluation) in child
+   processes, with no switch and under ``MCCNN_TILE_BWD_V1=1`` (K6v1 launched, K6 not), ``MCCNN_TILE_PACK=1``
+   (K5p and K6p launched, K5 and K6 not) and ``MCCNN_TILE_ORDER=morton
+   MCCNN_TILE_ADJ=aabb MCCNN_TILE_MINOR=64`` with ``--whole-scene-cap 40960``
+   (K5-K8 at Tm = 64): each must print a finite loss and its counters.
 12. The bucket path on a block batch of B=8 x 8192 at the same widths with no
    tile capacity: the hierarchy (level 0 sampled through its self-neighbour
    lists) against the CPU plain path's, and per bucket site the grid
@@ -117,9 +132,10 @@ K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects.
    and ``v4``, each in a child process: its counters must show that
    variant's kernel launched and no other variant's.
 26. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, K5-K10 at the ScanNet shapes, K1v1 / K2v1 summed over the zoo's 14
-   sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's two sweeps at
-   B=32; each with its least possible time on the card, ``bound_ms``, from
+   B=32, K5-K10, K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed
+   over the zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
+   two sweeps at B=32; each with its least possible time on the card,
+   ``bound_ms``, from
    the bytes and operations of this run's inputs), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -202,6 +218,23 @@ TASK_TRAIN_STEPS = 3  # tasks.normals / tasks.shapenet steps before their evalua
 # the variant's value, its plain version and kernel in ops/cuda/poisson_kernel.py)
 SWEEP_VARIANTS = {"K3v2": ("launches_v2", "v2"), "K3v3": ("launches_v3", "v3"),
                   "K3v4": ("launches_v4", "v4")}
+# The tile switches (mccnn_tpu/ops/pallas/tile_conv.py): the minor sizes K5 and
+# K6 are checked at besides the default 32, those of K7 and K8, and the child
+# trainers: name -> (environment, extra CLI arguments, kernels that must run,
+# kernels that must not). The first runs no switch: the others' step times
+# are read against it (the parent's trainer runs with --tile-pairs 32).
+TILE_MINORS = (8, 16, 64, 128)
+SWEEP_MINORS = (64, 8)
+TILE_SWITCH_KERNELS = ("K5p", "K6p", "K6v1")
+TILE_CHILD_STEPS = 4
+TILE_SWITCH_CHILDREN = {
+    "default": ({}, (), ("K5", "K6"), ("K5p", "K6p", "K6v1")),
+    "v1": ({"MCCNN_TILE_BWD_V1": "1"}, (), ("K5", "K6v1"), ("K6", "K5p", "K6p")),
+    "pack": ({"MCCNN_TILE_PACK": "1"}, (), ("K5p", "K6p"), ("K5", "K6", "K6v1")),
+    "morton_aabb_64": ({"MCCNN_TILE_ORDER": "morton", "MCCNN_TILE_ADJ": "aabb",
+                        "MCCNN_TILE_MINOR": "64"}, ("--whole-scene-cap", str(SEG_CAP)),
+                       ("K5", "K6", "K7", "K8"), ("K5p", "K6p", "K6v1")),
+}
 
 # The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
 # bandwidth, and the float32 rate outside the tensor cores (every kernel here
@@ -241,6 +274,12 @@ TILE_RTOL = 1e-4
 #     to it too: the plain version rounds pre_h as the kernel's mc_preact does,
 #     so no pair's ReLU step falls differently (K2's plain version does not).
 TILE_BWD_RTOL = 1e-4
+# K6v1 against its plain version and against K6: every gradient within 1e-5
+#     of its tensor's largest value (fp32 sums over the backward list's pairs,
+#     h and channels in other orders; all three round pre_h as mc_preact
+#     does). K5p / K6p against K5 / K6: bit for bit (the same sums in the
+#     same order over the same staged values).
+TILE_V1_RTOL = 1e-5
 # MCSeg logits, card vs the CPU plain path: identical hierarchies, then fp32
 #     sums in other orders through seven convs and thirteen BNs and dense layers.
 SEG_LOGIT_RTOL = 1e-3
@@ -600,6 +639,8 @@ def counters() -> dict:
             "K7": (tile_conv, "kde_launches"),
             "K8": (tile_conv, "cover_launches"),
             "K9": (mcconv_kernel, "launches"), "K10": (mcconv_kernel, "backward_launches"),
+            "K5p": (tile_conv, "packed_launches"), "K6p": (tile_conv, "packed_backward_launches"),
+            "K6v1": (tile_conv, "backward_v1_launches"),
             **{kid: (poisson_kernel, attr) for kid, (attr, _) in SWEEP_VARIANTS.items()}}
 
 
@@ -796,9 +837,10 @@ def inr_pairs(smp, qmask, src, smask, radius, cand=None) -> int:
     return total
 
 
-def check_cover_sweep(dev, pts, mask, tile_pairs) -> tuple:
+def check_cover_sweep(dev, pts, mask, tile_pairs, timed: bool = True) -> tuple:
     """K8 at each colour of the level-0 tile sweep, then the sweep's selection
-    against the sampler's own path and the dense plain sampler."""
+    against the sampler's own path and (``timed``) the dense plain sampler;
+    ``timed`` also times the kernel and its plain version and sums the bounds."""
     from mccnn_tpu_torch.core import sampling
     from mccnn_tpu_torch.core.grid import cell_color27, linear_cell_ids
     from mccnn_tpu_torch.ops.cuda import poisson_kernel, tile_conv
@@ -837,24 +879,28 @@ def check_cover_sweep(dev, pts, mask, tile_pairs) -> tuple:
         err = max(err, float((got - want).abs().max()))
         require(bool(torch.equal(got, want)), f"K8 differs from its plain version at colour {c}")
         require(bool(torch.equal(got, again)), f"K8 differs between two calls at colour {c}")
-        ms += time_ms(lambda: tile_conv.cover_counts_cuda(lay, cand, radius), iters=5)
-        pms += time_ms(lambda: tile_conv.cover_counts_reference(lay, cand, radius), iters=1)
-        pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius, cand)
-        flagged_pairs += pairs
-        bounds.append(bound(B * rows * (12 + 1 + 1 + 4), 8 * pairs))
-        bms += bounds[-1][0]
+        if timed:
+            ms += time_ms(lambda: tile_conv.cover_counts_cuda(lay, cand, radius), iters=5)
+            pms += time_ms(lambda: tile_conv.cover_counts_reference(lay, cand, radius), iters=1)
+            pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius, cand)
+            flagged_pairs += pairs
+            bounds.append(bound(B * rows * (12 + 1 + 1 + 4), 8 * pairs))
+            bms += bounds[-1][0]
         selected |= cand
         covered |= got > 0
     sel = torch.empty((B, N), dtype=torch.bool, device=dev)
     sel.scatter_(1, order, selected[:, :N])
     path, ovf = sampling._poisson_tiles(pts, mask, coords, cids, colors, radius, res, tile_pairs)
-    dense = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
+    dense = (poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
+             if timed else sel)
     torch.cuda.synchronize()
-    print(f"K8 B={B} N={N} r={radius} S={lay.S} (27 colours): max_abs_err={err:.1f} "
+    print(f"K8 B={B} N={N} r={radius} Tm={lay.steps.Tm} S={lay.S} (27 colours): "
+          f"max_abs_err={err:.1f} "
           f"bit_equal=True "
           f"bitwise_repeatable=True selected={int(sel.sum())} "
           f"equal_to_the_sampler_path={bool(torch.equal(sel, path & mask))} "
-          f"equal_to_the_dense_plain_sampler={bool(torch.equal(sel, dense))} "
+          f"equal_to_the_dense_plain_sampler="
+          f"{bool(torch.equal(sel, dense)) if timed else 'not run'} "
           f"overflow={int(ovf.max())} flagged_in_radius_pairs={flagged_pairs} "
           f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} (per sweep, summed)",
           flush=True)
@@ -862,7 +908,7 @@ def check_cover_sweep(dev, pts, mask, tile_pairs) -> tuple:
             "per-colour replay")
     require(bool(torch.equal(sel, dense)), "the tile sweep differs from the dense plain sampler")
     require(int(ovf.max()) == 0, "the level-0 sampler overflowed its auto-sized capacity")
-    return (err, ms, pms, bms, max(bounds)[1], None)
+    return (err, ms, pms, bms, max(bounds)[1] if bounds else None, None)
 
 
 def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
@@ -887,7 +933,8 @@ def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
         p_ms = time_ms(lambda: tile_conv.tile_kde_sums_reference(lay, radius), iters=2)
         pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius)
         b_ms, by = bound(SEG_CAP * (12 + 1 + 4), 12 * pairs)
-        print(f"K7 B=1 N={SEG_CAP} (valid {int(mask.sum())}) r={radius} S={lay.S}: "
+        print(f"K7 B=1 N={SEG_CAP} (valid {int(mask.sum())}) r={radius} Tm={lay.steps.Tm} "
+              f"S={lay.S}: "
               f"max_abs_err={e:.3e} max_rel_err={rel:.3e} bitwise_repeatable=True "
               f"in_radius_pairs={pairs} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.6f} ({by})", flush=True)
@@ -903,6 +950,38 @@ def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
         require(bool(torch.allclose(tile, dense, rtol=TILE_RTOL, atol=0.0)),
                 f"K7 and K4 disagree at N={bp.shape[1]}, r={radius}")
     return (err, ms, pms, bms, by, None)
+
+
+def tile_fwd_bound(smp, qmask, src, c, co, pairs) -> tuple[float, str]:
+    """K5's least time (K5p's too): each input and output byte once, and the
+    fp32 operations of the in-radius pairs (and the full conv's projection)."""
+    b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+    CO, H1 = (c if co is None else co), H + 1
+    nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
+                   * (co or 1) + b * M * CO + b * M) + b * (M + N))
+    flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
+    if co is not None:
+        flops += 2 * int(qmask.sum()) * H1 * c * co
+    return bound(nbytes, flops)
+
+
+def tile_bwd_bound(smp, qmask, src, smask, c, co, pairs) -> tuple[float, str]:
+    """K6's least time (K6p's and K6v1's too: the same gradients of the same
+    pairs)."""
+    b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+    CO, H1 = (c if co is None else co), H + 1
+    vq, vp = int(qmask.sum()), int(smask.sum())
+    nw = H * c * (co or 1) + c * (co or 1) + 4 * H
+    nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
+              + b * (M + N))
+    # per in-radius pair: d2, offsets, H pre-activations, dpre's H x C and
+    # dW1 / db1; depthwise, X's (H+1) x C FMAs and X's projections; full (the
+    # stem), what the gradient needs: d_f~ = sum_h a_h dG and G = sum_p a_h f~
+    # over (H+1) x C, and the GEMMs dG = t Wcat and dWcat = t^T G
+    flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
+    flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
+              pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
+    return bound(nbytes, flops)
 
 
 def check_tile_conv(dev, hier, tile_pairs) -> tuple:
@@ -939,17 +1018,11 @@ def check_tile_conv(dev, hier, tile_pairs) -> tuple:
                            iters=10)
             p_ms = time_ms(lambda: tile_conv.tile_conv_sorted_reference(params, lay, wf, radius,
                                                                         **kw), iters=1)
-            CO = c if co is None else co
-            H1 = H + 1
             pairs = inr_pairs(smp, qmask, src, smask, radius)
-            nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
-                           * (co or 1) + b * M * CO + b * M) + b * (M + N))
-            flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
-            if co is not None:
-                flops += 2 * int(qmask.sum()) * H1 * c * co
-            b_ms, by = bound(nbytes, flops)
+            b_ms, by = tile_fwd_bound(smp, qmask, src, c, co, pairs)
             steps = int((lay.steps.j_ids != lay.steps.n_minor).sum())
-            print(f"K5 B={b} {name} N={N} M={M} C={c} CO={co}: S={lay.S} candidate_minors={steps} "
+            print(f"K5 B={b} {name} N={N} M={M} C={c} CO={co}: Tm={lay.steps.Tm} S={lay.S} "
+                  f"candidate_minors={steps} "
                   f"in_radius_pairs={pairs} max_abs_err={e:.3e} max_abs_out={scale:.3e} "
                   f"bitwise_repeatable=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                   f"bound_ms={b_ms:.6f} ({by})", flush=True)
@@ -1000,23 +1073,10 @@ def check_tile_backward(dev, hier, tile_pairs) -> tuple:
                            iters=5)
             p_ms = time_ms(lambda: tile_conv.tile_conv_backward_sorted_reference(*args, c_out=co),
                            iters=1)
-            H1 = H + 1
             pairs = inr_pairs(smp, qmask, src, smask, radius)
-            vq, vp = int(qmask.sum()), int(smask.sum())
-            nw = H * c * (co or 1) + c * (co or 1) + 4 * H
-            nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
-                      + b * (M + N))
-            # per in-radius pair: d2, offsets, H pre-activations, dpre's H x C
-            # and dW1 / db1; depthwise, X's (H+1) x C FMAs and X's projections;
-            # full (the stem), what the gradient needs: d_f~ = sum_h a_h dG and
-            # G = sum_p a_h f~ over (H+1) x C, and the GEMMs dG = t Wcat and
-            # dWcat = t^T G
-            flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
-            flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
-                      pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
-            b_ms, by = bound(nbytes, flops)
+            b_ms, by = tile_bwd_bound(smp, qmask, src, smask, c, co, pairs)
             steps = int((lay.steps_b.j_ids != lay.steps_b.n_minor).sum())
-            print(f"K6 B={b} {name} N={N} M={M} C={c} CO={co}: S={lay.S} "
+            print(f"K6 B={b} {name} N={N} M={M} C={c} CO={co}: Tm={lay.steps.Tm} S={lay.S} "
                   f"candidate_minors={steps} in_radius_pairs={pairs} max_abs_err (err/scale) "
                   f"{', '.join(parts)}; bitwise_repeatable=True kernel_ms={k_ms:.4f} "
                   f"plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})", flush=True)
@@ -1024,8 +1084,133 @@ def check_tile_backward(dev, hier, tile_pairs) -> tuple:
     return (err, ms, pms, bms, by, None)
 
 
+def check_tile_switch_kernels(dev, hier, tile_pairs) -> dict:
+    """K5p and K6p bit-equal to K5 and K6, and K6v1 against its plain version
+    and K6, at the four tile sites of the block batch with a seeded dout; the
+    kernels' and plain versions' times and the bounds (K5p's is K5's, K6p's
+    and K6v1's K6's)."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    rows = {kid: [0.0, 0.0, 0.0, 0.0, "operations"] for kid in TILE_SWITCH_KERNELS}
+
+    def add(kid, err, k_ms, p_ms, b):
+        r = rows[kid]
+        r[0], r[1], r[2], r[3], r[4] = max(r[0], err), r[1] + k_ms, r[2] + p_ms, r[3] + b[0], b[1]
+
+    for name, i, o, radius, c, co in SEG_SITES:
+        (src, smask), (smp, qmask) = hier[i], hier[o]
+        b, N = smp.shape[0], src.shape[1]
+        CO = c if co is None else co
+        params = site_params(gen, c, co, dev)
+        feats = (torch.ones((b, N, 1)) if c == 1 else
+                 torch.randn((b, N, c), generator=gen)).to(dev)
+        with torch.no_grad():
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            max_pairs = tile_pairs if 0 in (i, o) else 1 << 30
+            lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=max_pairs,
+                                        backward=True)
+            require(int(lay.overflow.max()) == 0, f"the layout overflowed at {name}")
+            wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+            kw = dict(c_out=co)
+            k5 = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+            k5p = tile_conv.tile_conv_sorted_packed_cuda(params, lay, wf, radius, **kw)
+            k5p_plain = tile_conv.tile_conv_sorted_packed_reference(params, lay, wf, radius, **kw)
+            dout = torch.randn((b, lay.smp.shape[1], CO), generator=gen).to(dev)
+            args = (params, lay, wf, radius, k5[1], dout)
+            k6 = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
+            k6p = tile_conv.tile_conv_backward_sorted_packed_cuda(*args, **kw)
+            k6p_plain = tile_conv.tile_conv_backward_sorted_packed_reference(*args, **kw)
+            v1 = tile_conv.tile_conv_backward_v1_sorted_cuda(*args, **kw)
+            v1_again = tile_conv.tile_conv_backward_v1_sorted_cuda(*args, **kw)
+            v1_plain = tile_conv.tile_conv_backward_v1_sorted_reference(*args, **kw)
+            torch.cuda.synchronize()
+        require(bool(torch.equal(k5p[0], k5[0]) and torch.equal(k5p[1], k5[1])),
+                f"K5p differs from K5 at {name}")
+        scale = float(k5p_plain[0].abs().max())
+        e5p = float((k5p[0] - k5p_plain[0]).abs().max())
+        require(e5p <= TILE_RTOL * scale, f"K5p disagrees with its plain version at {name}")
+        e6p = e1 = 0.0
+        parts = []
+        for gname, a6p, w6p, a6, a1, a1b, w1 in zip(names, k6p, k6p_plain, k6, v1, v1_again,
+                                                    v1_plain):
+            require(bool(torch.equal(a6p, a6)), f"K6p {gname} differs from K6 at {name}")
+            sc = float(w6p.abs().max())
+            e6p = max(e6p, float((a6p - w6p).abs().max()))
+            require(bool(torch.allclose(a6p, w6p, rtol=TILE_BWD_RTOL, atol=TILE_BWD_RTOL * sc)),
+                    f"K6p {gname} disagrees with its plain version at {name}")
+            require(bool(torch.equal(a1, a1b)), f"K6v1 {gname} differs between two calls at {name}")
+            for ref, what in ((w1, "its plain version"), (a6, "K6")):
+                sc = float(ref.abs().max())
+                e = float((a1 - ref).abs().max())
+                require(sc > 0 and e <= TILE_V1_RTOL * sc,
+                        f"K6v1 {gname} disagrees with {what} at {name}: {e:.3e} of {sc:.3e}")
+            e = float((a1 - w1).abs().max())
+            e1 = max(e1, e)
+            parts.append(f"{gname} {e:.3e}/{float((a1 - a6).abs().max()):.3e}/"
+                         f"{float(w1.abs().max()):.3e}")
+        pairs = inr_pairs(smp, qmask, src, smask, radius)
+        fb = tile_fwd_bound(smp, qmask, src, c, co, pairs)
+        bb = tile_bwd_bound(smp, qmask, src, smask, c, co, pairs)
+        t = {"K5p": (time_ms(lambda: tile_conv.tile_conv_sorted_packed_cuda(params, lay, wf,
+                                                                             radius, **kw),
+                             iters=10),
+                     time_ms(lambda: tile_conv.tile_conv_sorted_packed_reference(
+                         params, lay, wf, radius, **kw), iters=1)),
+             "K6p": (time_ms(lambda: tile_conv.tile_conv_backward_sorted_packed_cuda(*args, **kw),
+                             iters=5),
+                     time_ms(lambda: tile_conv.tile_conv_backward_sorted_packed_reference(
+                         *args, **kw), iters=1)),
+             "K6v1": (time_ms(lambda: tile_conv.tile_conv_backward_v1_sorted_cuda(*args, **kw),
+                              iters=3),
+                      time_ms(lambda: tile_conv.tile_conv_backward_v1_sorted_reference(
+                          *args, **kw), iters=1))}
+        add("K5p", e5p, *t["K5p"], fb)
+        add("K6p", e6p, *t["K6p"], bb)
+        add("K6v1", e1, *t["K6v1"], bb)
+        print(f"K5p / K6p / K6v1 B={b} {name} N={N} M={smp.shape[1]} C={c} CO={co}: "
+              f"Tm={lay.steps.Tm} S={lay.S} K5p_bit_equal_to_K5=True K6p_bit_equal_to_K6=True "
+              f"K5p_max_abs_err={e5p:.3e} K6p_max_abs_err={e6p:.3e} K6v1 max_abs_err "
+              f"(plain/K6/scale) {', '.join(parts)}; K6v1_bitwise_repeatable=True "
+              + " ".join(f"{k}_ms={v[0]:.4f} {k}_plain_ms={v[1]:.4f}" for k, v in t.items())
+              + f" fwd_bound_ms={fb[0]:.6f} bwd_bound_ms={bb[0]:.6f}", flush=True)
+    return {kid: (*r[:4], r[4], None) for kid, r in rows.items()}
+
+
+def check_tile_minors(dev, hier, block) -> None:
+    """K5 and K6 at every minor size of TILE_MINORS at the four tile sites,
+    and K8 (the 27 colours of the level-0 sweep) and K7 (the whole scene) at
+    SWEEP_MINORS, each against its plain version at the default minor's
+    tolerances and timed, with the capacity ``auto_tile_pairs`` sizes under
+    that minor; the hierarchy is the default minor's (the tile sampler's
+    selection does not depend on it)."""
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+
+    pts, mask = block
+    wpts, wmask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 6))
+    default = tile_conv._MINOR
+    try:
+        for m in TILE_MINORS:
+            tile_conv._MINOR = str(m)
+            tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+            print(f"minor Tm={m}: block tile_pairs={tile_pairs}", flush=True)
+            with torch.no_grad():
+                check_tile_conv(dev, hier, tile_pairs)
+            check_tile_backward(dev, hier, tile_pairs)
+            if m in SWEEP_MINORS:
+                whole_pairs = tile_conv.auto_tile_pairs(wpts, wmask, 2 * SEG_RADII[0])
+                with torch.no_grad():
+                    check_cover_sweep(dev, pts, mask, tile_pairs, timed=False)
+                    check_tile_kde(dev, whole_pairs, block)
+    finally:
+        tile_conv._MINOR = default
+
+
 def check_tile_kernels(dev) -> dict:
-    """K8, K7, K5 and K6 against their plain versions at the ScanNet shapes."""
+    """K8, K7, K5 and K6 against their plain versions at the ScanNet shapes,
+    then the tile switches' kernels (K5p, K6p, K6v1) and K5-K8 at the other
+    minor sizes."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
 
@@ -1045,6 +1230,8 @@ def check_tile_kernels(dev) -> dict:
               [int(m.sum(1).min()) for _, m in lv], flush=True)
         results["K5"] = check_tile_conv(dev, lv, tile_pairs)
     results["K6"] = check_tile_backward(dev, lv, tile_pairs)
+    results |= check_tile_switch_kernels(dev, lv, tile_pairs)
+    check_tile_minors(dev, lv, (pts, mask))
     return results
 
 
@@ -1309,6 +1496,73 @@ def run_scannet_train() -> dict:
     for name in ("K1", "K2", "K3", "K4", "K5", "K6", "K8"):
         require(launches[name] > 0, f"{name} was not launched in ScanNet training")
     return launches
+
+
+_TILE_CHILD = r"""
+import json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from mccnn_tpu_torch.ops.cuda import tile_conv
+from mccnn_tpu_torch.tasks import scannet
+with tempfile.TemporaryDirectory() as tmp:
+    res = scannet.main(["--synthetic", "--epochs", "1", "--steps-per-epoch", "%d", "--device",
+                        "cuda", "--log-dir", tmp, "--ckpt-dir", tmp + "/ck"] + %r)
+    with open(tmp + "/scannet_mcseg.metrics.jsonl") as f:
+        recs = [json.loads(l) for l in f]
+train = [r for r in recs if r["tag"] == "train"]
+ev = [r for r in recs if r["tag"] == "eval"]
+print("TILE_COUNTS " + json.dumps({
+    "launches": chip_smoke.read_counts(), "minor": tile_conv.tile_minor(),
+    "order": tile_conv._ORDER, "adj": tile_conv._ADJ, "pack": tile_conv._PACK,
+    "v1": tile_conv._BWD_V1, "loss": train[0]["loss"], "steps": train[0]["steps"],
+    "warm_step_ms": train[0].get("warm_step_ms"),
+    "eval": {k: ev[-1].get(k) for k in ("point_accuracy", "mIoU", "scene_ms_all")} if ev else None,
+    "best_mIoU": res["best_mIoU"]}))
+"""
+
+
+def run_tile_switch_trainers() -> dict:
+    """``tasks.scannet`` training at the CLI's defaults (B = 8 x 8192, then its
+    evaluation) with no switch and under each of TILE_SWITCH_CHILDREN's
+    environments, each in a child process: its printed counters must show
+    the switch's kernels launched and the defaults they replace not; a failed
+    child fails the script."""
+    out = {}
+    base = {k: v for k, v in os.environ.items() if not k.startswith("MCCNN_TILE_")}
+    for name, (env_vars, extra, launched, silent) in TILE_SWITCH_CHILDREN.items():
+        what = " ".join(f"{k}={v}" for k, v in env_vars.items())
+        code = _TILE_CHILD % (TILE_CHILD_STEPS, list(extra))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=dict(base, **env_vars),
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                              text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        require(proc.returncode == 0, f"the {what} scannet trainer failed ({proc.returncode}): "
+                f"{proc.stderr[-3000:]}")
+        line = [x for x in proc.stdout.splitlines() if x.startswith("TILE_COUNTS ")]
+        require(len(line) == 1, f"the {what} scannet trainer printed no counters: "
+                f"{proc.stdout[-2000:]}")
+        res = json.loads(line[0][len("TILE_COUNTS "):])
+        counts = res["launches"]
+        print(f"scannet trainer under {what} (child process, tasks.scannet {' '.join(extra)}, "
+              f"B={SEG_B}, N={SEG_N}, {TILE_CHILD_STEPS} steps and one eval): {res} "
+              f"child_sec={seconds:.2f}", flush=True)
+        require(res["steps"] == TILE_CHILD_STEPS and bool(np.isfinite(res["loss"])),
+                f"the {what} scannet trainer's loss or steps")
+        require(res["minor"] == int(env_vars.get("MCCNN_TILE_MINOR", 32))
+                and res["order"] == env_vars.get("MCCNN_TILE_ORDER", "")
+                and res["adj"] == env_vars.get("MCCNN_TILE_ADJ", "")
+                and res["pack"] == ("MCCNN_TILE_PACK" in env_vars)
+                and res["v1"] == ("MCCNN_TILE_BWD_V1" in env_vars),
+                f"{what} did not reach the module's switches: {res}")
+        for kid in launched:
+            require(counts[kid] > 0, f"{kid} was not launched under {what}")
+        for kid in silent:
+            require(counts[kid] == 0, f"{kid} was launched under {what}")
+        out[f"scannet_train_{name}"] = counts
+    return out
 
 
 # ------------------------------------------------------------ the bucket path
@@ -2265,6 +2519,7 @@ def main() -> int:
     seg_launches = {"scannet_blocks": run_scannet(whole=False),
                     "scannet_whole": run_scannet(whole=True),
                     "scannet_train": run_scannet_train()}
+    switch_launches = run_tile_switch_trainers()
     bucket_results = check_bucket_kernels(dev)
     bucket_serve = serve_mcseg_bucket(dev)
     reset_counts()
@@ -2325,10 +2580,18 @@ def main() -> int:
                  "mccnn_tpu/ops/pallas/poisson_kernel.py:293"),
         "K3v4": ("poisson_sweep_v4", "mccnn_tpu_torch/csrc/poisson_sweep_v4.cu",
                  "mccnn_tpu/ops/pallas/poisson_kernel.py:171"),
+        "K5p": ("tile_mc_conv_packed", "mccnn_tpu_torch/csrc/tile_conv_packed.cu",
+                "mccnn_tpu/ops/pallas/tile_conv.py:525"),
+        "K6p": ("tile_mc_conv_backward_packed", "mccnn_tpu_torch/csrc/tile_conv_packed.cu",
+                "mccnn_tpu/ops/pallas/tile_conv.py:658"),
+        "K6v1": ("tile_mc_conv_backward_v1", "mccnn_tpu_torch/csrc/tile_conv_bwd_v1.cu",
+                 "mccnn_tpu/ops/pallas/tile_conv.py:825"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():
-        if kid in tile_results:  # ScanNet shapes: eval and training
+        if kid in TILE_SWITCH_KERNELS:  # ScanNet shapes: the switched child trainers
+            rows, paths, batch = [tile_results[kid]], switch_launches, SEG_B
+        elif kid in tile_results:  # ScanNet shapes: eval and training
             rows, paths, batch = [tile_results[kid]], seg_launches, SEG_B
         elif kid in bucket_results:  # MCSeg's block batch and modelnet --points 4096
             rows, paths, batch = [bucket_results[kid]], bucket_launches, [SEG_B, TRAIN_B]
@@ -2343,7 +2606,8 @@ def main() -> int:
             paths = {"train": train_launches}
             batch = TRAIN_B
         by_path = {k: v[kid] for k, v in {"serve": serve_launches, "train": train_launches,
-                                          **seg_launches, **bucket_launches, **zoo_launches,
+                                          **seg_launches, **switch_launches,
+                                          **bucket_launches, **zoo_launches,
                                           **v1_launches, **norm_launches,
                                           **sweep_launches}.items()}
         lib_ms = [r[5] for r in rows]

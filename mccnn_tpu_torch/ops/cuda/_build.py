@@ -61,11 +61,13 @@ SIGNATURES = {
     "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
     "mcconv_v1_bwd_tiles": [I, I, I, I],
     "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
-    "tile_conv_launch": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, I,
-                         P, P, P],
-    "tile_conv_bwd_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 4,
-    "tile_kde_launch": [P, P, P, P, I, I, I, I, I, F, F, P, P],
-    "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, F, P, P],
+    "tile_conv_launch": [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
+    "tile_conv_packed_launch": [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
+    "tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_bwd_packed_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_bwd_v1_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_kde_launch": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
+    "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
     "bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
 }

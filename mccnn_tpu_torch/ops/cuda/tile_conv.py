@@ -1,12 +1,13 @@
-"""The z-order tile machinery and its four kernels (port of
+"""The z-order tile machinery and its kernels (port of
 ``mccnn_tpu/ops/pallas/tile_conv.py``): K5, the tile MC-conv forward; K6, its
 backward; K7, the tile KDE; K8, the tile cover count of the big-scene Poisson
-sampler.
+sampler; and the switched variants K5p / K6p (packed records) and K6v1 (the
+per-h backward).
 
 Points are sorted along a 3-D Hilbert curve and cut into fixed tiles of
-``T = 128`` consecutive points (the majors) and ``Tm = 32`` (the minors). A
-sample tile and a candidate minor form a pair when their boxes, dilated by the
-radius, touch and each side holds a point near the other's box
+``T = 128`` consecutive points (the majors) and ``Tm = 32`` (the minors, by
+default). A sample tile and a candidate minor form a pair when their boxes,
+dilated by the radius, touch and each side holds a point near the other's box
 (``_refined_adjacency``, a conservative test: no in-radius pair is lost). The
 pairs become a chunked step list: step ``k`` of cloud ``b`` is one sample tile
 ``i_ids[b, k]`` (non-decreasing) and up to ``G = chunk * T / Tm`` of its
@@ -22,10 +23,11 @@ gradient is wanted. When a budget is short the two lists drop different
 pairs, so the backward is the gradient of what the backward list reaches, as
 in the reference, not of the forward.
 
-The kernels (``csrc/tile_conv.cu`` for K5, ``csrc/tile_conv_bwd.cu`` for K6,
-``csrc/tile_sweep.cu`` for K7 and K8) give one block to each (cloud, major
-tile), K5 and K6 also to each channel block, and walk that tile's contiguous
-run of steps (``run[b, t]`` to ``run[b, t + 1]``, built with
+The kernels (``csrc/tile_conv.cuh`` for K5 and K5p, ``csrc/tile_conv_bwd.cuh``
+for K6 and K6p, ``csrc/tile_conv_bwd_v1.cu`` for K6v1, ``csrc/tile_sweep.cu``
+for K7 and K8, each templated on the minor size) give one block to each
+(cloud, major tile), K5 and K6 also to each channel block, and walk that
+tile's contiguous run of steps (``run[b, t]`` to ``run[b, t + 1]``, built with
 ``searchsorted``): every output row has one writer and the sums run in step
 order, so two calls are bit-identical. Each kernel has a plain PyTorch
 version that walks the same step list, so it drops exactly what the kernel
@@ -37,15 +39,40 @@ version, CUDA tensor -> kernel; ``tile_mc_conv`` goes through
 Invalid rows are masked explicitly. The reference parks them at a far
 ``SENTINEL`` coordinate, where the expanded d2 of two sentinels cancels to
 about 0, an "in-radius" pair that only later masking hides; here positions of
-invalid and padding rows are 0 and a validity flag rides beside them. The
-reference's environment-switched variants (Morton order, box-only adjacency,
-other minor sizes, packed records, probes) are not ported: the port takes
-their defaults (Hilbert, refined adjacency, Tm = 32).
+invalid and padding rows are 0 and a validity flag rides beside them.
+
+The reference's environment switches are read once, when this module is
+imported, into module constants that every call consults (tests set them
+with ``monkeypatch.setattr``), as the reference reads them when it traces:
+
+- ``MCCNN_TILE_ORDER=morton`` (``_ORDER``): Morton order instead of Hilbert
+  (``curve_order``).
+- ``MCCNN_TILE_ADJ=aabb`` (``_ADJ``): the box test alone, without the
+  point-near-box refinement (``_refined_adjacency``).
+- ``MCCNN_TILE_MINOR=m`` (``_MINOR``): minors of ``m`` points, any ``m``
+  with ``128 % m == 0`` and ``m % 8 == 0`` (``tile_minor``); the step chunk
+  becomes ``G = chunk * T / m``. At ``m = T`` the backward adjacency is the
+  transpose of the forward one, as in the reference. K5-K8 are built for
+  every such ``m``.
+- ``MCCNN_TILE_PACK=1`` (``_PACK``): K5p and K6p, which read each candidate
+  minor's positions, validity and payload (``features / pdf`` forward, the
+  cotangent backward) from one contiguous record (``pack_minor_records``).
+  Not with ``MCCNN_TILE_BWD_V1=1``: then K5 and K6v1 run, as in the
+  reference.
+- ``MCCNN_TILE_BWD_V1=1`` (``_BWD_V1``): K6v1, the reference's per-h
+  backward (``csrc/tile_conv_bwd_v1.cu``), over the same source-major list.
+- ``MCCNN_TILE_PROBE`` (``_PROBE``): the reference's roofline probes, which
+  give wrong results by design, are not ported; ``tile_mc_conv`` raises when
+  it is set.
+
+On CPU tensors every variant runs its plain version, on CUDA tensors its
+kernel.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -64,12 +91,27 @@ MORTON_BITS = 8  # 256 curve cells per axis
 _BIG_I32 = 2**30
 STEP_CHUNK = 8  # steps per pass of the plain versions
 TILE_BWD_CHANNELS = 16  # K6's channel block (csrc/tile_conv_bwd.cu kMaxCB)
+BUILT_MINORS = (8, 16, 32, 64, 128)  # the minor sizes K5-K8 are compiled for
+# K6v1's dW2 partials (one per source tile) stay within this many floats: 256 MiB.
+_V1_PARTIAL_FLOATS = 64 << 20
+
+# The reference's switches (mccnn_tpu/ops/pallas/tile_conv.py :190, :265,
+# :390, :1359-1360, :1036, :1366): read once here, consulted at every call.
+_ORDER = os.environ.get("MCCNN_TILE_ORDER", "")
+_ADJ = os.environ.get("MCCNN_TILE_ADJ", "")
+_MINOR = os.environ.get("MCCNN_TILE_MINOR", "")
+_PACK = os.environ.get("MCCNN_TILE_PACK") == "1"
+_BWD_V1 = os.environ.get("MCCNN_TILE_BWD_V1") == "1"
+_PROBE = os.environ.get("MCCNN_TILE_PROBE", "")
 
 # Launches of each kernel since the last reset (see density_kernel.py).
 launches = 0  # K5
 backward_launches = 0  # K6
 kde_launches = 0  # K7
 cover_launches = 0  # K8
+packed_launches = 0  # K5p
+packed_backward_launches = 0  # K6p
+backward_v1_launches = 0  # K6v1
 
 
 # ---------------------------------------------------------------- curve order
@@ -116,15 +158,35 @@ def hilbert_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.argsort(code, dim=-1, stable=True)
 
 
+def morton_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, N) stable argsort of the 3-D Morton code, bit ``b`` of axis ``d``
+    at bit ``3 b + d``; invalid points sort last (``tile_conv.py:121``)."""
+    res = 1 << MORTON_BITS
+    c = (points * res).to(torch.int32).clamp(0, res - 1)
+    code = torch.zeros(points.shape[:-1], dtype=torch.int32, device=points.device)
+    for b in range(MORTON_BITS):
+        for d in range(3):
+            code = code | (((c[..., d] >> b) & 1) << (3 * b + d))
+    code = torch.where(mask, code, _BIG_I32)
+    return torch.argsort(code, dim=-1, stable=True)
+
+
 def curve_order(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The ordering every tile function shares: Hilbert (the reference's
-    default; its ``MCCNN_TILE_ORDER=morton`` is not ported)."""
+    """The ordering every tile function shares: Hilbert, or Morton under
+    ``MCCNN_TILE_ORDER=morton`` (``tile_conv.py:186``)."""
+    if _ORDER == "morton":
+        return morton_order(points, mask)
     return hilbert_order(points, mask)
 
 
 def tile_minor(tile: int = DEFAULT_TILE) -> int:
-    """Candidate-side minor tile: ``min(tile, 32)`` (``tile_conv.py:387``)."""
-    return min(tile, DEFAULT_MINOR)
+    """Candidate-side minor tile: ``min(tile, 32)``, or ``MCCNN_TILE_MINOR``,
+    which must divide ``tile`` and be a multiple of 8 (``tile_conv.py:387``)."""
+    m = int(_MINOR) if _MINOR else min(tile, DEFAULT_MINOR)
+    if m < 8 or tile % m or m % 8:
+        raise ValueError(f"MCCNN_TILE_MINOR={_MINOR!r}: the minor tile must divide the tile "
+                         f"({tile}) and be a multiple of 8")
+    return m
 
 
 # ---------------------------------------------------------------- tiles
@@ -180,9 +242,12 @@ def _points_near_boxes(p, v, mn, mx, T, radius):
 
 def _refined_adjacency(smp, smp_v, mn_i, mx_i, src, src_v, mn_j, mx_j, T, radius, Tm):
     """Box-box adjacency of sample majors (``T``) and source minors (``Tm``),
-    intersected with the point-near-box test both ways (``:254``)."""
+    intersected with the point-near-box test both ways (``:254``); the box
+    test alone under ``MCCNN_TILE_ADJ=aabb``."""
     nts, ntp = mn_i.shape[1], mn_j.shape[1]
     adj = _tile_adjacency(mn_i, mx_i, mn_j, mx_j, radius)
+    if _ADJ == "aabb":
+        return adj
     near_ij = _points_near_boxes(smp[:, : nts * T], smp_v[:, : nts * T], mn_j, mx_j, T, radius)
     near_ji = _points_near_boxes(src[:, : ntp * Tm], src_v[:, : ntp * Tm], mn_i, mx_i, Tm,
                                  radius)
@@ -300,22 +365,24 @@ class StepList(NamedTuple):
     run: torch.Tensor  # (B, n_major + 1) int32: tile t walks steps run[t]:run[t+1]
     n_minor: int  # the sentinel minor id
     need: torch.Tensor  # (B,) steps this direction needs for every pair
+    Tm: int  # points per minor
 
 
-def _step_list(adj, S, G) -> StepList:
+def _step_list(adj, S, G, Tm) -> StepList:
     B, n_major, n_minor = adj.shape
     i_ids, j_ids = _chunked_pair_lists(adj, S, G, n_major - 1, n_minor)
     tiles = torch.arange(n_major + 1, device=adj.device, dtype=torch.int32)
     run = torch.searchsorted(i_ids, tiles.expand(B, n_major + 1).contiguous())
     return StepList(i_ids, j_ids, run.to(torch.int32).contiguous(), n_minor,
-                    _needed_steps(adj, G))
+                    _needed_steps(adj, G), Tm)
 
 
-def _walk_steps(steps: StepList, T: int, Tm: int):
+def _walk_steps(steps: StepList, T: int):
     """Yield, per chunk of steps of the plain versions: the major rows (B, Sc,
     T), the candidate rows (B, Sc, G*Tm), whether each candidate row is a
     real minor's (B, Sc, G*Tm), and the flat (b, tile) index of each step."""
     B, G, S = steps.j_ids.shape
+    Tm = steps.Tm
     n_major = steps.run.shape[1] - 1
     dev = steps.i_ids.device
     ar_t = torch.arange(T, device=dev)
@@ -374,15 +441,18 @@ def conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius: float, *,
     mn_j_m, mx_j_m = _tile_boxes(src[:, : ntp_m * Tm], src_v[:, : ntp_m * Tm], Tm)
     adj_f = _refined_adjacency(smp, smp_v, mn_i, mx_i, src, src_v, mn_j_m, mx_j_m, T, radius,
                                Tm)
-    adj_b = _refined_adjacency(src, src_v, mn_j, mx_j, smp, smp_v, mn_i_m, mx_i_m, T, radius,
-                               Tm)
+    # at Tm == T the reference transposes the forward adjacency (:1329-1335):
+    # box compares that are equal in exact arithmetic may round apart swapped
+    adj_b = (adj_f.transpose(1, 2) if Tm == T else
+             _refined_adjacency(src, src_v, mn_j, mx_j, smp, smp_v, mn_i_m, mx_i_m, T, radius,
+                                Tm))
     cap_f = min(max_pairs, nts * ntp_m)
     cap_b = min(max_pairs, ntp * nts_m)
     S = max(_steps_for_pairs(cap_f, Gm, nts, ntp_m), _steps_for_pairs(cap_b, Gm, ntp, nts_m))
     if max_steps is not None:
         S = min(S, max(int(max_steps), 1))
-    steps = _step_list(adj_f, S, Gm)
-    steps_b = _step_list(adj_b, S, Gm) if backward else None
+    steps = _step_list(adj_f, S, Gm, Tm)
+    steps_b = _step_list(adj_b, S, Gm, Tm) if backward else None
     need = torch.maximum(steps.need, _needed_steps(adj_b, Gm))
     return ConvLayout(order_s, order_p, smp.contiguous(), smp_v.contiguous(), src.contiguous(),
                       src_v.contiguous(), steps, steps_b, S, (need - S).clamp_min(0))
@@ -409,12 +479,11 @@ def tile_conv_sorted_reference(params: MCConvParams, lay: ConvLayout, wf: torch.
     B, NS, _ = lay.smp.shape
     C = wf.shape[-1]
     T = DEFAULT_TILE
-    Tm = tile_minor(T)
     nts = NS // T
     r2 = radius_sq(radius)
     G = wf.new_zeros((B * nts, T, H + 1, C))
     cnt = wf.new_zeros((B * nts, T))
-    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T, Tm):
+    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T):
         Sc = smp_rows.shape[1]
         q = batched_gather(lay.smp, smp_rows).reshape(B * Sc, T, 3)
         qv = batched_gather(lay.smp_valid, smp_rows).reshape(B * Sc, T)
@@ -433,24 +502,62 @@ def tile_conv_sorted_reference(params: MCConvParams, lay: ConvLayout, wf: torch.
     return out, cnt
 
 
-def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
-                          radius: float, *, c_out=None, mean_normalize=False):
-    """Launch K5 on the sorted layout; the outputs of the plain version."""
-    global launches
+def pack_minor_records(pos, valid, payload, Tm: int, n_minor: int) -> torch.Tensor:
+    """One contiguous record per minor tile, ``(B, n_minor, Tm * (4 + C))``:
+    the tile's Tm position rows (x, y, z and its validity as 1 / 0), then its
+    Tm payload rows of C, from sorted rows ``pos (B, >= n_minor*Tm, 3)``,
+    ``valid`` and ``payload (B, >= n_minor*Tm, C)``. The reference's
+    ``_pack_minor`` (``tile_conv.py:487``) bit-casts a bf16 payload into f32
+    rows; the port is fp32 throughout, so the payload stays fp32."""
+    B, rows = pos.shape[0], n_minor * Tm
+    head = torch.cat([pos[:, :rows], valid[:, :rows, None].to(pos.dtype)], dim=-1)
+    return torch.cat([head.reshape(B, n_minor, Tm * 4),
+                      payload[:, :rows].reshape(B, n_minor, -1)], dim=-1).contiguous()
+
+
+def unpack_minor_records(rec: torch.Tensor, Tm: int):
+    """The rows of ``pack_minor_records``, read from the records: positions
+    (B, n*Tm, 3), validity (B, n*Tm) and payload (B, n*Tm, C)."""
+    B, n, R = rec.shape
+    head = rec[..., : 4 * Tm].reshape(B, n * Tm, 4)
+    return head[..., :3], head[..., 3] != 0, rec[..., 4 * Tm:].reshape(B, n * Tm, R // Tm - 4)
+
+
+def tile_conv_sorted_packed_reference(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                      radius: float, *, c_out=None, mean_normalize=False):
+    """Plain version of K5p: packs the source minors' records and walks the
+    step list over them; bit-equal to ``tile_conv_sorted_reference``."""
+    st = lay.steps
+    src, src_valid, wf_m = unpack_minor_records(
+        pack_minor_records(lay.src, lay.src_valid, wf, st.Tm, st.n_minor), st.Tm)
+    return tile_conv_sorted_reference(params, lay._replace(src=src, src_valid=src_valid), wf_m,
+                                      radius, c_out=c_out, mean_normalize=mean_normalize)
+
+
+def _check_minor(name: str, Tm: int) -> None:
+    if Tm not in BUILT_MINORS:
+        raise NotImplementedError(f"{name} is built for minors {BUILT_MINORS}; got Tm={Tm}")
+
+
+def _launch_k5(params: MCConvParams, lay: ConvLayout, wf, radius, c_out, mean_normalize,
+               packed: bool):
+    """K5 or, with ``packed``, K5p on the sorted layout."""
+    name = "tile_mc_conv (K5p)" if packed else "tile_mc_conv (K5)"
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     wf = wf.contiguous()
     st = lay.steps
-    _build.require_cuda("tile_mc_conv (K5)", lay.smp, lay.smp_valid, lay.src, lay.src_valid,
-                        wf, st.j_ids, st.run, w1, b1, w2, b2)
+    _build.require_cuda(name, lay.smp, lay.smp_valid, lay.src, lay.src_valid, wf, st.j_ids,
+                        st.run, w1, b1, w2, b2)
     if any(t.dtype != torch.float32 for t in (lay.smp, lay.src, wf, w1, b1, w2, b2)):
-        raise TypeError("tile_mc_conv (K5): positions, features and params must be float32")
+        raise TypeError(f"{name}: positions, features and params must be float32")
     B, NS, _ = lay.smp.shape
     NP = lay.src.shape[1]
     C = wf.shape[-1]
     H = w1.shape[1]
     if H != dense_conv.HIDDEN or C > dense_conv.MAX_C:
-        raise NotImplementedError(f"K5 is built for H={dense_conv.HIDDEN} and "
+        raise NotImplementedError(f"{name} is built for H={dense_conv.HIDDEN} and "
                                   f"C<={dense_conv.MAX_C}; got H={H}, C={C}")
+    _check_minor(name, st.Tm)
     T = DEFAULT_TILE
     nts = NS // T
     S = st.i_ids.shape[1]
@@ -463,24 +570,46 @@ def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tenso
     stream = _build.stream_of(wf)
     depthwise = c_out is None
     G = None if depthwise else torch.empty((B, NS, H + 1, C), dtype=torch.float32, device=dev)
-    err = lib.tile_conv_launch(
-        _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
-        _build.ptr(lay.src_valid), _build.ptr(wf), _build.ptr(st.j_ids), _build.ptr(st.run),
-        _build.ptr(w1), _build.ptr(b1), _build.ptr(w2), _build.ptr(b2),
-        B, NS, NP, C, H, S, Gm, nts, st.n_minor, radius_sq(radius), float(radius),
-        int(mean_normalize), int(depthwise),
-        _build.ptr(out) if depthwise else _build.ptr(G), _build.ptr(cnt), stream,
-    )
-    _build.check(err, "tile_conv_kernel")
+    dst = _build.ptr(out) if depthwise else _build.ptr(G)
+    tail = (B, NS, C, H, S, Gm, nts, st.n_minor, st.Tm, radius_sq(radius), float(radius),
+            int(mean_normalize), int(depthwise), dst, _build.ptr(cnt), stream)
+    weights = (_build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1), _build.ptr(b1),
+               _build.ptr(w2), _build.ptr(b2))
+    if packed:
+        rec = pack_minor_records(lay.src, lay.src_valid, wf, st.Tm, st.n_minor)
+        err = lib.tile_conv_packed_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid),
+                                          _build.ptr(rec), *weights, *tail)
+    else:
+        err = lib.tile_conv_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid),
+                                   _build.ptr(lay.src), _build.ptr(lay.src_valid),
+                                   _build.ptr(wf), *weights, NP, *tail)
+    _build.check(err, "tile_conv_packed_kernel" if packed else "tile_conv_kernel")
     if not depthwise:
         scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize).contiguous()
         err = lib.mcconv_project_full_launch(
             _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
             B * NS, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
         )
-        _build.check(err, "mcconv_project_full_kernel (K5)")
-    launches += 1
+        _build.check(err, f"mcconv_project_full_kernel ({name})")
     return out, cnt
+
+
+def tile_conv_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                          radius: float, *, c_out=None, mean_normalize=False):
+    """Launch K5 on the sorted layout; the outputs of the plain version."""
+    global launches
+    res = _launch_k5(params, lay, wf, radius, c_out, mean_normalize, packed=False)
+    launches += 1
+    return res
+
+
+def tile_conv_sorted_packed_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                 radius: float, *, c_out=None, mean_normalize=False):
+    """Launch K5p (K5 over packed source records); bit-equal to K5."""
+    global packed_launches
+    res = _launch_k5(params, lay, wf, radius, c_out, mean_normalize, packed=True)
+    packed_launches += 1
+    return res
 
 
 # ---------------------------------------------------------------- K6: its backward
@@ -500,39 +629,23 @@ def _wr(params: MCConvParams, C: int, c_out: int):
     return wcat.permute(1, 0, 2).reshape(C, (H + 1) * c_out)
 
 
-def tile_conv_backward_sorted_reference(params: MCConvParams, lay: ConvLayout,
-                                        wf: torch.Tensor, radius: float, cnt: torch.Tensor,
-                                        dout: torch.Tensor, *, c_out=None,
-                                        mean_normalize=False):
-    """Plain version of K6 on the sorted layout.
-
-    From the forward's inputs (``wf`` (B, ntp*T, C) = the sorted weighted
-    features), its count and ``dout (B, nts*T, C | c_out)``, returns ``(d_wf,
-    dw1 (3, H), db1 (H,), dw2, db2)`` in the shapes of ``MCConvParams``. It
-    walks the backward list (source majors x sample minors) as K6 does, and
-    forms what the reference's ``_bwd_kernel`` forms: per source row
-    ``X[p,h,o] = sum_q a_h(q,p) t[q,o]`` (then d_wf and dW2, db2 from X), and
-    per pair ``dpre_h = [pre_h > 0] [in radius] sum_c dG[q,h,c] f~[p,c]``
-    (``dG = t . [W2; b2]``), whose sums against the offset (source - sample)
-    / r give dW1 and db1."""
+def _backward_walk(params: MCConvParams, lay: ConvLayout, wf, radius, t, c_out):
+    """K6's plain arithmetic from the cotangent ``t`` of the sorted sample rows."""
     w1, b1, w2, b2 = params
     H = w1.shape[1]
     B, NP, C = wf.shape
-    NS = lay.smp.shape[1]
     T = DEFAULT_TILE
-    Tm = tile_minor(T)
     CO = C if c_out is None else c_out
-    t = _cotangent(lay, cnt, dout, mean_normalize)
     if c_out is None:
-        dG = t[:, :, None, :] * w2  # (B, NS, H, C)
+        dG = t[:, :, None, :] * w2  # (B, rows, H, C)
     else:
-        dG = (t @ w2.reshape(H * C, c_out).T).reshape(B, NS, H, C)
+        dG = (t @ w2.reshape(H * C, c_out).T).reshape(B, -1, H, C)
     r2 = radius_sq(radius)
     r_dev = torch.full((), radius, dtype=wf.dtype, device=wf.device)  # see core/grid.py
     X = wf.new_zeros((B * (NP // T), T, H + 1, CO))
     dw1 = wf.new_zeros((3, H))
     db1 = wf.new_zeros((H,))
-    for src_rows, smp_rows, real, tiles in _walk_steps(lay.steps_b, T, Tm):
+    for src_rows, smp_rows, real, tiles in _walk_steps(lay.steps_b, T):
         Sc = src_rows.shape[1]
         p = batched_gather(lay.src, src_rows).reshape(B * Sc, T, 3)
         pv = batched_gather(lay.src_valid, src_rows).reshape(B * Sc, T)
@@ -563,35 +676,78 @@ def tile_conv_backward_sorted_reference(params: MCConvParams, lay: ConvLayout,
     return d_wf, dw1, db1, dw2, db2
 
 
-def tile_conv_backward_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
-                                   radius: float, cnt: torch.Tensor, dout: torch.Tensor, *,
-                                   c_out=None, mean_normalize=False):
-    """Launch K6 on CUDA tensors; the arguments and outputs of the plain version."""
-    global backward_launches
+def tile_conv_backward_sorted_reference(params: MCConvParams, lay: ConvLayout,
+                                        wf: torch.Tensor, radius: float, cnt: torch.Tensor,
+                                        dout: torch.Tensor, *, c_out=None,
+                                        mean_normalize=False):
+    """Plain version of K6 on the sorted layout.
+
+    From the forward's inputs (``wf`` (B, ntp*T, C) = the sorted weighted
+    features), its count and ``dout (B, nts*T, C | c_out)``, returns ``(d_wf,
+    dw1 (3, H), db1 (H,), dw2, db2)`` in the shapes of ``MCConvParams``. It
+    walks the backward list (source majors x sample minors) as K6 does, and
+    forms what the reference's ``_bwd_kernel`` forms: per source row
+    ``X[p,h,o] = sum_q a_h(q,p) t[q,o]`` (then d_wf and dW2, db2 from X), and
+    per pair ``dpre_h = [pre_h > 0] [in radius] sum_c dG[q,h,c] f~[p,c]``
+    (``dG = t . [W2; b2]``), whose sums against the offset (source - sample)
+    / r give dW1 and db1."""
+    t = _cotangent(lay, cnt, dout, mean_normalize)
+    return _backward_walk(params, lay, wf, radius, t, c_out)
+
+
+def tile_conv_backward_sorted_packed_reference(params: MCConvParams, lay: ConvLayout,
+                                               wf: torch.Tensor, radius: float,
+                                               cnt: torch.Tensor, dout: torch.Tensor, *,
+                                               c_out=None, mean_normalize=False):
+    """Plain version of K6p: packs the sample minors' records (positions,
+    validity, cotangent) and walks the backward list over them; bit-equal to
+    ``tile_conv_backward_sorted_reference``."""
+    st = lay.steps_b
+    t = _cotangent(lay, cnt, dout, mean_normalize)
+    smp, smp_valid, t_m = unpack_minor_records(
+        pack_minor_records(lay.smp, lay.smp_valid, t, st.Tm, st.n_minor), st.Tm)
+    return _backward_walk(params, lay._replace(smp=smp, smp_valid=smp_valid), wf, radius, t_m,
+                          c_out)
+
+
+def _backward_inputs(name, params, lay, wf, cnt, dout, c_out, mean_normalize):
+    """The checked, contiguous operands of K6, K6p and K6v1."""
     w1, b1, w2, b2 = (x.contiguous() for x in params)
     wf = wf.contiguous()
     t = _cotangent(lay, cnt, dout, mean_normalize).contiguous()
     st = lay.steps_b
     if st is None:
-        raise ValueError("tile_conv_backward (K6): the layout has no backward list "
+        raise ValueError(f"{name}: the layout has no backward list "
                          "(conv_layout(..., backward=True))")
-    _build.require_cuda("tile_conv_backward (K6)", lay.smp, lay.smp_valid, lay.src,
-                        lay.src_valid, wf, t, st.j_ids, st.run, w1, b1, w2, b2)
+    _build.require_cuda(name, lay.smp, lay.smp_valid, lay.src, lay.src_valid, wf, t, st.j_ids,
+                        st.run, w1, b1, w2, b2)
     if any(x.dtype != torch.float32 for x in (lay.smp, lay.src, wf, t, w1, b1, w2, b2)):
-        raise TypeError("tile_conv_backward (K6): positions, features, dout and params must "
-                        "be float32")
+        raise TypeError(f"{name}: positions, features, dout and params must be float32")
     B, NS, _ = lay.smp.shape
-    NP = lay.src.shape[1]
-    C = wf.shape[-1]
+    NP, C = lay.src.shape[1], wf.shape[-1]
+    H = w1.shape[1]
+    CO = C if c_out is None else c_out
+    if H != dense_conv.HIDDEN or C > dense_conv.MAX_C or CO > dense_conv.MAX_C:
+        raise NotImplementedError(f"{name} is built for H={dense_conv.HIDDEN} and "
+                                  f"C<={dense_conv.MAX_C}; got H={H}, C={C}, c_out={c_out}")
+    if tuple(t.shape) != (B, NS, CO) or tuple(wf.shape) != (B, NP, C):
+        raise ValueError(f"{name}: dout {tuple(t.shape)} / wf {tuple(wf.shape)} do not match "
+                         "the layout")
+    _check_minor(name, st.Tm)
+    return MCConvParams(w1, b1, w2, b2), wf, t, st
+
+
+def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_out,
+               mean_normalize, packed: bool):
+    """K6 or, with ``packed``, K6p on the sorted layout."""
+    name = "tile_conv_backward (K6p)" if packed else "tile_conv_backward (K6)"
+    (w1, b1, w2, b2), wf, t, st = _backward_inputs(name, params, lay, wf, cnt, dout, c_out,
+                                                   mean_normalize)
+    B, NS, _ = lay.smp.shape
+    NP, C = lay.src.shape[1], wf.shape[-1]
     H = w1.shape[1]
     H1 = H + 1
     CO = C if c_out is None else c_out
-    if H != dense_conv.HIDDEN or C > dense_conv.MAX_C or CO > dense_conv.MAX_C:
-        raise NotImplementedError(f"K6 is built for H={dense_conv.HIDDEN} and "
-                                  f"C<={dense_conv.MAX_C}; got H={H}, C={C}, c_out={c_out}")
-    if tuple(t.shape) != (B, NS, CO) or tuple(wf.shape) != (B, NP, C):
-        raise ValueError(f"tile_conv_backward (K6): dout {tuple(t.shape)} / wf "
-                         f"{tuple(wf.shape)} do not match the layout")
     T = DEFAULT_TILE
     ntp = NP // T
     CB = min(max(C, CO), TILE_BWD_CHANNELS)
@@ -608,25 +764,29 @@ def tile_conv_backward_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: to
         dG, out, w2part = empty(B, NS, H1, C), empty(B, NP, H1, CO), w1part
         err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
                                             B * NS, CO, H * C, H1 * C, _build.ptr(dG), stream)
-        _build.check(err, "mcconv_bwd_dg_full_kernel (K6 dG)")
-    err = lib.tile_conv_bwd_launch(
-        _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
-        _build.ptr(lay.src_valid), _build.ptr(wf), _build.ptr(t), _build.ptr(dG),
-        _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1), _build.ptr(b1),
-        _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H, st.j_ids.shape[2],
-        st.j_ids.shape[1], ntp, st.n_minor, radius_sq(radius), float(radius), int(depthwise),
-        _build.ptr(out), _build.ptr(w1part), _build.ptr(w2part), stream,
-    )
-    _build.check(err, "tile_conv_bwd_kernel")
+        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} dG)")
+    head = (_build.ptr(lay.src), _build.ptr(lay.src_valid), _build.ptr(wf))
+    rest = (_build.ptr(dG), _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1),
+            _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H,
+            st.j_ids.shape[2], st.j_ids.shape[1], ntp, st.n_minor, st.Tm, radius_sq(radius),
+            float(radius), int(depthwise), _build.ptr(out), _build.ptr(w1part),
+            _build.ptr(w2part), stream)
+    if packed:
+        rec = pack_minor_records(lay.smp, lay.smp_valid, t, st.Tm, st.n_minor)
+        err = lib.tile_conv_bwd_packed_launch(_build.ptr(rec), *head, *rest)
+    else:
+        err = lib.tile_conv_bwd_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid), *head,
+                                       _build.ptr(t), *rest)
+    _build.check(err, "tile_conv_bwd_packed_kernel" if packed else "tile_conv_bwd_kernel")
     w1b1 = empty(4, H)
     err = lib.mcconv_bwd_reduce_launch(_build.ptr(w1part), B * ntp * nb, 4 * H,
                                        _build.ptr(w1b1), stream)
-    _build.check(err, "mcconv_bwd_reduce_kernel (K6 dW1, db1)")
+    _build.check(err, f"mcconv_bwd_reduce_kernel ({name} dW1, db1)")
     if depthwise:
         d_wf, dwcat = out, empty(H1, C)
         err = lib.mcconv_bwd_reduce_launch(_build.ptr(w2part), B * ntp, H1 * C,
                                            _build.ptr(dwcat), stream)
-        _build.check(err, "mcconv_bwd_reduce_kernel (K6 dW2, db2)")
+        _build.check(err, f"mcconv_bwd_reduce_kernel ({name} dW2, db2)")
     else:
         # d_wf = X . Wr^T and [dW2; db2] = wf^T X: K2's two GEMMs
         R, K = B * NP, H1 * CO
@@ -634,34 +794,201 @@ def tile_conv_backward_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: to
         d_wf = empty(B, NP, C)
         err = lib.mcconv_bwd_dg_full_launch(_build.ptr(out), _build.ptr(wr), _build.ptr(wr),
                                             R, K, C, C, _build.ptr(d_wf), stream)
-        _build.check(err, "mcconv_bwd_dg_full_kernel (K6 d_wf)")
+        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} d_wf)")
         dwcat = dense_conv.wcat_grad(wf, out, R, C, K).reshape(C, H1, CO).transpose(0, 1)
-    backward_launches += 1
     return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+def tile_conv_backward_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                   radius: float, cnt: torch.Tensor, dout: torch.Tensor, *,
+                                   c_out=None, mean_normalize=False):
+    """Launch K6 on CUDA tensors; the arguments and outputs of the plain version."""
+    global backward_launches
+    res = _launch_k6(params, lay, wf, radius, cnt, dout, c_out, mean_normalize, packed=False)
+    backward_launches += 1
+    return res
+
+
+def tile_conv_backward_sorted_packed_cuda(params: MCConvParams, lay: ConvLayout,
+                                          wf: torch.Tensor, radius: float, cnt: torch.Tensor,
+                                          dout: torch.Tensor, *, c_out=None,
+                                          mean_normalize=False):
+    """Launch K6p (K6 over packed sample records); bit-equal to K6."""
+    global packed_backward_launches
+    res = _launch_k6(params, lay, wf, radius, cnt, dout, c_out, mean_normalize, packed=True)
+    packed_backward_launches += 1
+    return res
+
+
+# ---------------------------------------------------------------- K6v1: the per-h backward
+
+
+def _stacked_w2(params: MCConvParams, C: int, c_out):
+    """``[W2; b2]`` as (H+1, C) depthwise, (H+1, C, c_out) full."""
+    H = params.w1.shape[1]
+    if c_out is None:
+        return torch.cat([params.w2, params.b2[None]])
+    return torch.cat([params.w2.reshape(H, C, c_out), params.b2.reshape(1, C, c_out)])
+
+
+def tile_conv_backward_v1_sorted_reference(params: MCConvParams, lay: ConvLayout,
+                                           wf: torch.Tensor, radius: float, cnt: torch.Tensor,
+                                           dout: torch.Tensor, *, c_out=None,
+                                           mean_normalize=False):
+    """Plain version of K6v1: K6's gradients in the reference's v1 form
+    (``_bwd_kernel_v1``, ``tile_conv.py:825``), walking the backward list per
+    h. With ``t`` the cotangent and ``t_h = t * W2_h`` (depthwise) or ``t .
+    W2_h^T`` (full; ``h = H`` takes b2), per step: ``d_f~ += a_h^T t_h``,
+    ``g_h = a_h f~`` over the step's sources and ``dW2_h += sum_q t g_h``
+    over its sample rows, and ``dpre = (t_h f~^T) [pre_h > 0]`` into dW1 and
+    db1."""
+    w1, b1 = params.w1, params.b1
+    H = w1.shape[1]
+    B, NP, C = wf.shape
+    T = DEFAULT_TILE
+    CO = C if c_out is None else c_out
+    t = _cotangent(lay, cnt, dout, mean_normalize)
+    wcat = _stacked_w2(params, C, c_out)
+    th = (t[:, :, None, :] * wcat if c_out is None else
+          torch.einsum("bqo,hco->bqhc", t, wcat))  # (B, rows, H+1, C)
+    r2 = radius_sq(radius)
+    r_dev = torch.full((), radius, dtype=wf.dtype, device=wf.device)
+    d_wf = wf.new_zeros((B * (NP // T), T, C))
+    dw1 = wf.new_zeros((3, H))
+    db1 = wf.new_zeros((H,))
+    dwcat = wf.new_zeros(wcat.shape)
+    for src_rows, smp_rows, real, tiles in _walk_steps(lay.steps_b, T):
+        Sc = src_rows.shape[1]
+        p = batched_gather(lay.src, src_rows).reshape(B * Sc, T, 3)
+        pv = batched_gather(lay.src_valid, src_rows).reshape(B * Sc, T)
+        f = batched_gather(wf, src_rows).reshape(B * Sc, T, C)
+        q = batched_gather(lay.smp, smp_rows).reshape(B * Sc, -1, 3)
+        qv = (batched_gather(lay.smp_valid, smp_rows) & real).reshape(B * Sc, -1)
+        u = batched_gather(t, smp_rows).reshape(B * Sc, -1, CO)
+        tq = batched_gather(th, smp_rows).reshape(B * Sc, -1, H + 1, C)
+        inr = (pair_d2(q, p) <= r2) & qv[:, :, None] & pv[:, None, :]  # (B*Sc, Q, T)
+        off = (p[:, None, :, :] - q[:, :, None, :]) / r_dev
+        pre = dense_conv._kernel_preact(off, w1, b1)
+        for h in range(H + 1):
+            a_h = (torch.relu(pre[..., h]) if h < H else torch.ones_like(pre[..., 0])) * inr
+            t_h = tq[:, :, h]
+            d_wf.index_add_(0, tiles, torch.einsum("sqp,sqc->spc", a_h, t_h))
+            g_h = torch.einsum("sqp,spc->sqc", a_h, f)
+            dwcat[h] += ((u * g_h).sum(dim=(0, 1)) if c_out is None else
+                         torch.einsum("sqc,sqo->co", g_h, u))
+            if h < H:
+                dpre = torch.einsum("sqc,spc->sqp", t_h, f)
+                dpre = torch.where((pre[..., h] > 0) & inr, dpre, 0.0)
+                dw1[:, h] += torch.einsum("sqp,sqpk->k", dpre, off)
+                db1[h] += dpre.sum()
+    d_wf = d_wf.reshape(B, NP, C)
+    return d_wf, dw1, db1, *dense_conv._split_wcat(dwcat, H, C, c_out, params.w2, params.b2)
+
+
+def tile_conv_backward_v1_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                      radius: float, cnt: torch.Tensor, dout: torch.Tensor, *,
+                                      c_out=None, mean_normalize=False):
+    """Launch K6v1 on CUDA tensors; the arguments and outputs of the plain
+    version. The full conv's ``t_h`` comes from K2's dG GEMM, as in K6."""
+    global backward_v1_launches
+    name = "tile_conv_backward_v1 (K6v1)"
+    (w1, b1, w2, b2), wf, t, st = _backward_inputs(name, params, lay, wf, cnt, dout, c_out,
+                                                   mean_normalize)
+    B, NS, _ = lay.smp.shape
+    NP, C = lay.src.shape[1], wf.shape[-1]
+    H = w1.shape[1]
+    H1 = H + 1
+    CO = C if c_out is None else c_out
+    ntp = NP // DEFAULT_TILE
+    CB = min(C, TILE_BWD_CHANNELS)
+    nb = -(-C // CB)
+    depthwise = c_out is None
+    width = H1 * C * (1 if depthwise else CO)  # floats of a source tile's [dW2; db2] partial
+    if B * ntp * width > _V1_PARTIAL_FLOATS:
+        raise NotImplementedError(f"{name}: the dW2 partials of {B * ntp} source tiles x "
+                                  f"{width} floats pass {_V1_PARTIAL_FLOATS}")
+    dev = wf.device
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    dG = t
+    if not depthwise:
+        dG = empty(B, NS, H1, C)
+        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
+                                            B * NS, CO, H * C, H1 * C, _build.ptr(dG), stream)
+        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} t_h)")
+    d_wf, w1part, w2part = empty(B, NP, C), empty(B * ntp * nb, 4, H), empty(B * ntp, width)
+    err = lib.tile_conv_bwd_v1_launch(
+        _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
+        _build.ptr(lay.src_valid), _build.ptr(wf), _build.ptr(t), _build.ptr(dG),
+        _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1), _build.ptr(b1),
+        _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H, st.j_ids.shape[2],
+        st.j_ids.shape[1], ntp, st.n_minor, st.Tm, radius_sq(radius), float(radius),
+        int(depthwise), _build.ptr(d_wf), _build.ptr(w1part), _build.ptr(w2part), stream,
+    )
+    _build.check(err, "tile_conv_bwd_v1_kernel")
+    w1b1, dwcat = empty(4, H), empty(width)
+    for part, rows, n, dst, what in ((w1part, B * ntp * nb, 4 * H, w1b1, "dW1, db1"),
+                                     (w2part, B * ntp, width, dwcat, "dW2, db2")):
+        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), rows, n, _build.ptr(dst), stream)
+        _build.check(err, f"mcconv_bwd_reduce_kernel ({name} {what})")
+    dwcat = dwcat.reshape(H1, C) if depthwise else dwcat
+    backward_v1_launches += 1
+    return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+# ---------------------------------------------------------------- routing
+
+
+def conv_variant(lay: ConvLayout) -> tuple[bool, bool]:
+    """``(packed, v1)``: the switches' choice of the conv's kernels
+    (``tile_conv.py:1354-1362``, ``:1036``). Packed records only without
+    ``MCCNN_TILE_BWD_V1=1`` and at an even minor; then K5p and K6p, with v1
+    K5 and K6v1, else K5 and K6."""
+    return _PACK and not _BWD_V1 and lay.steps.Tm % 2 == 0, _BWD_V1
+
+
+_FORWARDS = {(False, "cpu"): tile_conv_sorted_reference, (False, "cuda"): tile_conv_sorted_cuda,
+             (True, "cpu"): tile_conv_sorted_packed_reference,
+             (True, "cuda"): tile_conv_sorted_packed_cuda}
+_BACKWARDS = {
+    ("K6", "cpu"): tile_conv_backward_sorted_reference,
+    ("K6", "cuda"): tile_conv_backward_sorted_cuda,
+    ("K6p", "cpu"): tile_conv_backward_sorted_packed_reference,
+    ("K6p", "cuda"): tile_conv_backward_sorted_packed_cuda,
+    ("K6v1", "cpu"): tile_conv_backward_v1_sorted_reference,
+    ("K6v1", "cuda"): tile_conv_backward_v1_sorted_cuda,
+}
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    return "cpu" if t.device.type == "cpu" else "cuda"
 
 
 class TileMCConvFunction(torch.autograd.Function):
     """``(w1, b1, w2, b2, wf) -> out`` on the sorted layout: K5 forward and K6
-    backward on CUDA tensors, their plain versions on CPU tensors. ``wf`` is
-    the sorted ``features / pdf``; positions and pdf get no gradient here, as
-    the reference's ``_core_bwd`` returns zeros for them."""
+    backward on CUDA tensors, their plain versions on CPU tensors; K5p / K6p
+    or K6v1 as ``conv_variant`` picks. ``wf`` is the sorted ``features /
+    pdf``; positions and pdf get no gradient here, as the reference's
+    ``_core_bwd`` returns zeros for them."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, wf, lay, radius, c_out, mean_normalize):
-        fwd = tile_conv_sorted_reference if wf.device.type == "cpu" else tile_conv_sorted_cuda
+        packed, v1 = conv_variant(lay)
+        fwd = _FORWARDS[packed, _device_kind(wf)]
         out, cnt = fwd(MCConvParams(w1, b1, w2, b2), lay, wf, radius, c_out=c_out,
                        mean_normalize=mean_normalize)
         ctx.save_for_backward(w1, b1, w2, b2, wf, cnt)
         ctx.lay = lay
         ctx.conv = (radius, c_out, mean_normalize)
+        ctx.backward_kernel = "K6v1" if v1 else "K6p" if packed else "K6"
         return out
 
     @staticmethod
     def backward(ctx, dout):
         w1, b1, w2, b2, wf, cnt = ctx.saved_tensors
         radius, c_out, mean = ctx.conv
-        bwd = (tile_conv_backward_sorted_reference if wf.device.type == "cpu"
-               else tile_conv_backward_sorted_cuda)
+        bwd = _BACKWARDS[ctx.backward_kernel, _device_kind(wf)]
         d_wf, dw1, db1, dw2, db2 = bwd(MCConvParams(w1, b1, w2, b2), ctx.lay, wf, radius, cnt,
                                        dout.contiguous(), c_out=c_out, mean_normalize=mean)
         return dw1, db1, dw2, db2, d_wf, None, None, None, None
@@ -685,7 +1012,12 @@ def tile_mc_conv(params: MCConvParams, sample_pts, sample_mask, src_pts, src_mas
     step count (nonzero means missing neighbours: raise the budget). It runs
     ``TileMCConvFunction``: K5 and K6 on CUDA tensors, their plain versions on
     CPU tensors. The backward list is built only when a gradient is wanted
-    (evaluation does not pay for it)."""
+    (evaluation does not pay for it). ``MCCNN_TILE_PROBE`` raises: the
+    reference's probes time parts of its kernels and give wrong results."""
+    if _PROBE:
+        raise NotImplementedError(
+            f"MCCNN_TILE_PROBE={_PROBE!r}: the reference's K5 / K6 roofline probes are not "
+            "ported (ROADMAP queue 2); unset it to run the tile conv")
     grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (*params, features, pdf))
     lay = conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius,
@@ -741,11 +1073,12 @@ def self_layout(points, mask, radius: float, *, max_pairs: int, max_steps: int |
         order = curve_order(points, mask)
     p, v, adj = self_adjacency(points, mask, radius, order)
     nt, nt_m = adj.shape[1], adj.shape[2]
-    Gm = chunk * (DEFAULT_TILE // tile_minor())
+    Tm = tile_minor()
+    Gm = chunk * (DEFAULT_TILE // Tm)
     S = _steps_for_pairs(min(max_pairs, nt * nt_m), Gm, nt, nt_m)
     if max_steps is not None:
         S = min(S, max(int(max_steps), 1))
-    steps = _step_list(adj, S, Gm)
+    steps = _step_list(adj, S, Gm, Tm)
     return SelfLayout(order, p.contiguous(), v.contiguous(), steps, S,
                       (steps.need - S).clamp_min(0))
 
@@ -757,7 +1090,7 @@ def _self_sums_reference(lay: SelfLayout, radius: float, weigh, dtype, flags=Non
     T = DEFAULT_TILE
     r2 = radius_sq(radius)
     acc = torch.zeros((B * (NR // T), T), dtype=dtype, device=lay.pts.device)
-    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T, tile_minor(T)):
+    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T):
         Sc = smp_rows.shape[1]
         q = batched_gather(lay.pts, smp_rows).reshape(B * Sc, T, 3)
         p = batched_gather(lay.pts, cand_rows).reshape(B * Sc, -1, 3)
@@ -790,13 +1123,14 @@ def tile_kde_sums_cuda(lay: SelfLayout, radius: float, kde_window: float = 0.25)
     global kde_launches
     st = lay.steps
     _build.require_cuda("tile_kde (K7)", lay.pts, lay.valid, st.j_ids, st.run)
+    _check_minor("tile_kde (K7)", st.Tm)
     B, NR, _ = lay.pts.shape
     neg_half_inv_h2, _ = _kde_constants(radius, kde_window)
     out = torch.empty((B, NR), dtype=torch.float32, device=lay.pts.device)
     lib = _build.library()
     err = lib.tile_kde_launch(
         _build.ptr(lay.pts), _build.ptr(lay.valid), _build.ptr(st.j_ids), _build.ptr(st.run),
-        B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor, radius_sq(radius),
+        B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor, st.Tm, radius_sq(radius),
         neg_half_inv_h2, _build.ptr(out), _build.stream_of(lay.pts),
     )
     _build.check(err, "tile_kde_kernel")
@@ -836,12 +1170,13 @@ def cover_counts_cuda(lay: SelfLayout, flags: torch.Tensor, radius: float):
     _build.require_cuda("cover_counts (K8)", lay.pts, lay.valid, flags, st.j_ids, st.run)
     if flags.dtype != torch.bool:
         raise TypeError("cover_counts (K8): flags must be bool")
+    _check_minor("cover_counts (K8)", st.Tm)
     B, NR, _ = lay.pts.shape
     out = torch.empty((B, NR), dtype=torch.int32, device=lay.pts.device)
     lib = _build.library()
     err = lib.tile_cover_launch(
         _build.ptr(lay.pts), _build.ptr(lay.valid), _build.ptr(flags), _build.ptr(st.j_ids),
-        _build.ptr(st.run), B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor,
+        _build.ptr(st.run), B, NR, st.j_ids.shape[2], st.j_ids.shape[1], st.n_minor, st.Tm,
         radius_sq(radius), _build.ptr(out), _build.stream_of(lay.pts),
     )
     _build.check(err, "tile_cover_kernel")

@@ -586,3 +586,140 @@ def test_cover_kernel_is_bit_equal_to_plain_and_sampler_to_dense(cuda, N, radius
     cids, colors = sweep_cells(pts, radius)
     dense = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
     assert torch.equal(sel, dense)
+
+
+# ------------------------------------------------------------ the tile switches' kernels
+
+TILE_NAMES = ("d_wf", "dw1", "db1", "dw2", "db2")
+
+
+def _tile_variant_case(device, c_in, c_out, mean, max_steps=None):
+    """A layout with both lists, its sorted weighted features, the forward's
+    count and a seeded dout: the inputs of every tile forward and backward."""
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(device, c_in, c_out)
+    lay = tile_conv.conv_layout(smp, qmask, src, smask, 0.2, max_pairs=1 << 30,
+                                max_steps=max_steps, backward=True)
+    wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+    out, cnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2, c_out=c_out,
+                                                    mean_normalize=mean)
+    g = torch.Generator().manual_seed(13)
+    dout = torch.randn(out.shape, generator=g).to(device)
+    return params, lay, wf, cnt, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,minor", [(1, 16, False, "32"), (8, None, True, "32"),
+                                                   (40, None, False, "8"), (3, 5, True, "64")])
+def test_packed_tile_kernels_are_bit_equal_to_k5_and_k6(cuda, monkeypatch, c_in, c_out, mean,
+                                                        minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, lay, wf, cnt, dout = _tile_variant_case(cuda, c_in, c_out, mean)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    counters = lambda: (tile_conv.packed_launches, tile_conv.packed_backward_launches)  # noqa: E731
+    before = counters()
+    got = tile_conv.tile_conv_sorted_packed_cuda(params, lay, wf, 0.2, **kw)
+    want = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2, **kw)
+    bargs = (params, lay, wf, 0.2, cnt, dout)
+    gotb = tile_conv.tile_conv_backward_sorted_packed_cuda(*bargs, **kw)
+    wantb = tile_conv.tile_conv_backward_sorted_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for name, a, w in zip(TILE_NAMES, gotb, wantb):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,max_steps,minor",
+                         [(8, None, False, None, "32"), (1, 16, False, None, "32"),
+                          (40, None, True, None, "16"), (8, None, False, 2, "32"),
+                          (3, 5, True, 2, "128")])
+def test_tile_v1_backward_kernel_matches_plain_and_k6_and_repeats_bitwise(
+        cuda, monkeypatch, c_in, c_out, mean, max_steps, minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, lay, wf, cnt, dout = _tile_variant_case(cuda, c_in, c_out, mean, max_steps)
+    args = (params, lay, wf, 0.2, cnt, dout)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    before = tile_conv.backward_v1_launches
+    got = tile_conv.tile_conv_backward_v1_sorted_cuda(*args, **kw)
+    again = tile_conv.tile_conv_backward_v1_sorted_cuda(*args, **kw)
+    want = tile_conv.tile_conv_backward_v1_sorted_reference(*args, **kw)
+    k6 = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert tile_conv.backward_v1_launches == before + 2
+    for name, a, a2, w, w6 in zip(TILE_NAMES, got, again, want, k6):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, a2), name  # one writer per output, fixed-order reductions
+        # fp32 sums over the backward list's pairs, h and channels in other
+        # orders; every side rounds pre_h as mc_preact does (the same ReLU steps)
+        for ref in (w, w6):
+            scale = float(ref.abs().max())
+            assert scale > 0, name
+            torch.testing.assert_close(a, ref, rtol=0.0, atol=1e-5 * scale, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minor", ["8", "16", "64", "128"])
+def test_tile_kernels_at_every_minor_match_plain(cuda, monkeypatch, minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, lay, wf, cnt, dout = _tile_variant_case(cuda, 8, None, False)
+    assert lay.steps.Tm == int(minor) and lay.steps.j_ids.shape[1] == 1024 // int(minor)
+    got = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2)
+    want = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2)
+    gotb = tile_conv.tile_conv_backward_sorted_cuda(params, lay, wf, 0.2, cnt, dout)
+    wantb = tile_conv.tile_conv_backward_sorted_reference(params, lay, wf, 0.2, cnt, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4 * float(want[0].abs().max()))
+    for name, a, w in zip(TILE_NAMES, gotb, wantb):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=name)
+    pts, mask = cloud(11, N=1500, masked=40, device=cuda)
+    sweep = tile_conv.make_cover_sweep(pts, mask, 0.1, max_pairs=1 << 30)
+    g = torch.Generator().manual_seed(12)
+    flags = sweep.valid & (torch.rand(sweep.valid.shape, generator=g) < 0.3).to(cuda)
+    kde = tile_conv.tile_kde_sums_cuda(sweep.layout, 0.1)
+    cover = tile_conv.cover_counts_cuda(sweep.layout, flags, 0.1)
+    torch.cuda.synchronize()
+    assert sweep.layout.steps.Tm == int(minor)
+    torch.testing.assert_close(kde, tile_conv.tile_kde_sums_reference(sweep.layout, 0.1),
+                               rtol=1e-4, atol=0.0)
+    assert torch.equal(cover, tile_conv.cover_counts_reference(sweep.layout, flags, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack,v1,moved", [(True, False, ("K5p", "K6p")),
+                                           (False, True, ("K5", "K6v1")),
+                                           (True, True, ("K5", "K6v1"))])
+def test_tile_switches_launch_their_kernels(cuda, monkeypatch, pack, v1, moved):
+    monkeypatch.setattr(tile_conv, "_PACK", pack)
+    monkeypatch.setattr(tile_conv, "_BWD_V1", v1)
+    case = _tile_conv_case(cuda, 6, 4)
+    names = {"K5": "launches", "K6": "backward_launches", "K5p": "packed_launches",
+             "K6p": "packed_backward_launches", "K6v1": "backward_v1_launches"}
+    before = {k: getattr(tile_conv, a) for k, a in names.items()}
+    params = type(case[0])(*(t.detach().requires_grad_() for t in case[0]))
+    out = tile_conv.tile_mc_conv(params, *case[1:], 0.2, max_pairs=1 << 30, c_out=4)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    delta = {k: getattr(tile_conv, a) - before[k] for k, a in names.items()}
+    assert delta == {k: int(k in moved) for k in names}
+
+
+def test_tile_variant_wrappers_refuse_cpu_tensors():
+    pts, mask = cloud(6, N=160)
+    params = init_mcconv_params(torch.Generator().manual_seed(0), 2, None)
+    lay = tile_conv.conv_layout(pts, mask, pts, mask, 0.2, max_pairs=1 << 30, backward=True)
+    wf = tile_conv._sorted_weighted_features(lay, torch.ones((2, 160, 2)), torch.ones((2, 160)))
+    cnt, dout = torch.ones((2, 256)), torch.ones((2, 256, 2))
+    calls = [
+        lambda: tile_conv.tile_conv_sorted_packed_cuda(params, lay, wf, 0.2),
+        lambda: tile_conv.tile_conv_backward_sorted_packed_cuda(params, lay, wf, 0.2, cnt, dout),
+        lambda: tile_conv.tile_conv_backward_v1_sorted_cuda(params, lay, wf, 0.2, cnt, dout),
+    ]
+    counters = lambda: (tile_conv.packed_launches, tile_conv.packed_backward_launches,  # noqa: E731
+                        tile_conv.backward_v1_launches)
+    before = counters()
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert counters() == before

@@ -4,7 +4,9 @@ training, ScanNet segmentation serving and training (MCSeg on the z-order tile
 kernels), the capacity-free bucket path (MCSeg without a tile capacity, and
 MCClassS above 3072 points, on the cell-bucket kernels), the rest of the
 classification zoo (MCClass, MCClassH) with the per-h dense conv pair K1v1 /
-K2v1 that ``MCCNN_DENSE_V1=1`` selects, and normal estimation (MCNorm,
+K2v1 that ``MCCNN_DENSE_V1=1`` selects, the roofline instruments (K1p under
+``MCCNN_DENSE_PLANES=mxu``, the K5 / K6 probes of ``MCCNN_TILE_PROBE`` and
+T1, with the tools that time them), and normal estimation (MCNorm,
 MCNormS) and ShapeNet part segmentation with the Poisson sweep variants K3v2 /
 K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects, and ScanNet under the
 reference's tile switches (``MCCNN_TILE_BWD_V1``, ``MCCNN_TILE_PACK``,
@@ -131,11 +133,33 @@ K5p / K6p.
 25. The same ``tasks.normals`` run under ``MCCNN_POISSON_SWEEP=v2``, ``v3``
    and ``v4``, each in a child process: its counters must show that
    variant's kernel launched and no other variant's.
-26. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+26. The roofline instruments. K1p (the dense forward with its planes on
+   the tensor cores, ``MCCNN_DENSE_PLANES=mxu``) at the zoo's 14 sites and
+   MCClassS's 3 for batches of 8 and 32: against its plain version and K1 on
+   the same inputs, bit for bit on repeat; at B=32 the times of K1p, its
+   plain version, K1 and one torch.matmul of the GEMM part, and the bounds.
+27. MCClass training under ``MCCNN_DENSE_PLANES=mxu`` in a child process: its
+   counters must show K1p and K2 launched and K1 not.
+28. The K5 / K6 probes (``MCCNN_TILE_PROBE``: noop, planes, mm, bwd_noop) at
+   the four ScanNet tile sites of the B=8 x 8192 block batch: each against
+   its plain version, the packed ones (K5p / K6p) bit for bit against the
+   unpacked, bit for bit on repeat, with times and bounds; then
+   ``tools.tile_roofline`` at 32768 points prints its table, with the
+   probes' counters moving, and in the same counted window each probe runs
+   once more on the tool's layout, held against its plain version there.
+29. T1 (the dense conv's timing probes: mm_only, vpu_only, replica, h1,
+   noop, mm_big, fwd_bf16) at the tool's shapes (B=8, N=M=1024, C=128,
+   r=0.2): each against its plain version, bit for bit on repeat, with times,
+   the bounds of each variant's function (planes and contractions over the
+   in-radius pairs) and the library calls (``xla_equiv``'s torch.matmul,
+   noop's torch.full); then
+   ``tools.dense_breakdown`` prints its table, every variant launched.
+30. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
    B=32, K5-K10, K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed
    over the zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
-   two sweeps at B=32; each with its least possible time on the card,
-   ``bound_ms``, from
+   two sweeps at B=32, K1p over the 17 dense sites at B=32, the probes over
+   the four tile sites and T1 at its tool's shapes; each with its least
+   possible time on the card, ``bound_ms``, from
    the bytes and operations of this run's inputs), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -186,7 +210,13 @@ ZOO_CPU_B = 2  # served logits, card vs the CPU plain path
 ZOO_STEP_B = 4  # the zoo train steps, card vs the CPU plain path (B >= 3: the head BNs)
 ZOO_TRAIN_STEPS = 3  # tasks.modelnet steps an epoch, two epochs (the second profiled)
 RADII_3 = (0.1, 0.2, 0.4)
-RADII_2 = (0.1, 0.4)
+RADII_2 = (0.1, 0.4)  # also MCClassS's hierarchy
+# MCClassS's three dense sites (as ZOO_SITES below), checked with K1p
+MCCLASSS_SITES = [("MCClassS conv_0_1", RADII_2, 0, 1, 0.2, 1, GROW),
+                  ("MCClassS conv_1_2", RADII_2, 1, 2, 0.8, GROW, 2 * GROW),
+                  ("MCClassS conv_2_3", RADII_2, 2, 3, None, 2 * GROW, 8 * GROW)]
+TILE_ROOFLINE_N = 32768  # tools.tile_roofline's scene (the reference tool's default)
+FWD_PROBES = ("noop", "planes", "mm")
 # Every dense conv site of both models: (name, hierarchy radii, in level,
 # out level, radius (None: the global radius), C, CO (None: depthwise)).
 ZOO_SITES = [
@@ -235,12 +265,6 @@ TILE_SWITCH_CHILDREN = {
                         "MCCNN_TILE_MINOR": "64"}, ("--whole-scene-cap", str(SEG_CAP)),
                        ("K5", "K6", "K7", "K8"), ("K5p", "K6p", "K6v1")),
 }
-
-# The H100's published peaks (NVIDIA data sheet, SXM, 700 W): device memory
-# bandwidth, and the float32 rate outside the tensor cores (every kernel here
-# is fp32 CUDA-core arithmetic).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
 
 # Tolerances, kernel vs plain version on the card, with their reasons:
 # K4: fp32 sums of up to N positive terms in another order, and the kernel's
@@ -323,6 +347,20 @@ V1_FWD_RTOL = 3e-6
 #     batch with cancellation; the ReLU steps fall as in the kernels).
 V1_BWD_RTOL = 1e-5
 V1_BWD_W1_RTOL = 1e-4
+# K1p against its plain version: the tensor cores sum cw, -sw and b1 (exact
+#     TF32 pieces) in fp32 where the plain version rounds twice, then fp32 sums
+#     over neighbours and channels in other orders: as K1 (CONV_RTOL) of the
+#     site's largest output. Against K1, which forms pre_h in the offset form
+#     ((p - x) / r) . W1: cw - sw cancels terms of |p| |W1| / r (|p| <= 1,
+#     r >= 0.1 at the zoo's sites), some ulps of pre_h more: 1e-4 too.
+K1P_RTOL = 1e-4
+# The probes (planes, mm) against their plain versions: fp32 sums over the
+#     step list's pairs in another order, of the site's largest value; noop
+#     and bwd_noop give exact zeros. T1 against its plain versions: the same
+#     planes (explicit roundings, the same bf16 casts), fp32 sums of the
+#     products with the bf16 features in other orders.
+PROBE_RTOL = 1e-4
+T1_RTOL = 1e-4
 # The zoo's mixing layers and head Dense biases feed batch-statistic BNs, so
 # their gradients are 0 up to rounding of sums over the batch's points: both
 # sides below 1e-3 of the largest gradient, as MCSeg's mixes.
@@ -363,7 +401,10 @@ def time_ms(fn, iters: int = 20) -> float:
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the operations over the fp32 rate."""
+    the memory rate and the operations over the fp32 rate (the H100's
+    published peaks, ``mccnn_tpu_torch.tools``)."""
+    from mccnn_tpu_torch.tools import PEAK_BYTES_PER_S, PEAK_FP32_FLOP_PER_S
+
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -628,11 +669,16 @@ def same_hierarchy(req: dict, dev, radii=(0.1, 0.4)) -> bool:
 
 
 def counters() -> dict:
-    """Each kernel's launch counter: (module, attribute)."""
-    from mccnn_tpu_torch.ops.cuda import (dense_conv, density_kernel, mcconv_kernel,
-                                          poisson_kernel, tile_conv)
+    """Each kernel's launch counter: (module, attribute) or, for a counter
+    kept per variant, (module, attribute, key)."""
+    from mccnn_tpu_torch.ops.cuda import (dense_conv, dense_probe, density_kernel,
+                                          mcconv_kernel, poisson_kernel, tile_conv)
 
     return {"K1": (dense_conv, "launches"), "K2": (dense_conv, "backward_launches"),
+            "K1p": (dense_conv, "launches_planes"),
+            **{f"K5 probe {p}": (tile_conv, "launches_probe", p) for p in FWD_PROBES},
+            "K6 bwd_noop": (tile_conv, "backward_launches_probe"),
+            **{f"T1 {v}": (dense_probe, "launches", v) for v in dense_probe.VARIANTS},
             "K1v1": (dense_conv, "launches_v1"), "K2v1": (dense_conv, "backward_launches_v1"),
             "K3": (poisson_kernel, "launches"), "K4": (density_kernel, "launches"),
             "K5": (tile_conv, "launches"), "K6": (tile_conv, "backward_launches"),
@@ -645,12 +691,16 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
-    for module, attr in counters().values():
-        setattr(module, attr, 0)
+    for module, attr, *key in counters().values():
+        if key:
+            getattr(module, attr)[key[0]] = 0
+        else:
+            setattr(module, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: getattr(module, attr) for k, (module, attr) in counters().items()}
+    return {k: getattr(module, attr)[key[0]] if key else getattr(module, attr)
+            for k, (module, attr, *key) in counters().items()}
 
 
 def serve(dev) -> dict:
@@ -952,13 +1002,19 @@ def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
     return (err, ms, pms, bms, by, None)
 
 
+def tile_fwd_bytes(smp, src, c, co) -> int:
+    """The bytes K5's function must move: each input and output byte once."""
+    b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+    CO = c if co is None else co
+    return (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c * (co or 1)
+                 + b * M * CO + b * M) + b * (M + N))
+
+
 def tile_fwd_bound(smp, qmask, src, c, co, pairs) -> tuple[float, str]:
     """K5's least time (K5p's too): each input and output byte once, and the
     fp32 operations of the in-radius pairs (and the full conv's projection)."""
-    b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
-    CO, H1 = (c if co is None else co), H + 1
-    nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
-                   * (co or 1) + b * M * CO + b * M) + b * (M + N))
+    H1 = H + 1
+    nbytes = tile_fwd_bytes(smp, src, c, co)
     flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
     if co is not None:
         flops += 2 * int(qmask.sum()) * H1 * c * co
@@ -1209,8 +1265,8 @@ def check_tile_minors(dev, hier, block) -> None:
 
 def check_tile_kernels(dev) -> dict:
     """K8, K7, K5 and K6 against their plain versions at the ScanNet shapes,
-    then the tile switches' kernels (K5p, K6p, K6v1) and K5-K8 at the other
-    minor sizes."""
+    then the tile switches' kernels (K5p, K6p, K6v1), K5-K8 at the other
+    minor sizes and the K5 / K6 probes."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
 
@@ -1232,6 +1288,7 @@ def check_tile_kernels(dev) -> dict:
     results["K6"] = check_tile_backward(dev, lv, tile_pairs)
     results |= check_tile_switch_kernels(dev, lv, tile_pairs)
     check_tile_minors(dev, lv, (pts, mask))
+    results |= check_tile_probes(dev, lv, tile_pairs)
     return results
 
 
@@ -2160,7 +2217,7 @@ def run_zoo_trainer(name: str, extra=()) -> dict:
     return launches
 
 
-_V1_CHILD = r"""
+_DENSE_CHILD = r"""
 import json, os, sys, tempfile
 sys.path.insert(0, os.getcwd())
 import torch
@@ -2168,44 +2225,45 @@ torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
 from mccnn_tpu_torch.ops.cuda import dense_conv
 from mccnn_tpu_torch.tasks import modelnet
-assert dense_conv._USE_V1, "MCCNN_DENSE_V1=1 did not reach the module"
+assert getattr(dense_conv, %r), "the switch did not reach the module"
 with tempfile.TemporaryDirectory() as tmp:
     res = modelnet.main(["--synthetic", "--model", "MCClass", "--batch", "%d", "--points", "%d",
                          "--n-classes", "%d", "--epochs", "1", "--steps-per-epoch", "%d",
                          "--device", "cuda", "--log-dir", tmp, "--ckpt-dir", tmp + "/ck"])
     with open(tmp + "/modelnet_MCClass.metrics.jsonl") as f:
         train = [json.loads(l) for l in f if '"train"' in l]
-print("V1_COUNTS " + json.dumps({
+print("DENSE_COUNTS " + json.dumps({
     "launches": chip_smoke.read_counts(), "loss": train[0]["loss"],
     "warm_step_ms": train[0].get("warm_step_ms"), "best_accuracy": res["best_accuracy"]}))
 """
 
 
-def run_v1_trainer() -> dict:
-    """MCClass training through ``tasks.modelnet`` under ``MCCNN_DENSE_V1=1``
-    in a child process: its printed counters must show K1v1 and K2v1 launched
-    and K1 and K2 not; a failed child fails the script."""
-    env = dict(os.environ, MCCNN_DENSE_V1="1")
-    code = _V1_CHILD % (TRAIN_B, N, N_CLASSES, ZOO_TRAIN_STEPS)
+def run_dense_switch_trainer(var: str, value: str, attr: str, launched, not_launched) -> dict:
+    """MCClass training through ``tasks.modelnet`` with ``var=value`` in a
+    child process (``dense_conv.<attr>`` must be set there): its printed
+    counters must show the kernels of ``launched`` and none of
+    ``not_launched``; a failed child fails the script."""
+    what = f"{var}={value}"
+    env = dict(os.environ, **{var: value})
+    code = _DENSE_CHILD % (attr, TRAIN_B, N, N_CLASSES, ZOO_TRAIN_STEPS)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=os.path.dirname(
         os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
-    require(proc.returncode == 0, f"the MCCNN_DENSE_V1=1 trainer failed ({proc.returncode}): "
+    require(proc.returncode == 0, f"the {what} trainer failed ({proc.returncode}): "
             f"{proc.stderr[-3000:]}")
-    line = [x for x in proc.stdout.splitlines() if x.startswith("V1_COUNTS ")]
-    require(len(line) == 1,
-            f"the MCCNN_DENSE_V1=1 trainer printed no counters: {proc.stdout[-2000:]}")
-    res = json.loads(line[0][len("V1_COUNTS "):])
+    line = [x for x in proc.stdout.splitlines() if x.startswith("DENSE_COUNTS ")]
+    require(len(line) == 1, f"the {what} trainer printed no counters: {proc.stdout[-2000:]}")
+    res = json.loads(line[0][len("DENSE_COUNTS "):])
     counts = res["launches"]
-    print(f"trainer under MCCNN_DENSE_V1=1 (child process, tasks.modelnet --model MCClass, "
+    print(f"trainer under {what} (child process, tasks.modelnet --model MCClass, "
           f"B={TRAIN_B}, N={N}, {ZOO_TRAIN_STEPS} steps and one eval): {res} "
           f"child_sec={seconds:.2f}", flush=True)
-    require(bool(np.isfinite(res["loss"])), "the MCCNN_DENSE_V1=1 trainer's loss")
-    require(counts["K1v1"] > 0 and counts["K2v1"] > 0,
-            "K1v1 / K2v1 were not launched under MCCNN_DENSE_V1=1")
-    require(counts["K1"] == 0 and counts["K2"] == 0,
-            "K1 / K2 were launched under MCCNN_DENSE_V1=1")
+    require(bool(np.isfinite(res["loss"])), f"the {what} trainer's loss")
+    for kid in launched:
+        require(counts[kid] > 0, f"{kid} was not launched under {what}")
+    for kid in not_launched:
+        require(counts[kid] == 0, f"{kid} was launched under {what}")
     return counts
 
 
@@ -2481,6 +2539,320 @@ def run_sweep_variant_trainers() -> dict:
         out[f"normals_train_{variant}"] = counts
     return out
 
+# ------------------------------------------------------------ the roofline instruments
+
+
+def planes_bound(b, M, Ns, c, co, valid, inr, nq) -> tuple[float, str]:
+    """K1p's least time: K1's bytes (``dense_bound``); the operations of its
+    function by the unit that runs them: the d2 test, the mask and ReLU, the
+    contraction and the projection in fp32 on the CUDA cores, the H planes
+    (cw_h - sw_h + b1_h: 2 operations a pair and plane) in TF32 on the
+    tensor cores (the H100's published peaks, ``mccnn_tpu_torch.tools``)."""
+    from mccnn_tpu_torch.tools import (PEAK_BYTES_PER_S, PEAK_FP32_FLOP_PER_S,
+                                       PEAK_TF32_FLOP_PER_S)
+
+    K = (H + 1) * c
+    cw, wbytes, proj = (c, K, K) if co is None else (co, K * co, K * co)
+    nbytes = 4 * (b * M * 3 + b * Ns * 3 + b * Ns * c + 4 * H + wbytes + b * M * cw
+                  + b * M) + b * (M + Ns)
+    fp32 = 8 * valid + inr * (2 * H + 2 * K) + 2 * nq * proj
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (fp32 / PEAK_FP32_FLOP_PER_S + 2 * H * inr / PEAK_TF32_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_planes_kernels(dev, b: int, timed: bool) -> list:
+    """K1p at every dense conv site of MCClass, MCClassH and MCClassS for a
+    batch of ``b`` clouds of N points (hierarchies built by the CPU plain
+    path), against its plain version and K1 on the same inputs, bit for bit
+    on repeat; with ``timed``, CUDA-event times of K1p, its plain version, K1
+    and one torch.matmul of the GEMM part (full sites), and the bounds.
+    Returns the rows of the kernels line."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
+
+    req = request(np.random.default_rng(SEED + 30 + b), b)
+    lvs = {radii: levels(req, dev, radii) for radii in (RADII_3, RADII_2)}
+    gen = torch.Generator().manual_seed(SEED + 30)
+    rows = []
+    sums = {"zoo": [0.0, 0.0], "MCClassS": [0.0, 0.0]}  # K1p ms, K1 ms
+    with torch.no_grad():
+        for site, radii, i, o, radius, c, co in ZOO_SITES + MCCLASSS_SITES:
+            radius = GLOBAL_RADIUS if radius is None else radius
+            (src, smask), (smp, qmask) = lvs[radii][i], lvs[radii][o]
+            M, Ns = smp.shape[1], src.shape[1]
+            params = site_params(gen, c, co, dev)
+            feats = (torch.ones((b, Ns, 1)) if c == 1 else
+                     torch.randn((b, Ns, c), generator=gen)).to(dev)
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            wf = dense_conv._weighted_features(feats, pdf, smask)
+            fargs = (params, smp, qmask, src, smask, wf, radius, co, False)
+            out, cnt, _ = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+            again, _, _ = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+            want, wcnt, _ = dense_conv._forward_planes_reference(*fargs)
+            k1, k1cnt, G = dense_conv._forward_cuda(*fargs)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            e_plain = float((out - want).abs().max()) / scale
+            e_k1 = float((out - k1).abs().max()) / scale
+            require(bool(torch.equal(out, again)), f"K1p differs between two calls at {site}")
+            require(bool(torch.equal(cnt, wcnt)) and bool(torch.equal(cnt, k1cnt)),
+                    f"K1p neighbour counts differ at {site}")
+            require(e_plain <= K1P_RTOL and e_k1 <= K1P_RTOL,
+                    f"K1p at {site}: {e_plain:.3e} of the largest output from its plain version, "
+                    f"{e_k1:.3e} from K1 (limit {K1P_RTOL:g})")
+            mode = "depthwise" if co is None else "full"
+            line = (f"K1p B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co}: rel_err plain="
+                    f"{e_plain:.3e} K1={e_k1:.3e} (max |out| {scale:.3e}) bitwise_repeatable=True")
+            if timed:
+                valid, inr = pair_counts(smp, qmask, src, smask, radius)
+                ms = time_ms(lambda: dense_conv.dense_mc_conv_planes_cuda(*fargs))
+                pms = time_ms(lambda: dense_conv._forward_planes_reference(*fargs), iters=3)
+                k1ms = time_ms(lambda: dense_conv._forward_cuda(*fargs))
+                bms, by = planes_bound(b, M, Ns, c, co, valid, inr, int(qmask.sum()))
+                lms = None
+                if co is not None:
+                    Gf, W = G.reshape(b * M, (H + 1) * c), wcat(params, c, co)
+                    lms = time_ms(lambda: torch.matmul(Gf, W))
+                line += (f" K1p_ms={ms:.4f} plain_ms={pms:.4f} K1_ms={k1ms:.4f} "
+                         f"bound_ms={bms:.6f} ({by}) matmul_ms={lms}")
+                rows.append((e_plain * scale, ms, pms, bms, by, lms))
+                group = sums["MCClassS" if site.startswith("MCClassS") else "zoo"]
+                group[0], group[1] = group[0] + ms, group[1] + k1ms
+            print(line, flush=True)
+    if timed:
+        print("K1p against K1, summed: " + "; ".join(
+            f"{k} sites {v[0]:.4f} ms against {v[1]:.4f} ms ({v[0] / v[1]:.3f}x)"
+            for k, v in sums.items()), flush=True)
+    return rows
+
+
+def step_pairs(lay) -> int:
+    """Valid (sample, candidate source) pairs the forward step list hands K5
+    (a sentinel minor holds none): the work of the ``mm`` probe's d2 planes."""
+    st = lay.steps
+    B, NS = lay.smp_valid.shape
+    Tm = st.Tm
+    vs = lay.smp_valid.reshape(B, NS // 128, 128).sum(-1)  # valid samples a major
+    vm = lay.src_valid[:, : st.n_minor * Tm].reshape(B, st.n_minor, Tm).sum(-1)
+    vm = torch.cat([vm, vm.new_zeros((B, 1))], dim=1)
+    G, S = st.j_ids.shape[1:]
+    per_step = vm.gather(1, st.j_ids.reshape(B, G * S).long()).reshape(B, G, S).sum(1)
+    return int((per_step * vs.gather(1, st.i_ids.long())).sum())
+
+
+def probe_bound(probe, smp, qmask, src, c, co, pairs, cand) -> tuple[float, str]:
+    """A probe's least time: K5's bytes (K6's for bwd_noop, ``tile_bwd_bound``'s
+    count) and the fp32 operations of its function: d2 and the count on the
+    in-radius pairs (noop, bwd_noop), + the factored planes (planes); for mm,
+    d2 over every valid candidate pair of the step list, one contraction of
+    that d2 plane (the H planes are one plane) and one of the radius mask
+    over the in-radius pairs, and their projection, ``D (sum_h w2_h) + Mk b2``
+    a valid sample."""
+    if probe == "bwd_noop":
+        b, M, N = smp.shape[0], smp.shape[1], src.shape[1]
+        CO = c if co is None else co
+        nw = H * c * (co or 1) + c * (co or 1) + 4 * H
+        nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
+                  + b * (M + N))
+        return bound(nbytes, 8 * pairs)
+    flops = {"noop": 8 * pairs, "planes": pairs * (8 + 4 * H),
+             "mm": (8 + 2 * c) * cand + 2 * c * pairs + 4 * int(qmask.sum()) * c * (co or 1)}[probe]
+    return bound(tile_fwd_bytes(smp, src, c, co), flops)
+
+
+def check_probe(probe, got, want, k5cnt, where) -> tuple[float, float]:
+    """A K5 probe's ``(out, cnt)`` against its plain version's: the count
+    K5's, noop's out 0, planes' and mm's within ``PROBE_RTOL`` of the largest
+    output. Returns (max abs error, largest output)."""
+    require(bool(torch.equal(got[1], k5cnt)), f"the {probe} probe's count at {where}")
+    scale = float(want[0].abs().max())
+    e = float((got[0] - want[0]).abs().max())
+    if probe == "noop":
+        require(scale == 0.0 and e == 0.0, f"the noop probe is not 0 at {where}")
+    else:
+        require(scale > 0 and e <= PROBE_RTOL * scale,
+                f"the {probe} probe at {where}: {e:.3e} of {scale:.3e} from its plain version")
+    return e, scale
+
+
+def check_bwd_noop(got, want, where, packed=None) -> None:
+    """The bwd_noop probe's gradients (and K6p's, ``packed``): every one 0,
+    in the shapes of its plain version's."""
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    for gname, a, a2, w in zip(names, got, packed or got, want):
+        require(tuple(a.shape) == tuple(w.shape) and bool(torch.equal(a, w))
+                and bool(torch.equal(a2, w)),
+                f"the bwd_noop probe's {gname} is not 0 at {where}")
+
+
+def check_tile_probes(dev, hier, tile_pairs) -> dict:
+    """The K5 probes (noop, planes, mm) and K6's bwd_noop at the four tile
+    sites of the block batch: each against its plain version, the K5p / K6p
+    probes bit for bit against the K5 / K6 ones, bit for bit on repeat, the
+    count K5's; times, plain times and bounds."""
+    from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    rows = {k: [0.0, 0.0, 0.0, 0.0, "operations"]
+            for k in [f"K5 probe {p}" for p in FWD_PROBES] + ["K6 bwd_noop"]}
+    for name, i, o, radius, c, co in SEG_SITES:
+        (src, smask), (smp, qmask) = hier[i], hier[o]
+        b, N = smp.shape[0], src.shape[1]
+        CO = c if co is None else co
+        params = site_params(gen, c, co, dev)
+        feats = (torch.ones((b, N, 1)) if c == 1 else
+                 torch.randn((b, N, c), generator=gen)).to(dev)
+        parts = []
+        with torch.no_grad():
+            pdf = density_kernel.kde_density_reference(src, smask, radius)
+            max_pairs = tile_pairs if 0 in (i, o) else 1 << 30
+            lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=max_pairs,
+                                        backward=True)
+            require(int(lay.overflow.max()) == 0, f"the layout overflowed at {name}")
+            wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+            kw = dict(c_out=co)
+            _, k5cnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+            pairs, cand = inr_pairs(smp, qmask, src, smask, radius), step_pairs(lay)
+            for probe in FWD_PROBES:
+                args = (probe, params, lay, wf, radius)
+                got = tile_conv.tile_conv_probe_sorted_cuda(*args, **kw)
+                again = tile_conv.tile_conv_probe_sorted_cuda(*args, **kw)
+                packed = tile_conv.tile_conv_probe_sorted_packed_cuda(*args, **kw)
+                want = tile_conv.tile_conv_probe_sorted_reference(*args, **kw)
+                torch.cuda.synchronize()
+                for a, r in ((again, "a second call"), (packed, "its K5p probe")):
+                    require(bool(torch.equal(got[0], a[0]) and torch.equal(got[1], a[1])),
+                            f"the {probe} probe differs from {r} at {name}")
+                e, scale = check_probe(probe, got, want, k5cnt, name)
+                ms = time_ms(lambda: tile_conv.tile_conv_probe_sorted_cuda(*args, **kw), iters=10)
+                pms = time_ms(lambda: tile_conv.tile_conv_probe_sorted_reference(*args, **kw),
+                              iters=1)
+                bms, by = probe_bound(probe, smp, qmask, src, c, co, pairs, cand)
+                r = rows[f"K5 probe {probe}"]
+                r[0], r[1], r[2], r[3], r[4] = max(r[0], e), r[1] + ms, r[2] + pms, r[3] + bms, by
+                parts.append(f"{probe} err={e:.3e}/{scale:.3e} ms={ms:.4f} plain_ms={pms:.4f} "
+                             f"bound_ms={bms:.6f} ({by})")
+            dout = torch.randn((b, lay.smp.shape[1], CO), generator=gen).to(dev)
+            bargs = (params, lay, wf, radius, k5cnt, dout)
+            got = tile_conv.tile_conv_backward_noop_sorted_cuda(*bargs, **kw)
+            packed = tile_conv.tile_conv_backward_noop_sorted_packed_cuda(*bargs, **kw)
+            want = tile_conv.tile_conv_backward_noop_sorted_reference(*bargs, **kw)
+            torch.cuda.synchronize()
+            check_bwd_noop(got, want, name, packed)
+            ms = time_ms(lambda: tile_conv.tile_conv_backward_noop_sorted_cuda(*bargs, **kw),
+                         iters=5)
+            pms = time_ms(lambda: tile_conv.tile_conv_backward_noop_sorted_reference(*bargs, **kw),
+                          iters=5)
+            bms, by = probe_bound("bwd_noop", smp, qmask, src, c, co, pairs, cand)
+            r = rows["K6 bwd_noop"]
+            r[1], r[2], r[3], r[4] = r[1] + ms, r[2] + pms, r[3] + bms, by
+            parts.append(f"bwd_noop zero ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by})")
+        print(f"probes B={b} {name} N={N} M={smp.shape[1]} C={c} CO={co}: Tm={lay.steps.Tm} "
+              f"S={lay.S} in_radius_pairs={pairs} candidate_pairs={cand}; packed_bit_equal=True "
+              f"bitwise_repeatable=True; " + "; ".join(parts), flush=True)
+    return {k: (*r[:4], r[4], None) for k, r in rows.items()}
+
+
+def run_tile_roofline() -> dict:
+    """``tools.tile_roofline`` at its default scene: its table, with the
+    probes' launch counters (and K5's, K6's) moving in its run; in the same
+    counted window each probe once more on the tool's layout, held against
+    its plain version there."""
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+    from mccnn_tpu_torch.tools import tile_roofline
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    case = tile_roofline.run(TILE_ROOFLINE_N, iters=2, reps=2)["case"]
+    where = f"tools.tile_roofline's {TILE_ROOFLINE_N}-point scene"
+    args = (case["params"], case["lay"], case["wf"], case["radius"])
+    parts = []
+    with torch.no_grad():
+        for probe in FWD_PROBES:
+            got = tile_conv.tile_conv_probe_sorted_cuda(probe, *args)
+            want = tile_conv.tile_conv_probe_sorted_reference(probe, *args)
+            e, scale = check_probe(probe, got, want, case["cnt"], where)
+            parts.append(f"{probe} err={e:.3e}/{scale:.3e}")
+        bargs = (*args, case["cnt"], case["dout"])
+        check_bwd_noop(tile_conv.tile_conv_backward_noop_sorted_cuda(*bargs),
+                       tile_conv.tile_conv_backward_noop_sorted_reference(*bargs), where)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"tools.tile_roofline probes against their plain versions at {where}: "
+          + "; ".join(parts) + "; bwd_noop zero", flush=True)
+    print(f"tools.tile_roofline {TILE_ROOFLINE_N}: {time.perf_counter() - t0:.2f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    for kid in ["K5", "K6", "K6 bwd_noop"] + [f"K5 probe {p}" for p in FWD_PROBES]:
+        require(counts[kid] > 0, f"{kid} was not launched by tools.tile_roofline")
+    return counts
+
+
+def t1_bound(variant: str, inr: int) -> tuple[float, str]:
+    """T1 ``variant``'s least time: its function's bytes and operations
+    (``tools.dense_breakdown``'s ``t1_bytes`` / ``t1_ops``) with ``inr`` of
+    the tool's pairs within the radius."""
+    from mccnn_tpu_torch.tools import dense_breakdown as db
+
+    return bound(db.t1_bytes(variant), db.t1_ops(variant, db.B * db.M * db.N, inr))
+
+
+def check_t1(dev) -> dict:
+    """T1's variants at the tool's shapes against their plain versions, bit
+    for bit on repeat; times, plain times, bounds, and the library calls:
+    the tool's ``xla_equiv`` (torch.matmul) for mm_only and mm_big, one
+    ``torch.full`` of w2[0, 0] for noop."""
+    from mccnn_tpu_torch.ops.cuda import dense_probe
+    from mccnn_tpu_torch.tools import dense_breakdown as db
+
+    pts, feats, w1, b1, w2, b2 = db.inputs(dev)
+    args = (pts, feats, w1, b1, w2, b2, db.RADIUS)
+    lms = time_ms(lambda: dense_probe.xla_equiv(pts, feats, w2), iters=5)
+    fill = float(w2[0, 0])
+    full_ms = time_ms(lambda: torch.full(tuple(feats.shape), fill, device=dev), iters=10)
+    inr = db.in_radius_pairs(pts)
+    rows = {}
+    with torch.no_grad():
+        for v in dense_probe.VARIANTS:
+            got = dense_probe.dense_probe_cuda(v, *args)
+            again = dense_probe.dense_probe_cuda(v, *args)
+            want = dense_probe.dense_probe_reference(v, *args)
+            torch.cuda.synchronize()
+            require(bool(torch.equal(got, again)), f"T1 {v} differs between two calls")
+            scale = float(want.abs().max())
+            e = float((got - want).abs().max())
+            require(scale > 0 and e <= T1_RTOL * scale,
+                    f"T1 {v}: {e:.3e} of {scale:.3e} from its plain version")
+            ms = time_ms(lambda: dense_probe.dense_probe_cuda(v, *args),
+                         iters=2 if v == "mm_big" else 10)
+            pms = time_ms(lambda: dense_probe.dense_probe_reference(v, *args), iters=1)
+            bms, by = t1_bound(v, inr)
+            lib = lms if v in ("mm_only", "mm_big") else full_ms if v == "noop" else None
+            rows[f"T1 {v}"] = (e, ms, pms, bms, by, lib)
+            print(f"T1 {v} B={db.B} N=M={db.N} C={db.C} r={db.RADIUS} in_radius={inr}: "
+                  f"max_abs_err={e:.3e} "
+                  f"max_abs_out={scale:.3e} bitwise_repeatable=True kernel_ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) library_ms={lib}", flush=True)
+    return rows
+
+
+def run_dense_breakdown() -> dict:
+    """``tools.dense_breakdown``'s table, every T1 variant launched in its run."""
+    from mccnn_tpu_torch.tools import dense_breakdown
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    dense_breakdown.run(iters=2, reps=2)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"tools.dense_breakdown: {time.perf_counter() - t0:.2f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    for kid in [k for k in counts if k.startswith("T1 ")] + ["K1", "K2", "K1p"]:
+        require(counts[kid] > 0, f"{kid} was not launched by tools.dense_breakdown")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2537,7 +2909,8 @@ def main() -> int:
     zoo_launches |= {f"{name}_train_step": zoo_step[name] for name in ZOO}
     zoo_launches["MCClass_train"] = run_zoo_trainer("MCClass")
     zoo_launches["MCClassH_train"] = run_zoo_trainer("MCClassH", ("--protocol", "gradient"))
-    v1_launches = {"MCClass_train_v1": run_v1_trainer()}
+    v1_launches = {"MCClass_train_v1": run_dense_switch_trainer(
+        "MCCNN_DENSE_V1", "1", "_USE_V1", ("K1v1", "K2v1"), ("K1", "K2"))}
 
     sweep_results = check_sweep_variants(dev, TRAIN_B, ("MCNorm", "MCNormS", "ShapeNet MCSeg",
                                                          "MCClassS"))
@@ -2548,6 +2921,14 @@ def main() -> int:
     norm_launches["normals_MCNormS_train"] = run_task_trainer("normals", ("--model", "MCNormS"))
     norm_launches["shapenet_train"] = run_task_trainer("shapenet")
     sweep_launches = run_sweep_variant_trainers()
+
+    check_planes_kernels(dev, SERVE_B, timed=False)
+    planes_rows = check_planes_kernels(dev, TRAIN_B, timed=True)
+    planes_launches = {"MCClass_train_planes": run_dense_switch_trainer(
+        "MCCNN_DENSE_PLANES", "mxu", "_PLANES_MXU", ("K1p", "K2"), ("K1", "K1v1", "K2v1"))}
+    roofline_launches = {"tile_roofline": run_tile_roofline()}
+    t1_results = check_t1(dev)
+    breakdown_launches = {"dense_breakdown": run_dense_breakdown()}
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
@@ -2625,6 +3006,35 @@ def main() -> int:
             "bound_ms": sum(r[3] for r in rows),
             "bound_by": max(rows, key=lambda r: r[3])[4],
             "library_ms": sum(lib) if (lib := [x for x in lib_ms if x is not None]) else None,
+        })
+    # the roofline instruments: (id, name, source, replaces, rows, launch paths, batch)
+    t1_lines = {"mm_only": 96, "vpu_only": 110, "replica": 131, "h1": 153, "noop": 182,
+                "mm_big": 200, "fwd_bf16": 234}
+    roofline = [("K1p", "dense_mc_conv_planes", "mccnn_tpu_torch/csrc/dense_conv_planes.cu",
+                 "mccnn_tpu/ops/pallas/dense_conv.py:314", planes_rows, planes_launches, TRAIN_B)]
+    roofline += [(f"K5 probe {p}", f"tile_mc_conv_probe_{p}",
+                  "mccnn_tpu_torch/csrc/tile_conv_probe.cu", "mccnn_tpu/ops/pallas/tile_conv.py:575",
+                  [tile_results[f"K5 probe {p}"]], roofline_launches, SEG_B) for p in FWD_PROBES]
+    roofline += [("K6 bwd_noop", "tile_mc_conv_backward_noop",
+                  "mccnn_tpu_torch/csrc/tile_conv_bwd_probe.cu",
+                  "mccnn_tpu/ops/pallas/tile_conv.py:718", [tile_results["K6 bwd_noop"]],
+                  roofline_launches, SEG_B)]
+    roofline += [(f"T1 {v}", f"dense_probe_{v}", "mccnn_tpu_torch/csrc/dense_probe.cu",
+                  f"tools/exp_dense_breakdown.py:{line}", [t1_results[f"T1 {v}"]],
+                  breakdown_launches, SERVE_B) for v, line in t1_lines.items()]
+    for kid, name, source, replaces, rows, paths, batch in roofline:
+        lib_ms = [r[5] for r in rows if r[5] is not None]
+        kernels.append({
+            "name": f"{kid} {name}", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(v[kid] for v in paths.values()),
+            "launches_by_path": {k: v[kid] for k, v in paths.items()},
+            "batch": batch,
+            "max_abs_err": max(r[0] for r in rows),
+            "ms": sum(r[1] for r in rows),
+            "plain_ms": sum(r[2] for r in rows),
+            "bound_ms": sum(r[3] for r in rows),
+            "bound_by": max(rows, key=lambda r: r[3])[4],
+            "library_ms": sum(lib_ms) if lib_ms else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

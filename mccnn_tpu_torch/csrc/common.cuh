@@ -37,6 +37,17 @@ __device__ __forceinline__ float mc_preact(float ox, float oy, float oz,
                    b1[h]);
 }
 
+// (p . W1[:, h]) / r, one rounding per op: the projections cw (sources) and
+// sw (samples) of the factored pre-activation (cw_h(j) - sw_h(i)) + b1_h that
+// K1p and the K5 `planes` probe form, as dense_conv._factored_preact's plain
+// twin rounds them.
+__device__ __forceinline__ float mc_w1_proj(float x, float y, float z, const float* w1, int H,
+                                            int h, float radius) {
+  return __fdiv_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(x, w1[h]), __fmul_rn(y, w1[H + h])), __fmul_rn(z, w1[2 * H + h])),
+      radius);
+}
+
 // One a_h column of a pair (sample q, source p): a_h = relu(pre_h) for h < H
 // and a_H = 1 where d2 <= r2, all 0 otherwise, at pl[h * stride]. The bucket
 // kernels (K9, K10) fill their planes with it; asq / psq are |q|^2 / |p|^2.

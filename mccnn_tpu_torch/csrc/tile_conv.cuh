@@ -47,6 +47,26 @@
 // ~0). Everything is fp32 (the TPU kernel holds features in bf16). Limits:
 // H == 8, T == 128, G * Tm <= 2048. The source rows may run past the last
 // minor (the layout keeps them in the major tiling the backward, K6, reads).
+//
+// The probes (template parameter kProbe; tile_conv_probe.cu and
+// tile_conv_packed_probe.cu build them) replace the roofline probes of the
+// TPU kernel's forward (spec.probe, :575-608, MCCNN_TILE_PROBE), which strip
+// K5 to its parts for tools/exp_tile_roofline.py. Each walks the same steps,
+// stages the same chunks (positions, flags and the f~ slice) and forms d2 and
+// the count, then keeps one part:
+//   kProbeNoop:   nothing more; it writes 0 (0 x the f~ it staged, so the
+//                 loads stay) as the sample's value;
+//   kProbePlanes: the H pre-activation planes in the factored form
+//                 (cw_h(j) - sw_h(i)) + b1_h (mc_w1_proj, as the TPU probe
+//                 forms them, :578-591), ReLU'd and masked, summed over h
+//                 into one plane and over the step's sources into the
+//                 sample's value (the TPU probe's sum of a_h, no matmul);
+//   kProbeMm:     the raw d2 of every valid pair as each of the H planes (the
+//                 mask as the last) and K5's whole contraction and epilogue
+//                 (the TPU probe's d2 fed to the 9 feature matmuls, :595-607).
+// noop and planes write the value to out (B, NS), the same for every channel
+// (the wrapper broadcasts and scales it); mm writes what K5 writes. Every
+// probe writes K5's count.
 #pragma once
 
 #include "common.cuh"
@@ -59,6 +79,7 @@ constexpr int kThreads = 256;
 constexpr int kOut = 8;       // (sample, channel) outputs per thread
 constexpr int kMaxCB = kThreads * kOut / kT;  // 16 channels per block
 constexpr int kMaxRows = 2048;  // candidate rows a step: G * Tm
+constexpr int kProbeNone = 0, kProbeNoop = 1, kProbePlanes = 2, kProbeMm = 3;
 
 struct TileConvArgs {
   const float* smp;       // (B, NS, 3) sorted samples
@@ -76,19 +97,20 @@ struct TileConvArgs {
   int NS, NP, C, CB, S, G, n_tiles, sentinel;
   float r2, radius;
   int mean, depthwise;
-  float* out;  // (B, NS, C) depthwise, else G (B, NS, H+1, C)
+  float* out;  // (B, NS, C) depthwise, else G (B, NS, H+1, C); a noop or planes probe's (B, NS)
   float* cnt;  // (B, NS)
 };
 
-template <int TM>
+template <int TM, int kProbe>
 size_t tile_conv_smem(int H) {
   constexpr int kTJ = TM < 16 ? TM : 16;
+  const size_t proj = kProbe == kProbePlanes ? (size_t)(kT + kTJ) * H : 0;  // sw, cw
   return sizeof(float) * ((size_t)kTJ * (H + 1) * kT + kTJ * kMaxCB + kTJ * 4 + kT * 4 + 3 * H +
-                          H) +
+                          H + proj) +
          sizeof(int) * (kMaxRows / TM) + kTJ + kT;
 }
 
-template <int H, int TM, bool kPacked>
+template <int H, int TM, bool kPacked, int kProbe>
 __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs a) {
   constexpr int H1 = H + 1;
   constexpr int kTJ = TM < 16 ? TM : 16;  // sources per shared-memory chunk
@@ -102,6 +124,8 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
   int* sj = reinterpret_cast<int*>(sb1 + H);                       // [kMaxRows / TM]
   uint8_t* svld = reinterpret_cast<uint8_t*>(sj + kMaxRows / TM);  // [kTJ]
   uint8_t* qvld = svld + kTJ;                                      // [kT]
+  float* sproj = reinterpret_cast<float*>(qvld + kT);  // planes probe: [kT][H] sw, [kTJ][H] cw
+  float* cproj = sproj + kT * H;
 
   const int C = a.C, CB = a.CB, G = a.G;
   const int cb = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
@@ -118,6 +142,13 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
   }
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) sw1[i] = a.w1[i];
   for (int i = threadIdx.x; i < H; i += blockDim.x) sb1[i] = a.b1[i];
+  if constexpr (kProbe == kProbePlanes) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kT * H; i += blockDim.x) {
+      const int s = i / H, h = i % H;
+      sproj[i] = mc_w1_proj(qpos[4 * s], qpos[4 * s + 1], qpos[4 * s + 2], sw1, H, h, a.radius);
+    }
+  }
 
   float acc[kOut][H1];
   float count[kOut];
@@ -166,6 +197,9 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
             svld[i] = p[3] != 0.f;
           else
             svld[i] = vld[i];
+          if constexpr (kProbe == kProbePlanes)
+            for (int h = 0; h < H; ++h)
+              cproj[i * H + h] = mc_w1_proj(p[0], p[1], p[2], a.w1, H, h, a.radius);
         }
         for (int i = threadIdx.x; i < kTJ * CB; i += blockDim.x) {
           const int j = i / CB, c = c0 + i % CB;
@@ -178,13 +212,27 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
           const float qx = qpos[4 * s], qy = qpos[4 * s + 1], qz = qpos[4 * s + 2];
           const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * s + 3], px, py, pz, spos[4 * j + 3]);
           const bool in = qvld[s] && svld[j] && d2 <= a.r2;
-          const float ox = mc_offset(px, qx, a.radius), oy = mc_offset(py, qy, a.radius),
-                      oz = mc_offset(pz, qz, a.radius);
           float* pl = plane + (size_t)j * H1 * kT + s;
+          if constexpr (kProbe == kProbeNone) {
+            const float ox = mc_offset(px, qx, a.radius), oy = mc_offset(py, qy, a.radius),
+                        oz = mc_offset(pz, qz, a.radius);
 #pragma unroll
-          for (int h = 0; h < H; ++h) {
-            const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
-            pl[h * kT] = in ? fmaxf(pre, 0.f) : 0.f;
+            for (int h = 0; h < H; ++h) {
+              const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
+              pl[h * kT] = in ? fmaxf(pre, 0.f) : 0.f;
+            }
+          } else if constexpr (kProbe == kProbePlanes) {
+            float sum = 0.f;
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+              const float pre = __fadd_rn(__fsub_rn(cproj[j * H + h], sproj[s * H + h]), sb1[h]);
+              sum += in ? fmaxf(pre, 0.f) : 0.f;
+            }
+            pl[0] = sum;
+          } else if constexpr (kProbe == kProbeMm) {
+            const float v = qvld[s] && svld[j] ? d2 : 0.f;
+#pragma unroll
+            for (int h = 0; h < H; ++h) pl[h * kT] = v;
           }
           pl[H * kT] = in ? 1.f : 0.f;
         }
@@ -197,8 +245,14 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
             for (int j = 0; j < kTJ; ++j) {
               const float f = sfeat[j * CB + cl];
               const float* pl = plane + (size_t)j * H1 * kT + s;
+              if constexpr (kProbe == kProbeNoop) {
+                acc[k][0] += f;  // the staged f~ stays read
+              } else if constexpr (kProbe == kProbePlanes) {
+                acc[k][0] += pl[0];
+              } else {
 #pragma unroll
-              for (int h = 0; h < H1; ++h) acc[k][h] += pl[h * kT] * f;
+                for (int h = 0; h < H1; ++h) acc[k][h] += pl[h * kT] * f;
+              }
               count[k] += pl[H * kT];
             }
           }
@@ -213,6 +267,14 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
     const int s = q / CB, cl = q % CB, c = c0 + cl;
     if (c >= C) continue;
     const size_t r = (size_t)b * a.NS + (size_t)t * kT + s;
+    if constexpr (kProbe == kProbeNoop || kProbe == kProbePlanes) {
+      // one value a sample: 0 x the staged f~ (noop), the plane sum (planes)
+      if (c == 0) {
+        a.out[r] = kProbe == kProbeNoop ? 0.f * acc[k][0] : acc[k][0];
+        a.cnt[r] = count[k];
+      }
+      continue;
+    }
     if (a.depthwise) {
       float o = 0.f;
 #pragma unroll
@@ -228,31 +290,43 @@ __global__ void __launch_bounds__(kThreads) tile_conv_kernel(const TileConvArgs 
   }
 }
 
-template <int TM, bool kPacked>
+template <int TM, bool kPacked, int kProbe>
 int tile_conv_launch_tm(const TileConvArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = tile_conv_smem<TM>(8);
-  cudaError_t err = cudaFuncSetAttribute(tile_conv_kernel<8, TM, kPacked>,
+  const size_t smem = tile_conv_smem<TM, kProbe>(8);
+  cudaError_t err = cudaFuncSetAttribute(tile_conv_kernel<8, TM, kPacked, kProbe>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.C + a.CB - 1) / a.CB, a.n_tiles, B);
-  tile_conv_kernel<8, TM, kPacked><<<grid, kThreads, smem, stream>>>(a);
+  tile_conv_kernel<8, TM, kPacked, kProbe><<<grid, kThreads, smem, stream>>>(a);
   MCCNN_LAUNCH_RETURN();
 }
 
 // Checks the shapes and launches the instance built for Tm (8, 16, 32, 64 or
 // 128); any other Tm, or a shape the kernel does not take, is refused.
-template <bool kPacked>
+template <bool kPacked, int kProbe = kProbeNone>
 int tile_conv_dispatch(TileConvArgs a, int B, int H, int Tm, cudaStream_t stream) {
   if (H != 8 || a.C < 1 || a.G < 1 || Tm < 8 || (size_t)a.G * Tm > kMaxRows ||
       a.NS != a.n_tiles * kT || B < 1 || (!kPacked && a.NP < a.sentinel * Tm))
     return static_cast<int>(cudaErrorInvalidValue);
   a.CB = a.C < kMaxCB ? a.C : kMaxCB;
   switch (Tm) {
-    case 8: return tile_conv_launch_tm<8, kPacked>(a, B, stream);
-    case 16: return tile_conv_launch_tm<16, kPacked>(a, B, stream);
-    case 32: return tile_conv_launch_tm<32, kPacked>(a, B, stream);
-    case 64: return tile_conv_launch_tm<64, kPacked>(a, B, stream);
-    case 128: return tile_conv_launch_tm<128, kPacked>(a, B, stream);
+    case 8: return tile_conv_launch_tm<8, kPacked, kProbe>(a, B, stream);
+    case 16: return tile_conv_launch_tm<16, kPacked, kProbe>(a, B, stream);
+    case 32: return tile_conv_launch_tm<32, kPacked, kProbe>(a, B, stream);
+    case 64: return tile_conv_launch_tm<64, kPacked, kProbe>(a, B, stream);
+    case 128: return tile_conv_launch_tm<128, kPacked, kProbe>(a, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The probe instances: kProbe picked at run time (1 noop, 2 planes, 3 mm).
+template <bool kPacked>
+int tile_conv_probe_dispatch(const TileConvArgs& a, int B, int H, int Tm, int probe,
+                             cudaStream_t stream) {
+  switch (probe) {
+    case kProbeNoop: return tile_conv_dispatch<kPacked, kProbeNoop>(a, B, H, Tm, stream);
+    case kProbePlanes: return tile_conv_dispatch<kPacked, kProbePlanes>(a, B, H, Tm, stream);
+    case kProbeMm: return tile_conv_dispatch<kPacked, kProbeMm>(a, B, H, Tm, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -58,6 +58,14 @@
 // (the TPU kernel holds planes, features and the cotangent in bf16). Invalid
 // rows are masked by their flags. Limits: H == 8, T == 128, G * Tm <= 2048,
 // channel blocks of at most 16.
+//
+// The bwd_noop probe (template parameter kNoop; tile_conv_bwd_probe.cu builds
+// it) replaces the roofline probe of the TPU kernel's backward (spec.probe ==
+// "bwd_noop", :718-726, MCCNN_TILE_PROBE): it walks the same steps, stages
+// the same chunks (positions, flags, t and dG slices, the source tile's f~)
+// and forms every pair's d2 and radius test, then writes 0 x the number of
+// in-radius pairs it met (the TPU's jnp.sum(pen) * 0.0) as every output and
+// partial, so every gradient is 0 and the distance work stays in the kernel.
 #pragma once
 
 #include "common.cuh"
@@ -106,7 +114,7 @@ size_t tile_bwd_smem(int H) {
          sizeof(int) * (kMaxRows / TM) + kT + kTJ;
 }
 
-template <int H, int TM, bool kPacked>
+template <int H, int TM, bool kPacked, bool kNoop>
 __global__ void __launch_bounds__(kThreads) tile_conv_bwd_kernel(const TileBwdArgs a) {
   constexpr int H1 = H + 1;
   constexpr int kTJ = TM < 16 ? TM : 16;  // samples per shared-memory chunk
@@ -154,6 +162,7 @@ __global__ void __launch_bounds__(kThreads) tile_conv_bwd_kernel(const TileBwdAr
     for (int h = 0; h < H1; ++h) acc[k][h] = 0.f;
   // blockDim is a multiple of H, so this thread's dpre items all share h.
   float gx = 0.f, gy = 0.f, gz = 0.f, gb = 0.f;
+  float met = 0.f;  // bwd_noop: the in-radius pairs this thread met
   const int nout = kT * CB;
   const int k0 = a.run[(size_t)b * (a.n_tiles + 1) + t];
   const int k1 = a.run[(size_t)b * (a.n_tiles + 1) + t + 1];
@@ -207,56 +216,86 @@ __global__ void __launch_bounds__(kThreads) tile_conv_bwd_kernel(const TileBwdAr
           sdg[i] = v;
         }
         __syncthreads();
-        for (int i = threadIdx.x; i < kTJ * kT; i += blockDim.x) {
-          const int j = i / kT, s = i % kT;
-          const float px = ppos[4 * s], py = ppos[4 * s + 1], pz = ppos[4 * s + 2];
-          const float qx = qpos[4 * j], qy = qpos[4 * j + 1], qz = qpos[4 * j + 2];
-          const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * j + 3], px, py, pz, ppos[4 * s + 3]);
-          const bool in = qvld[j] && pvld[s] && d2 <= a.r2;
-          const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
-                      oz = mc_offset(pz, qz, radius);
-          float* pl = plane + (size_t)j * H1 * kT + s;
-#pragma unroll
-          for (int h = 0; h < H; ++h) {
-            const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
-            pl[h * kT] = in ? fmaxf(pre, 0.f) : 0.f;
+        if constexpr (kNoop) {
+          for (int i = threadIdx.x; i < kTJ * kT; i += blockDim.x) {
+            const int j = i / kT, s = i % kT;
+            const float d2 = pair_d2_rn(qpos[4 * j], qpos[4 * j + 1], qpos[4 * j + 2],
+                                        qpos[4 * j + 3], ppos[4 * s], ppos[4 * s + 1],
+                                        ppos[4 * s + 2], ppos[4 * s + 3]);
+            met += qvld[j] && pvld[s] && d2 <= a.r2 ? 1.f : 0.f;
           }
-          pl[H * kT] = in ? 1.f : 0.f;
-        }
-        __syncthreads();
+        } else {
+          for (int i = threadIdx.x; i < kTJ * kT; i += blockDim.x) {
+            const int j = i / kT, s = i % kT;
+            const float px = ppos[4 * s], py = ppos[4 * s + 1], pz = ppos[4 * s + 2];
+            const float qx = qpos[4 * j], qy = qpos[4 * j + 1], qz = qpos[4 * j + 2];
+            const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * j + 3], px, py, pz, ppos[4 * s + 3]);
+            const bool in = qvld[j] && pvld[s] && d2 <= a.r2;
+            const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
+                        oz = mc_offset(pz, qz, radius);
+            float* pl = plane + (size_t)j * H1 * kT + s;
 #pragma unroll
-        for (int k = 0; k < kOut; ++k) {
-          const int q = threadIdx.x + k * kThreads;
-          if (q < nout) {
-            const int s = q / CB, cl = q % CB;
-            for (int j = 0; j < kTJ; ++j) {
-              const float tv = su[j * kMaxCB + cl];
-              const float* pl = plane + (size_t)j * H1 * kT + s;
+            for (int h = 0; h < H; ++h) {
+              const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
+              pl[h * kT] = in ? fmaxf(pre, 0.f) : 0.f;
+            }
+            pl[H * kT] = in ? 1.f : 0.f;
+          }
+          __syncthreads();
 #pragma unroll
-              for (int h = 0; h < H1; ++h) acc[k][h] += pl[h * kT] * tv;
+          for (int k = 0; k < kOut; ++k) {
+            const int q = threadIdx.x + k * kThreads;
+            if (q < nout) {
+              const int s = q / CB, cl = q % CB;
+              for (int j = 0; j < kTJ; ++j) {
+                const float tv = su[j * kMaxCB + cl];
+                const float* pl = plane + (size_t)j * H1 * kT + s;
+#pragma unroll
+                for (int h = 0; h < H1; ++h) acc[k][h] += pl[h * kT] * tv;
+              }
             }
           }
-        }
-        if (nd > 0) {
-          for (int q = threadIdx.x; q < kTJ * kT * H; q += blockDim.x) {
-            const int h = q % H, pr = q / H;
-            const int j = pr / kT, s = pr % kT;
-            if (plane[((size_t)j * H1 + h) * kT + s] > 0.f) {
-              const float* gq = sdg + ((size_t)j * H + h) * kMaxCB;
-              const float* fp = sfeat + (size_t)s * kMaxCB;
-              float d = 0.f;
-              for (int cl = 0; cl < nd; ++cl) d += gq[cl] * fp[cl];
-              gx += d * mc_offset(ppos[4 * s], qpos[4 * j], radius);
-              gy += d * mc_offset(ppos[4 * s + 1], qpos[4 * j + 1], radius);
-              gz += d * mc_offset(ppos[4 * s + 2], qpos[4 * j + 2], radius);
-              gb += d;
+          if (nd > 0) {
+            for (int q = threadIdx.x; q < kTJ * kT * H; q += blockDim.x) {
+              const int h = q % H, pr = q / H;
+              const int j = pr / kT, s = pr % kT;
+              if (plane[((size_t)j * H1 + h) * kT + s] > 0.f) {
+                const float* gq = sdg + ((size_t)j * H + h) * kMaxCB;
+                const float* fp = sfeat + (size_t)s * kMaxCB;
+                float d = 0.f;
+                for (int cl = 0; cl < nd; ++cl) d += gq[cl] * fp[cl];
+                gx += d * mc_offset(ppos[4 * s], qpos[4 * j], radius);
+                gy += d * mc_offset(ppos[4 * s + 1], qpos[4 * j + 1], radius);
+                gz += d * mc_offset(ppos[4 * s + 2], qpos[4 * j + 2], radius);
+                gb += d;
+              }
             }
           }
-        }
+        }  // the noop probe stops after the radius test
       }
     }
   }
 
+  if constexpr (kNoop) {
+    const float zero = 0.f * met;  // 0, and it depends on every d2 this thread formed
+    const size_t tile_id = (size_t)b * a.n_tiles + t;
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) {
+      const int q = threadIdx.x + k * kThreads;
+      const int s = q / CB, cl = q % CB;
+      if (q >= nout || cl >= nx) continue;
+      const size_t r = prow0 + s;
+      if (a.depthwise)
+        a.out[r * C + c0 + cl] = zero;
+      else
+        for (int h = 0; h < H1; ++h) a.out[(r * H1 + h) * KU + c0 + cl] = zero;
+    }
+    if (threadIdx.x < 4 * H) a.w1part[(tile_id * gridDim.x + cb) * 4 * H + threadIdx.x] = zero;
+    if (a.depthwise)
+      for (int i = threadIdx.x; i < H1 * nx; i += blockDim.x)
+        a.w2part[(tile_id * H1 + i / nx) * C + c0 + i % nx] = zero;
+    return;
+  }
   __syncthreads();  // the plane becomes the epilogue's reduction buffer
   float* red = plane;  // [kT][H1][kMaxCB]: kPlaneRows rows of the plane
 #pragma unroll
@@ -304,32 +343,32 @@ __global__ void __launch_bounds__(kThreads) tile_conv_bwd_kernel(const TileBwdAr
   }
 }
 
-template <int TM, bool kPacked>
+template <int TM, bool kPacked, bool kNoop>
 int tile_bwd_launch_tm(const TileBwdArgs& a, int B, cudaStream_t stream) {
   const size_t smem = tile_bwd_smem<TM>(8);
-  cudaError_t err = cudaFuncSetAttribute(tile_conv_bwd_kernel<8, TM, kPacked>,
+  cudaError_t err = cudaFuncSetAttribute(tile_conv_bwd_kernel<8, TM, kPacked, kNoop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int wide = a.C > a.KU ? a.C : a.KU;
   dim3 grid((wide + a.CB - 1) / a.CB, a.n_tiles, B);
-  tile_conv_bwd_kernel<8, TM, kPacked><<<grid, kThreads, smem, stream>>>(a);
+  tile_conv_bwd_kernel<8, TM, kPacked, kNoop><<<grid, kThreads, smem, stream>>>(a);
   MCCNN_LAUNCH_RETURN();
 }
 
 // Checks the shapes and launches the instance built for Tm (8, 16, 32, 64 or
 // 128); any other Tm, or a shape the kernel does not take, is refused.
-template <bool kPacked>
+template <bool kPacked, bool kNoop = false>
 int tile_bwd_dispatch(const TileBwdArgs& a, int B, int H, int Tm, cudaStream_t stream) {
   if (H != 8 || a.C < 1 || a.KU < 1 || a.CB < 1 || a.CB > kMaxCB || a.G < 1 || Tm < 8 ||
       (size_t)a.G * Tm > kMaxRows || B < 1 || a.n_tiles < 1 || a.NP != a.n_tiles * kT ||
       a.NS < a.sentinel * Tm || (a.depthwise && a.KU != a.C))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (Tm) {
-    case 8: return tile_bwd_launch_tm<8, kPacked>(a, B, stream);
-    case 16: return tile_bwd_launch_tm<16, kPacked>(a, B, stream);
-    case 32: return tile_bwd_launch_tm<32, kPacked>(a, B, stream);
-    case 64: return tile_bwd_launch_tm<64, kPacked>(a, B, stream);
-    case 128: return tile_bwd_launch_tm<128, kPacked>(a, B, stream);
+    case 8: return tile_bwd_launch_tm<8, kPacked, kNoop>(a, B, stream);
+    case 16: return tile_bwd_launch_tm<16, kPacked, kNoop>(a, B, stream);
+    case 32: return tile_bwd_launch_tm<32, kPacked, kNoop>(a, B, stream);
+    case 64: return tile_bwd_launch_tm<64, kPacked, kNoop>(a, B, stream);
+    case 128: return tile_bwd_launch_tm<128, kPacked, kNoop>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

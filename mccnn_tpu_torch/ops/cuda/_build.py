@@ -49,6 +49,7 @@ SIGNATURES = {
     "poisson_sweep_v3_launch": [P, P, P, P, P, P, I, I, I, F, P, P],
     "poisson_sweep_v4_launch": [P, P, P, P, I, I, I, F, P, P],
     "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
+    "mcconv_planes_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
     "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P],
     "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],
     "mcconv_bwd_pair_blocks": [I, I, I],
@@ -66,6 +67,11 @@ SIGNATURES = {
     "tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
     "tile_conv_bwd_packed_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
     "tile_conv_bwd_v1_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_probe_launch": [I] + [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
+    "tile_conv_packed_probe_launch": [I] + [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
+    "tile_conv_bwd_noop_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_bwd_packed_noop_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
+    "dense_probe_launch": [I] + [P] * 6 + [I] * 4 + [F, F] + [P] * 2,
     "tile_kde_launch": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,

@@ -26,12 +26,23 @@ block that formed it, and K2v1 (``csrc/dense_conv_v1_bwd.cu``) forms the
 pair planes again from the forward's inputs and count. Their plain versions
 are ``dense_mc_conv_reference`` and ``dense_mc_conv_v1_backward_reference``.
 
+K1p replaces ``_plane_fill_mxu`` (``:314``), which ``MCCNN_DENSE_PLANES=mxu``
+(``:357``) puts in place of the plane fill of the v2 forward
+``_fwd_kernel_b`` (``:409``): the pre-activation planes in the factored form
+``pre_h(i, j) = (cw_h(j) - sw_h(i)) + b1_h`` (``cw = (p_j . W1) / r``, ``sw
+= (x_i . W1) / r``), formed on the tensor cores
+(``csrc/dense_conv_planes.cu``). It computes K1's function and keeps its G;
+the backward stays K2, as the reference's stays ``_bwd_kernel_b``. Its plain
+version is ``dense_mc_conv_planes_reference``.
+
 ``dense_mc_conv`` routes through ``DenseMCConvFunction`` on both devices:
 K1 / K2 for CUDA tensors, the plain versions for CPU tensors. With
 ``MCCNN_DENSE_V1=1`` in the environment when this module is imported
 (``_USE_V1``, read at call time, as the reference reads its flag) it routes
 through ``DenseMCConvV1Function`` instead: K1v1 / K2v1 for CUDA tensors, the
-plain versions for CPU tensors. The Function
+plain versions for CPU tensors. With ``MCCNN_DENSE_PLANES=mxu`` (``_PLANES_MXU``)
+and without v1, ``DenseMCConvFunction`` forms its forward with K1p on CUDA
+tensors and its plain version on CPU tensors. The Function
 differentiates with respect to the weighted features ``f~ = features / pdf``
 and the kernel MLP; ``features / pdf`` stays outside it, so autograd carries
 ``d_f~`` on to the features. Positions, masks and the pdf get no gradient
@@ -55,15 +66,18 @@ _TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
 # The reference's variant switch (mccnn_tpu/ops/pallas/dense_conv.py:735-736):
 # read once here, consulted at every call.
 _USE_V1 = os.environ.get("MCCNN_DENSE_V1") == "1"
+# K1p's switch (dense_conv.py:357): the v2 forward's planes on the tensor cores.
+_PLANES_MXU = os.environ.get("MCCNN_DENSE_PLANES") == "mxu"
 # K2v1's parameter partials (one per block, the block's run of source tiles
 # summed into it) stay within this many floats: 256 MiB.
 _V1_PARTIAL_FLOATS = 64 << 20
 
-# Launches of K1, K2, K1v1 and K2v1 since the last reset (see density_kernel.py).
+# Launches of K1, K2, K1v1, K2v1 and K1p since the last reset (see density_kernel.py).
 launches = 0
 backward_launches = 0
 launches_v1 = 0
 backward_launches_v1 = 0
+launches_planes = 0
 
 
 def _weighted_features(features, pdf, source_mask):
@@ -120,10 +134,13 @@ def _pair_terms(params, sample_pts, sample_mask, source_pts, source_mask, radius
 
 
 def _forward_reference(params, sample_pts, sample_mask, source_pts, source_mask, wf,
-                       radius, c_out, mean_normalize):
-    """Plain forward from the weighted features: ``(out, cnt, G)``."""
+                       radius, c_out, mean_normalize, factored=False):
+    """Plain forward from the weighted features: ``(out, cnt, G)``; with
+    ``factored`` K1p's, pre_h in the factored form (``_factored_preact``)."""
     inr = _in_radius(sample_pts, sample_mask, source_pts, source_mask, radius)
-    act = torch.relu(_offsets(sample_pts, source_pts, radius) @ params.w1 + params.b1)
+    pre = (_factored_preact(sample_pts, source_pts, params.w1, params.b1, radius) if factored
+           else _offsets(sample_pts, source_pts, radius) @ params.w1 + params.b1)
+    act = torch.relu(pre)
     a = torch.cat([act, torch.ones_like(act[..., :1])], dim=-1) * inr[..., None]
     G = torch.einsum("bmnh,bnc->bmhc", a, wf)  # (B, M, H+1, C)
     cnt = inr.sum(dim=-1).to(wf.dtype)
@@ -168,27 +185,70 @@ def dense_mc_conv_reference(
     return (out, cnt) if with_count else out
 
 
+def _factored_preact(sample_pts, source_pts, w1, b1, radius):
+    """K1p's pre-activations ``(B, M, N, H)``: ``(cw_h(j) - sw_h(i)) + b1_h``
+    with ``cw = (p_j . W1) / r`` and ``sw = (x_i . W1) / r``, the factored form
+    of the reference's ``_plane_fill_mxu`` (``dense_conv.py:334-345``). The
+    projections round as ``csrc/common.cuh::mc_w1_proj`` forms them
+    (one rounding per op, a division by a device tensor); the kernel sums
+    ``cw - sw + b1`` on the tensor cores."""
+    r = torch.full((), float(radius), dtype=sample_pts.dtype, device=sample_pts.device)
+
+    def proj(p):
+        return ((p[..., 0:1] * w1[0] + p[..., 1:2] * w1[1]) + p[..., 2:3] * w1[2]) / r
+
+    return (proj(source_pts)[:, None, :, :] - proj(sample_pts)[:, :, None, :]) + b1
+
+
+def _forward_planes_reference(*args):
+    """K1p's plain forward from the weighted features: ``(out, cnt, G)``."""
+    return _forward_reference(*args, factored=True)
+
+
+def dense_mc_conv_planes_reference(
+    params: MCConvParams,
+    sample_pts: torch.Tensor,
+    sample_mask: torch.Tensor,
+    source_pts: torch.Tensor,
+    source_mask: torch.Tensor,
+    features: torch.Tensor,
+    pdf: torch.Tensor,
+    radius: float,
+    *,
+    c_out: int | None = None,
+    mean_normalize: bool = False,
+    with_count: bool = False,
+):
+    """Plain PyTorch version of K1p: ``dense_mc_conv_reference``'s arguments
+    and value, with the pre-activations in the factored form of
+    ``_factored_preact``."""
+    wf = _weighted_features(features, pdf, source_mask)
+    out, cnt, _ = _forward_planes_reference(params, sample_pts, sample_mask, source_pts,
+                                            source_mask, wf, radius, c_out, mean_normalize)
+    return (out, cnt) if with_count else out
+
+
 def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
-                  c_out, mean_normalize):
-    """Launch K1 (pair kernel + projection kernel): ``(out, cnt, G)``."""
-    global launches
+                  c_out, mean_normalize, planes=False):
+    """Launch K1 (pair kernel + projection kernel), or with ``planes`` K1p's
+    pair kernel and the same projection: ``(out, cnt, G)``."""
+    global launches, launches_planes
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
     source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
     wf = wf.contiguous()
-    _build.require_cuda(
-        "dense_mc_conv (K1)", sample_pts, sample_mask, source_pts, source_mask, wf,
-        w1, b1, w2, b2,
-    )
+    name = "dense_mc_conv (K1p)" if planes else "dense_mc_conv (K1)"
+    _build.require_cuda(name, sample_pts, sample_mask, source_pts, source_mask, wf,
+                        w1, b1, w2, b2)
     if any(t.dtype != torch.float32 for t in (sample_pts, source_pts, wf, w1, b1, w2, b2)):
-        raise TypeError("dense_mc_conv (K1): positions, features and params must be float32")
+        raise TypeError(f"{name}: positions, features and params must be float32")
     B, M, _ = sample_pts.shape
     N = source_pts.shape[1]
     C = wf.shape[-1]
     H = w1.shape[1]
     if H != HIDDEN or C > MAX_C:
         raise NotImplementedError(
-            f"K1 is built for H={HIDDEN} and C<={MAX_C}; got H={H}, C={C}"
+            f"{name} is built for H={HIDDEN} and C<={MAX_C}; got H={H}, C={C}"
         )
     dev = sample_pts.device
     out = torch.zeros((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
@@ -198,13 +258,14 @@ def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, 
     G = torch.empty((B, M, H + 1, C), dtype=torch.float32, device=dev)
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
-    err = lib.mcconv_pair_launch(
+    pair_launch = lib.mcconv_planes_pair_launch if planes else lib.mcconv_pair_launch
+    err = pair_launch(
         _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
         _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
         B, M, N, C, H, radius_sq(radius), float(radius), _build.ptr(G),
         _build.ptr(cnt), stream,
     )
-    _build.check(err, "mcconv_pair_kernel")
+    _build.check(err, "mcconv_planes_pair_kernel" if planes else "mcconv_pair_kernel")
     scale = _scale(cnt, sample_mask, mean_normalize).contiguous()
     if c_out is None:
         err = lib.mcconv_project_depthwise_launch(
@@ -217,8 +278,19 @@ def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, 
             B * M, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
         )
     _build.check(err, "mcconv_project_kernel")
-    launches += 1
+    if planes:
+        launches_planes += 1
+    else:
+        launches += 1
     return out, cnt, G
+
+
+def dense_mc_conv_planes_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf,
+                              radius, c_out=None, mean_normalize=False):
+    """Launch K1p (its pair kernel, then K1's projection): ``(out, cnt, G)``
+    from the weighted features, as ``_forward_planes_reference``."""
+    return _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
+                         c_out, mean_normalize, planes=True)
 
 
 # ------------------------------------------------------------------ backward
@@ -542,14 +614,18 @@ def dense_mc_conv_v1_backward_cuda(
 
 
 class DenseMCConvFunction(torch.autograd.Function):
-    """``(w1, b1, w2, b2, wf) -> (out, cnt)``: K1 forward and K2 backward on
-    CUDA tensors, the plain versions on CPU tensors. ``cnt`` has no gradient."""
+    """``(w1, b1, w2, b2, wf) -> (out, cnt)``: K1 (K1p under ``_PLANES_MXU``)
+    forward and K2 backward on CUDA tensors, the plain versions on CPU
+    tensors. ``cnt`` has no gradient."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts, source_mask,
                 radius, c_out, mean_normalize):
         params = MCConvParams(w1, b1, w2, b2)
-        fwd = _forward_reference if wf.device.type == "cpu" else _forward_cuda
+        if wf.device.type == "cpu":
+            fwd = _forward_planes_reference if _PLANES_MXU else _forward_reference
+        else:
+            fwd = dense_mc_conv_planes_cuda if _PLANES_MXU else _forward_cuda
         out, cnt, G = fwd(params, sample_pts, sample_mask, source_pts, source_mask, wf,
                           radius, c_out, mean_normalize)
         ctx.save_for_backward(w1, b1, w2, b2, wf, sample_pts, sample_mask, source_pts,
@@ -609,7 +685,8 @@ def dense_mc_conv(params, sample_pts, sample_mask, source_pts, source_mask,
                   features, pdf, radius, *, c_out=None, mean_normalize=False,
                   with_count=False):
     """The dense MC conv, differentiable: CPU tensor -> plain versions, CUDA
-    tensor -> K1 forward and K2 backward (K1v1 and K2v1 under ``_USE_V1``)."""
+    tensor -> K1 forward and K2 backward (K1v1 and K2v1 under ``_USE_V1``,
+    else K1p and K2 under ``_PLANES_MXU``)."""
     wf = _weighted_features(features, pdf, source_mask)
     fn = DenseMCConvV1Function if _USE_V1 else DenseMCConvFunction
     out, cnt = fn.apply(

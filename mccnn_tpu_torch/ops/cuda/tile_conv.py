@@ -61,9 +61,19 @@ with ``monkeypatch.setattr``), as the reference reads them when it traces:
   reference.
 - ``MCCNN_TILE_BWD_V1=1`` (``_BWD_V1``): K6v1, the reference's per-h
   backward (``csrc/tile_conv_bwd_v1.cu``), over the same source-major list.
-- ``MCCNN_TILE_PROBE`` (``_PROBE``): the reference's roofline probes, which
-  give wrong results by design, are not ported; ``tile_mc_conv`` raises when
-  it is set.
+- ``MCCNN_TILE_PROBE`` (``_PROBE``): the reference's roofline probes
+  (``:575-608``, ``:718-726``), which strip K5 and K6 to their parts for
+  a roofline (``mccnn_tpu_torch.tools.tile_roofline``) and give another
+  value than the conv by design. ``noop``, ``planes`` and ``mm`` change only
+  the forward kernel
+  (K5, or K5p under ``_PACK``): 0; the sum over h and the step's sources of
+  the masked ReLU'd planes ``(cw_h(j) - sw_h(i)) + b1_h``, the same in every
+  channel; the raw d2 of every valid candidate pair in place of each a_h.
+  ``bwd_noop`` changes only the backward kernel (K6, or K6p): every gradient
+  0. K6v1 ignores them, as ``_bwd_kernel_v1`` does. The layout, the step
+  lists, the count and the mean normalisation are the conv's. Any other
+  value raises ``ValueError`` (the reference runs the conv then, ROADMAP
+  queue 3).
 
 On CPU tensors every variant runs its plain version, on CUDA tensors its
 kernel.
@@ -104,6 +114,10 @@ _PACK = os.environ.get("MCCNN_TILE_PACK") == "1"
 _BWD_V1 = os.environ.get("MCCNN_TILE_BWD_V1") == "1"
 _PROBE = os.environ.get("MCCNN_TILE_PROBE", "")
 
+# The probes' values of MCCNN_TILE_PROBE, and their ids in csrc/tile_conv.cuh.
+FORWARD_PROBES = {"noop": 1, "planes": 2, "mm": 3}
+BACKWARD_PROBES = ("bwd_noop",)
+
 # Launches of each kernel since the last reset (see density_kernel.py).
 launches = 0  # K5
 backward_launches = 0  # K6
@@ -112,6 +126,8 @@ cover_launches = 0  # K8
 packed_launches = 0  # K5p
 packed_backward_launches = 0  # K6p
 backward_v1_launches = 0  # K6v1
+launches_probe = dict.fromkeys(FORWARD_PROBES, 0)  # the K5 / K5p probes, by probe
+backward_launches_probe = 0  # the K6 / K6p bwd_noop probe
 
 
 # ---------------------------------------------------------------- curve order
@@ -534,15 +550,71 @@ def tile_conv_sorted_packed_reference(params: MCConvParams, lay: ConvLayout, wf:
                                       radius, c_out=c_out, mean_normalize=mean_normalize)
 
 
+def tile_conv_probe_sorted_reference(probe: str, params: MCConvParams, lay: ConvLayout,
+                                     wf: torch.Tensor, radius: float, *, c_out=None,
+                                     mean_normalize=False):
+    """Plain version of K5's probe ``probe`` (``noop``, ``planes`` or ``mm``)
+    on the sorted layout: ``(out (B, nts*T, C | c_out), cnt)``, the count and
+    scaling of K5's. ``noop``: out 0. ``planes``: per sample, the sum over
+    its steps' candidates j and over h of ``relu((cw_h(j) - sw_h(i)) + b1_h)``
+    on the in-radius pairs (``dense_conv._factored_preact``, with ``/ r`` as
+    ``tile_conv.py:578-591``), in every channel. ``mm``: K5's G and
+    projection with the raw d2 of every valid candidate pair as each a_h
+    (h < H) and the radius mask as a_H (``:595-607``): ``sum_h (d2^T f~) w2_h
+    + (mask^T f~) b2``."""
+    if probe not in FORWARD_PROBES:
+        raise ValueError(f"tile_conv_probe_sorted_reference: {probe!r} is not a forward probe "
+                         f"({', '.join(FORWARD_PROBES)})")
+    w1, b1 = params.w1, params.b1
+    H = w1.shape[1]
+    B, NS, _ = lay.smp.shape
+    C = wf.shape[-1]
+    CO = C if c_out is None else c_out
+    T = DEFAULT_TILE
+    nts = NS // T
+    r2 = radius_sq(radius)
+    acc = wf.new_zeros((B * nts, T))
+    G = wf.new_zeros((B * nts, T, H + 1, C)) if probe == "mm" else None
+    cnt = wf.new_zeros((B * nts, T))
+    for smp_rows, cand_rows, real, tiles in _walk_steps(lay.steps, T):
+        Sc = smp_rows.shape[1]
+        q = batched_gather(lay.smp, smp_rows).reshape(B * Sc, T, 3)
+        qv = batched_gather(lay.smp_valid, smp_rows).reshape(B * Sc, T)
+        p = batched_gather(lay.src, cand_rows).reshape(B * Sc, -1, 3)
+        pv = (batched_gather(lay.src_valid, cand_rows) & real).reshape(B * Sc, -1)
+        d2 = pair_d2(q, p)
+        valid = qv[:, :, None] & pv[:, None, :]
+        inr = (d2 <= r2) & valid
+        cnt.index_add_(0, tiles, inr.sum(dim=-1).to(wf.dtype))
+        if probe == "planes":
+            pre = dense_conv._factored_preact(q, p, w1, b1, radius)
+            acc.index_add_(0, tiles, (torch.relu(pre) * inr[..., None]).sum(dim=(2, 3)))
+        elif probe == "mm":
+            f = batched_gather(wf, cand_rows).reshape(B * Sc, -1, C)
+            a = torch.cat([(d2 * valid)[..., None].expand(*d2.shape, H),
+                           inr[..., None].to(wf.dtype)], dim=-1)
+            G.index_add_(0, tiles, torch.einsum("stnh,snc->sthc", a, f))
+    cnt = cnt.reshape(B, NS)
+    if probe == "mm":
+        out = dense_conv.project_reference(params, G.reshape(B, NS, H + 1, C), cnt,
+                                           lay.smp_valid, c_out, mean_normalize)
+        return out, cnt
+    scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize)
+    val = acc.reshape(B, NS) if probe == "planes" else torch.zeros_like(cnt)
+    return (val * scale)[..., None].expand(B, NS, CO).contiguous(), cnt
+
+
 def _check_minor(name: str, Tm: int) -> None:
     if Tm not in BUILT_MINORS:
         raise NotImplementedError(f"{name} is built for minors {BUILT_MINORS}; got Tm={Tm}")
 
 
 def _launch_k5(params: MCConvParams, lay: ConvLayout, wf, radius, c_out, mean_normalize,
-               packed: bool):
-    """K5 or, with ``packed``, K5p on the sorted layout."""
-    name = "tile_mc_conv (K5p)" if packed else "tile_mc_conv (K5)"
+               packed: bool, probe: str = ""):
+    """K5 or, with ``packed``, K5p on the sorted layout; with ``probe``, that
+    probe of the kernel."""
+    name = ("tile_mc_conv (K5p" if packed else "tile_mc_conv (K5") + (f" {probe})" if probe
+                                                                      else ")")
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     wf = wf.contiguous()
     st = lay.steps
@@ -569,21 +641,30 @@ def _launch_k5(params: MCConvParams, lay: ConvLayout, wf, radius, c_out, mean_no
     lib = _build.library()
     stream = _build.stream_of(wf)
     depthwise = c_out is None
-    G = None if depthwise else torch.empty((B, NS, H + 1, C), dtype=torch.float32, device=dev)
-    dst = _build.ptr(out) if depthwise else _build.ptr(G)
+    one = probe in ("noop", "planes")  # the probe writes one value a sample
+    G = None if depthwise or one else torch.empty((B, NS, H + 1, C), dtype=torch.float32,
+                                                  device=dev)
+    val = torch.empty((B, NS), dtype=torch.float32, device=dev) if one else None
+    dst = _build.ptr(val if one else out if depthwise else G)
     tail = (B, NS, C, H, S, Gm, nts, st.n_minor, st.Tm, radius_sq(radius), float(radius),
             int(mean_normalize), int(depthwise), dst, _build.ptr(cnt), stream)
     weights = (_build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1), _build.ptr(b1),
                _build.ptr(w2), _build.ptr(b2))
+    head = (FORWARD_PROBES[probe],) if probe else ()
     if packed:
         rec = pack_minor_records(lay.src, lay.src_valid, wf, st.Tm, st.n_minor)
-        err = lib.tile_conv_packed_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid),
-                                          _build.ptr(rec), *weights, *tail)
+        launch = lib.tile_conv_packed_probe_launch if probe else lib.tile_conv_packed_launch
+        err = launch(*head, _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(rec),
+                     *weights, *tail)
     else:
-        err = lib.tile_conv_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid),
-                                   _build.ptr(lay.src), _build.ptr(lay.src_valid),
-                                   _build.ptr(wf), *weights, NP, *tail)
-    _build.check(err, "tile_conv_packed_kernel" if packed else "tile_conv_kernel")
+        launch = lib.tile_conv_probe_launch if probe else lib.tile_conv_launch
+        err = launch(*head, _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),
+                     _build.ptr(lay.src_valid), _build.ptr(wf), *weights, NP, *tail)
+    _build.check(err, ("tile_conv_packed_kernel" if packed else "tile_conv_kernel")
+                 + (f" ({probe} probe)" if probe else ""))
+    if one:
+        scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize)
+        return (val * scale)[..., None].expand(B, NS, CO).contiguous(), cnt
     if not depthwise:
         scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize).contiguous()
         err = lib.mcconv_project_full_launch(
@@ -610,6 +691,33 @@ def tile_conv_sorted_packed_cuda(params: MCConvParams, lay: ConvLayout, wf: torc
     res = _launch_k5(params, lay, wf, radius, c_out, mean_normalize, packed=True)
     packed_launches += 1
     return res
+
+
+def tile_conv_probe_sorted_cuda(probe: str, params: MCConvParams, lay: ConvLayout,
+                                wf: torch.Tensor, radius: float, *, c_out=None,
+                                mean_normalize=False):
+    """Launch K5's probe ``probe`` (``noop``, ``planes``, ``mm``); the outputs
+    of ``tile_conv_probe_sorted_reference``."""
+    res = _launch_k5(params, lay, wf, radius, c_out, mean_normalize, packed=False,
+                     probe=_forward_probe(probe))
+    launches_probe[probe] += 1
+    return res
+
+
+def tile_conv_probe_sorted_packed_cuda(probe: str, params: MCConvParams, lay: ConvLayout,
+                                       wf: torch.Tensor, radius: float, *, c_out=None,
+                                       mean_normalize=False):
+    """Launch K5p's probe ``probe``; bit-equal to K5's."""
+    res = _launch_k5(params, lay, wf, radius, c_out, mean_normalize, packed=True,
+                     probe=_forward_probe(probe))
+    launches_probe[probe] += 1
+    return res
+
+
+def _forward_probe(probe: str) -> str:
+    if probe not in FORWARD_PROBES:
+        raise ValueError(f"{probe!r} is not a forward probe ({', '.join(FORWARD_PROBES)})")
+    return probe
 
 
 # ---------------------------------------------------------------- K6: its backward
@@ -738,9 +846,11 @@ def _backward_inputs(name, params, lay, wf, cnt, dout, c_out, mean_normalize):
 
 
 def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_out,
-               mean_normalize, packed: bool):
-    """K6 or, with ``packed``, K6p on the sorted layout."""
-    name = "tile_conv_backward (K6p)" if packed else "tile_conv_backward (K6)"
+               mean_normalize, packed: bool, noop: bool = False):
+    """K6 or, with ``packed``, K6p on the sorted layout; with ``noop``, its
+    bwd_noop probe."""
+    name = ("tile_conv_backward (K6p" if packed else "tile_conv_backward (K6") + (
+        " bwd_noop)" if noop else ")")
     (w1, b1, w2, b2), wf, t, st = _backward_inputs(name, params, lay, wf, cnt, dout, c_out,
                                                    mean_normalize)
     B, NS, _ = lay.smp.shape
@@ -773,11 +883,13 @@ def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_o
             _build.ptr(w2part), stream)
     if packed:
         rec = pack_minor_records(lay.smp, lay.smp_valid, t, st.Tm, st.n_minor)
-        err = lib.tile_conv_bwd_packed_launch(_build.ptr(rec), *head, *rest)
+        launch = lib.tile_conv_bwd_packed_noop_launch if noop else lib.tile_conv_bwd_packed_launch
+        err = launch(_build.ptr(rec), *head, *rest)
     else:
-        err = lib.tile_conv_bwd_launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid), *head,
-                                       _build.ptr(t), *rest)
-    _build.check(err, "tile_conv_bwd_packed_kernel" if packed else "tile_conv_bwd_kernel")
+        launch = lib.tile_conv_bwd_noop_launch if noop else lib.tile_conv_bwd_launch
+        err = launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid), *head, _build.ptr(t), *rest)
+    _build.check(err, ("tile_conv_bwd_packed_kernel" if packed else "tile_conv_bwd_kernel")
+                 + (" (bwd_noop probe)" if noop else ""))
     w1b1 = empty(4, H)
     err = lib.mcconv_bwd_reduce_launch(_build.ptr(w1part), B * ntp * nb, 4 * H,
                                        _build.ptr(w1b1), stream)
@@ -817,6 +929,40 @@ def tile_conv_backward_sorted_packed_cuda(params: MCConvParams, lay: ConvLayout,
     global packed_backward_launches
     res = _launch_k6(params, lay, wf, radius, cnt, dout, c_out, mean_normalize, packed=True)
     packed_backward_launches += 1
+    return res
+
+
+def tile_conv_backward_noop_sorted_reference(params: MCConvParams, lay: ConvLayout,
+                                             wf: torch.Tensor, radius: float, cnt: torch.Tensor,
+                                             dout: torch.Tensor, *, c_out=None,
+                                             mean_normalize=False):
+    """Plain version of the bwd_noop probe of K6 and K6p: every gradient 0
+    (``tile_conv.py:718-726``), in the shapes of K6's."""
+    p = params
+    return (torch.zeros_like(wf), torch.zeros_like(p.w1), torch.zeros_like(p.b1),
+            torch.zeros_like(p.w2), torch.zeros_like(p.b2))
+
+
+def tile_conv_backward_noop_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf: torch.Tensor,
+                                        radius: float, cnt: torch.Tensor, dout: torch.Tensor, *,
+                                        c_out=None, mean_normalize=False):
+    """Launch K6's bwd_noop probe; the outputs of its plain version."""
+    global backward_launches_probe
+    res = _launch_k6(params, lay, wf, radius, cnt, dout, c_out, mean_normalize, packed=False,
+                     noop=True)
+    backward_launches_probe += 1
+    return res
+
+
+def tile_conv_backward_noop_sorted_packed_cuda(params: MCConvParams, lay: ConvLayout,
+                                               wf: torch.Tensor, radius: float,
+                                               cnt: torch.Tensor, dout: torch.Tensor, *,
+                                               c_out=None, mean_normalize=False):
+    """Launch K6p's bwd_noop probe; the outputs of its plain version."""
+    global backward_launches_probe
+    res = _launch_k6(params, lay, wf, radius, cnt, dout, c_out, mean_normalize, packed=True,
+                     noop=True)
+    backward_launches_probe += 1
     return res
 
 
@@ -948,10 +1094,27 @@ def conv_variant(lay: ConvLayout) -> tuple[bool, bool]:
     return _PACK and not _BWD_V1 and lay.steps.Tm % 2 == 0, _BWD_V1
 
 
+def checked_probe() -> str:
+    """``_PROBE`` if it is empty or one of the reference's four probes; any
+    other value raises (the reference would run the conv, ROADMAP queue 3)."""
+    if _PROBE and _PROBE not in (*FORWARD_PROBES, *BACKWARD_PROBES):
+        raise ValueError(f"MCCNN_TILE_PROBE={_PROBE!r} is not a probe: "
+                         f"{', '.join((*FORWARD_PROBES, *BACKWARD_PROBES))} or unset")
+    return _PROBE
+
+
 _FORWARDS = {(False, "cpu"): tile_conv_sorted_reference, (False, "cuda"): tile_conv_sorted_cuda,
              (True, "cpu"): tile_conv_sorted_packed_reference,
              (True, "cuda"): tile_conv_sorted_packed_cuda}
+_PROBE_FORWARDS = {(False, "cpu"): tile_conv_probe_sorted_reference,
+                   (False, "cuda"): tile_conv_probe_sorted_cuda,
+                   (True, "cpu"): tile_conv_probe_sorted_reference,
+                   (True, "cuda"): tile_conv_probe_sorted_packed_cuda}
 _BACKWARDS = {
+    ("K6 bwd_noop", "cpu"): tile_conv_backward_noop_sorted_reference,
+    ("K6 bwd_noop", "cuda"): tile_conv_backward_noop_sorted_cuda,
+    ("K6p bwd_noop", "cpu"): tile_conv_backward_noop_sorted_reference,
+    ("K6p bwd_noop", "cuda"): tile_conv_backward_noop_sorted_packed_cuda,
     ("K6", "cpu"): tile_conv_backward_sorted_reference,
     ("K6", "cuda"): tile_conv_backward_sorted_cuda,
     ("K6p", "cpu"): tile_conv_backward_sorted_packed_reference,
@@ -970,18 +1133,27 @@ class TileMCConvFunction(torch.autograd.Function):
     backward on CUDA tensors, their plain versions on CPU tensors; K5p / K6p
     or K6v1 as ``conv_variant`` picks. ``wf`` is the sorted ``features /
     pdf``; positions and pdf get no gradient here, as the reference's
-    ``_core_bwd`` returns zeros for them."""
+    ``_core_bwd`` returns zeros for them. Under a probe (``checked_probe``)
+    the forward runs the probe of its kernel (noop, planes, mm) and the
+    backward K6's or K6p's bwd_noop; K6v1 takes none."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, wf, lay, radius, c_out, mean_normalize):
         packed, v1 = conv_variant(lay)
-        fwd = _FORWARDS[packed, _device_kind(wf)]
-        out, cnt = fwd(MCConvParams(w1, b1, w2, b2), lay, wf, radius, c_out=c_out,
-                       mean_normalize=mean_normalize)
+        probe = checked_probe()
+        params = MCConvParams(w1, b1, w2, b2)
+        kw = dict(c_out=c_out, mean_normalize=mean_normalize)
+        if probe in FORWARD_PROBES:
+            out, cnt = _PROBE_FORWARDS[packed, _device_kind(wf)](probe, params, lay, wf, radius,
+                                                                  **kw)
+        else:
+            out, cnt = _FORWARDS[packed, _device_kind(wf)](params, lay, wf, radius, **kw)
         ctx.save_for_backward(w1, b1, w2, b2, wf, cnt)
         ctx.lay = lay
         ctx.conv = (radius, c_out, mean_normalize)
-        ctx.backward_kernel = "K6v1" if v1 else "K6p" if packed else "K6"
+        kernel = "K6p" if packed else "K6"
+        ctx.backward_kernel = ("K6v1" if v1 else
+                               f"{kernel} bwd_noop" if probe in BACKWARD_PROBES else kernel)
         return out
 
     @staticmethod
@@ -1012,12 +1184,9 @@ def tile_mc_conv(params: MCConvParams, sample_pts, sample_mask, src_pts, src_mas
     step count (nonzero means missing neighbours: raise the budget). It runs
     ``TileMCConvFunction``: K5 and K6 on CUDA tensors, their plain versions on
     CPU tensors. The backward list is built only when a gradient is wanted
-    (evaluation does not pay for it). ``MCCNN_TILE_PROBE`` raises: the
-    reference's probes time parts of its kernels and give wrong results."""
-    if _PROBE:
-        raise NotImplementedError(
-            f"MCCNN_TILE_PROBE={_PROBE!r}: the reference's K5 / K6 roofline probes are not "
-            "ported (ROADMAP queue 2); unset it to run the tile conv")
+    (evaluation does not pay for it). Under ``MCCNN_TILE_PROBE`` it runs the
+    probes (``checked_probe``), whose values are not the conv's."""
+    checked_probe()
     grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (*params, features, pdf))
     lay = conv_layout(sample_pts, sample_mask, src_pts, src_mask, radius,

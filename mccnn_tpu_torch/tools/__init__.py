@@ -1,0 +1,48 @@
+"""Measurement tools of the port, run on the card (``python -m
+mccnn_tpu_torch.tools.<name>``): the twins of the reference's roofline tools.
+
+- ``tile_roofline``: the tile kernels (K5, K6) stripped by their probes, at a
+  32k-point scene (``tools/exp_tile_roofline.py``'s twin).
+- ``dense_breakdown``: the dense forward (K1) stripped by T1's variants, at B =
+  8 x 1024 (``tools/exp_dense_breakdown.py``'s twin).
+
+Nothing of the package's main path imports them. They refuse to run without
+a CUDA device: every number they print is a time on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# The H100's published peaks (NVIDIA H100 SXM data sheet, 700 W, dense):
+# device memory bandwidth, fp32 outside the tensor cores, TF32 tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
+
+
+def require_card(tool: str) -> torch.device:
+    """The CUDA device, or a ``SystemExit``: the tools have no CPU mode."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{tool}: no CUDA device; this tool times kernels on the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def best_ms(fn, iters: int = 5, reps: int = 3) -> float:
+    """Warm per-call time of ``fn`` on the card: CUDA events around ``iters``
+    calls, the best of ``reps`` such runs."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best

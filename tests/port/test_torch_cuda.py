@@ -23,6 +23,7 @@ from mccnn_tpu_torch.core.sampling import poisson_disk, sweep_cells
 from mccnn_tpu_torch.models.layers import MCConv
 from mccnn_tpu_torch.ops.cuda import (
     dense_conv,
+    dense_probe,
     density_kernel,
     mcconv_kernel,
     poisson_kernel,
@@ -718,6 +719,160 @@ def test_tile_variant_wrappers_refuse_cpu_tensors():
     ]
     counters = lambda: (tile_conv.packed_launches, tile_conv.packed_backward_launches,  # noqa: E731
                         tile_conv.backward_v1_launches)
+    before = counters()
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert counters() == before
+
+
+# ------------------------------------------------------------ the roofline instruments
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean", V1_CASES)
+def test_planes_kernel_matches_plain_and_k1_and_repeats_bitwise(cuda, c_in, c_out, mean):
+    params, smp, qmask, src, smask, feats, pdf, _ = _k2_inputs(cuda, c_in, c_out)
+    wf = dense_conv._weighted_features(feats, pdf, smask)
+    fargs = (params, smp, qmask, src, smask, wf, 0.3, c_out, mean)
+    before = dense_conv.launches_planes
+    out, cnt, _ = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+    again, _, _ = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+    want, wcnt, _ = dense_conv._forward_planes_reference(*fargs)
+    k1, _, _ = dense_conv._forward_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert dense_conv.launches_planes == before + 2
+    assert torch.equal(out, again) and torch.equal(cnt, wcnt)  # no atomics, the same d2
+    scale = float(want.abs().max())
+    # the tensor cores sum cw, -sw and b1 in fp32 (the plain version rounds
+    # twice); K1 forms pre_h in the offset form; sums in other orders
+    for ref in (want, k1):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_planes_route_runs_k1p_forward_and_k2_backward(cuda, monkeypatch):
+    monkeypatch.setattr(dense_conv, "_PLANES_MXU", True)
+    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, 8, 4)
+    p = [t.detach().requires_grad_() for t in params]
+    counters = lambda: (dense_conv.launches, dense_conv.backward_launches,  # noqa: E731
+                        dense_conv.launches_planes)
+    before = counters()
+    out = dense_conv.dense_mc_conv(type(params)(*p), smp, qmask, src, smask, feats, pdf, 0.3,
+                                   c_out=4)
+    (out * dout).sum().backward()
+    torch.cuda.synchronize()
+    assert counters() == (before[0], before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["noop", "planes", "mm"])
+@pytest.mark.parametrize("c_in,c_out,mean,minor", [(1, 16, False, "32"), (8, None, True, "8"),
+                                                   (40, None, False, "16"), (3, 5, True, "128")])
+def test_tile_probe_kernels_match_plain_and_repeat_bitwise(cuda, monkeypatch, probe, c_in, c_out,
+                                                           mean, minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, lay, wf, _, _ = _tile_variant_case(cuda, c_in, c_out, mean)
+    args = (probe, params, lay, wf, 0.2)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    before = tile_conv.launches_probe[probe]
+    got = tile_conv.tile_conv_probe_sorted_cuda(*args, **kw)
+    again = tile_conv.tile_conv_probe_sorted_cuda(*args, **kw)
+    packed = tile_conv.tile_conv_probe_sorted_packed_cuda(*args, **kw)
+    want = tile_conv.tile_conv_probe_sorted_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert tile_conv.launches_probe[probe] == before + 3
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(packed[0], got[0]) and torch.equal(packed[1], got[1])
+    if probe == "noop":
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        return
+    scale = float(want[0].abs().max())
+    assert scale > 0
+    # fp32 sums over the step list's pairs (and h, channels) in other orders
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,minor", [(8, None, False, "32"), (1, 16, False, "64"),
+                                                   (3, 5, True, "8")])
+def test_tile_bwd_noop_kernels_give_zero_gradients(cuda, monkeypatch, c_in, c_out, mean, minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, lay, wf, cnt, dout = _tile_variant_case(cuda, c_in, c_out, mean)
+    args = (params, lay, wf, 0.2, cnt, dout)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    before = tile_conv.backward_launches_probe
+    got = tile_conv.tile_conv_backward_noop_sorted_cuda(*args, **kw)
+    packed = tile_conv.tile_conv_backward_noop_sorted_packed_cuda(*args, **kw)
+    want = tile_conv.tile_conv_backward_noop_sorted_reference(*args, **kw)
+    k6 = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert tile_conv.backward_launches_probe == before + 2
+    for name, a, b, w, r in zip(TILE_NAMES, got, packed, want, k6):
+        assert a.shape == w.shape == r.shape, name
+        assert torch.equal(a, w) and torch.equal(b, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe,moved", [("mm", ("probe", "K6")), ("bwd_noop", ("K5", "bwd"))])
+def test_tile_probes_route_through_tile_mc_conv(cuda, monkeypatch, probe, moved):
+    monkeypatch.setattr(tile_conv, "_PROBE", probe)
+    case = _tile_conv_case(cuda, 6, 4)
+    counts = lambda: {"K5": tile_conv.launches, "K6": tile_conv.backward_launches,  # noqa: E731
+                      "probe": tile_conv.launches_probe["mm"],
+                      "bwd": tile_conv.backward_launches_probe}
+    before = counts()
+    params = type(case[0])(*(t.detach().requires_grad_() for t in case[0]))
+    out = tile_conv.tile_mc_conv(params, *case[1:], 0.2, max_pairs=1 << 30, c_out=4)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    assert delta == {k: int(k in moved) for k in before}
+
+
+def _t1_inputs(device, N=300, C=40, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.rand((2, N, 3), generator=g)
+    feats = torch.randn((2, N, C), generator=g)
+    w1, b1 = torch.randn((8, 8), generator=g), torch.randn((8,), generator=g)
+    w2, b2 = torch.randn((8, C), generator=g), torch.randn((C,), generator=g)
+    return [t.to(device) for t in (pts, feats, w1, b1, w2, b2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", dense_probe.VARIANTS)
+def test_dense_probe_kernels_match_plain_and_repeat_bitwise(cuda, variant):
+    args = (*_t1_inputs(cuda), 0.2)
+    before = dense_probe.launches[variant]
+    got = dense_probe.dense_probe_cuda(variant, *args)
+    again = dense_probe.dense_probe_cuda(variant, *args)
+    want = dense_probe.dense_probe_reference(variant, *args)
+    torch.cuda.synchronize()
+    assert dense_probe.launches[variant] == before + 2
+    assert torch.equal(got, again)
+    # the same planes (explicit roundings, the same bf16 casts); the products
+    # with the bf16 features summed in fp32 in other orders
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_roofline_wrappers_refuse_cpu_tensors():
+    pts, mask = cloud(6, N=160)
+    params = init_mcconv_params(torch.Generator().manual_seed(0), 2, None)
+    lay = tile_conv.conv_layout(pts, mask, pts, mask, 0.2, max_pairs=1 << 30, backward=True)
+    wf = tile_conv._sorted_weighted_features(lay, torch.ones((2, 160, 2)), torch.ones((2, 160)))
+    cnt, dout = torch.ones((2, 256)), torch.ones((2, 256, 2))
+    calls = [
+        lambda: dense_conv.dense_mc_conv_planes_cuda(params, pts, mask, pts, mask, wf[:, :160],
+                                                     0.2),
+        lambda: tile_conv.tile_conv_probe_sorted_cuda("mm", params, lay, wf, 0.2),
+        lambda: tile_conv.tile_conv_probe_sorted_packed_cuda("planes", params, lay, wf, 0.2),
+        lambda: tile_conv.tile_conv_backward_noop_sorted_cuda(params, lay, wf, 0.2, cnt, dout),
+        lambda: tile_conv.tile_conv_backward_noop_sorted_packed_cuda(params, lay, wf, 0.2, cnt,
+                                                                     dout),
+        lambda: dense_probe.dense_probe_cuda("mm_only", *_t1_inputs("cpu"), 0.2),
+    ]
+    counters = lambda: (dense_conv.launches_planes, dict(tile_conv.launches_probe),  # noqa: E731
+                        tile_conv.backward_launches_probe, dict(dense_probe.launches))
     before = counters()
     for call in calls:
         with pytest.raises(ValueError, match="CUDA device"):

@@ -375,11 +375,13 @@ def test_a_bad_minor_size_raises_in_both_packages(minor):
             J.tile_minor(T)
 
 
-def test_the_roofline_probes_are_not_ported():
+def test_an_unknown_roofline_probe_raises():
+    # the reference runs the conv under a value that is none of its probes
+    # (ROADMAP queue 3); the port refuses it
     smp, qmask, src, smask, feats, pdf, params = conv_case(11, 3, None, M=100, N=200)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(P, "_PROBE", "noop")
-        with pytest.raises(NotImplementedError, match="MCCNN_TILE_PROBE"):
+        mp.setattr(P, "_PROBE", "bwd-noop")
+        with pytest.raises(ValueError, match="MCCNN_TILE_PROBE"):
             P.tile_mc_conv(MCConvParams(*tensors(*params)),
                            *tensors(smp, qmask, src, smask, feats, pdf), 0.3, max_pairs=1 << 30)
 

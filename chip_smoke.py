@@ -11,7 +11,8 @@ MCNormS) and ShapeNet part segmentation with the Poisson sweep variants K3v2 /
 K3v3 / K3v4 that ``MCCNN_POISSON_SWEEP`` selects, and ScanNet under the
 reference's tile switches (``MCCNN_TILE_BWD_V1``, ``MCCNN_TILE_PACK``,
 ``MCCNN_TILE_ORDER``, ``MCCNN_TILE_ADJ``, ``MCCNN_TILE_MINOR``) with K6v1 and
-K5p / K6p.
+K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
+``tools.bucket_32k``.
 
     python3 chip_smoke.py
 
@@ -154,11 +155,22 @@ K5p / K6p.
    in-radius pairs) and the library calls (``xla_equiv``'s torch.matmul,
    noop's torch.full); then
    ``tools.dense_breakdown`` prints its table, every variant launched.
-30. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
+30. K9a / K10a (the bucket conv and its backward over the first NBA
+   occupied bricks, ``bucket_mc_conv(..., max_active_bricks=)``) at
+   ``tools.bucket_32k``'s scene (32768 points, r = 0.05, C = 128) with cap
+   64: at NBA = 784, its occupied bricks, bit for bit K9 / K10 and on
+   repeat and against their plain versions, timed beside K9 / K10; at NBA =
+   600 against their plain versions, the samples and sources of the dropped
+   bricks exact zeros; the full conv (mean both ways) at B = 4 clouds that
+   occupy different numbers of bricks; then ``tools.bucket_32k 64 784`` and
+   ``64 0`` as child processes, whose counters must show K9a / K10a and not
+   K9 / K10, and the reverse.
+31. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
    B=32, K5-K10, K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed
    over the zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
    two sweeps at B=32, K1p over the 17 dense sites at B=32, the probes over
-   the four tile sites and T1 at its tool's shapes; each with its least
+   the four tile sites, T1 at its tool's shapes and K9a / K10a at the 32k
+   scene; each with its least
    possible time on the card, ``bound_ms``, from
    the bytes and operations of this run's inputs), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -216,6 +228,10 @@ MCCLASSS_SITES = [("MCClassS conv_0_1", RADII_2, 0, 1, 0.2, 1, GROW),
                   ("MCClassS conv_1_2", RADII_2, 1, 2, 0.8, GROW, 2 * GROW),
                   ("MCClassS conv_2_3", RADII_2, 2, 3, None, 2 * GROW, 8 * GROW)]
 TILE_ROOFLINE_N = 32768  # tools.tile_roofline's scene (the reference tool's default)
+ACTIVE_CAP = 64  # tools.bucket_32k's cap of bench_suite.py's 32k config: no point dropped
+ACTIVE_NBA = 784  # the occupied bricks of that scene at cap 64 (of 2000): lossless
+ACTIVE_LOSSY_NBA = 600
+ACTIVE_SMALL_B = 4
 FWD_PROBES = ("noop", "planes", "mm")
 # Every dense conv site of both models: (name, hierarchy radii, in level,
 # out level, radius (None: the global radius), C, CO (None: depthwise)).
@@ -365,6 +381,8 @@ T1_RTOL = 1e-4
 # their gradients are 0 up to rounding of sums over the batch's points: both
 # sides below 1e-3 of the largest gradient, as MCSeg's mixes.
 ZOO_ZERO_GRAD_RTOL = 1e-3
+# K9a / K10a against their plain versions: BUCKET_RTOL / BUCKET_BWD_RTOL, as
+# K9 / K10 (the same bodies); against K9 / K10 at a lossless NBA, bit for bit.
 
 
 class SmokeFailure(RuntimeError):
@@ -374,14 +392,6 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -685,6 +695,8 @@ def counters() -> dict:
             "K7": (tile_conv, "kde_launches"),
             "K8": (tile_conv, "cover_launches"),
             "K9": (mcconv_kernel, "launches"), "K10": (mcconv_kernel, "backward_launches"),
+            "K9a": (mcconv_kernel, "launches_active"),
+            "K10a": (mcconv_kernel, "backward_launches_active"),
             "K5p": (tile_conv, "packed_launches"), "K6p": (tile_conv, "packed_backward_launches"),
             "K6v1": (tile_conv, "backward_v1_launches"),
             **{kid: (poisson_kernel, attr) for kid, (attr, _) in SWEEP_VARIANTS.items()}}
@@ -1713,6 +1725,41 @@ def bucket_site_inputs(gen, dev, lv, cache, site):
     return params, gs, gp, wf
 
 
+def bucket_fwd_bound(M: int, N: int, c: int, co, pairs: int, vq: int) -> tuple[float, str]:
+    """K9's least time over ``M`` samples (positions read, outputs and counts
+    written) and ``N`` sources (positions and features read) of a batch,
+    ``pairs`` of them within the radius and ``vq`` samples kept: d2, the
+    offsets, H pre-activations and (H+1) FMAs a channel per pair, and the
+    full conv's projection."""
+    CO = c if co is None else co
+    H1 = H + 1
+    nbytes = (4 * (M * 3 + N * 3 + N * c + 4 * H + H * c * (co or 1) + c * (co or 1) + M * CO
+                   + M) + M + N)
+    flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
+    if co is not None:
+        flops += 2 * vq * H1 * c * co
+    return bound(nbytes, flops)
+
+
+def bucket_bwd_bound(M: int, N: int, c: int, co, pairs: int, vq: int,
+                     vp: int) -> tuple[float, str]:
+    """K10's least time over ``M`` samples (positions, counts and dout read)
+    and ``N`` sources (positions and features read, d_f~ written), ``pairs``
+    of them within the radius, ``vq`` samples and ``vp`` sources kept."""
+    CO = c if co is None else co
+    H1 = H + 1
+    nw = H * c * (co or 1) + c * (co or 1) + 4 * H
+    nbytes = 4 * (M * 3 + N * 3 + 2 * N * c + M * CO + M + 2 * nw) + M + N
+    # as K6's count: per in-radius pair d2, offsets, H pre-activations,
+    # dpre's H x C and dW1 / db1; depthwise, X's (H+1) x C FMAs and its
+    # projections; full (the stem), d_f~ and G over (H+1) x C and the
+    # GEMMs dG = t Wcat and dWcat = t^T G
+    flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
+    flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
+              pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
+    return bound(nbytes, flops)
+
+
 def check_bucket_conv(dev, sites) -> tuple:
     """K9 at each ``(levels, cache, site)``: the four bucket sites of the block
     batch's capacity-free MCSeg and MCClassS's conv_0_1 at 4096 points."""
@@ -1739,15 +1786,8 @@ def check_bucket_conv(dev, sites) -> tuple:
                     f"{e:.3e} of {scale:.3e}")
             k_ms = time_ms(lambda: mk.bucket_conv_cuda(params, gs, gp, wf, **kw), iters=10)
             p_ms = time_ms(lambda: mk.bucket_conv_reference(params, gs, gp, wf, **kw), iters=1)
-            CO = c if co is None else co
-            H1 = H + 1
             pairs = int(wcnt.sum())
-            nbytes = (4 * (b * M * 3 + b * N * 3 + b * N * c + 4 * H + H * c * (co or 1) + c
-                           * (co or 1) + b * M * CO + b * M) + b * (M + N))
-            flops = pairs * (8 + 6 + 6 * H + 2 * H1 * c)
-            if co is not None:
-                flops += 2 * int(mk.kept_points(gs).sum()) * H1 * c * co
-            b_ms, by = bound(nbytes, flops)
+            b_ms, by = bucket_fwd_bound(b * M, b * N, c, co, pairs, int(mk.kept_points(gs).sum()))
             bounds.append((b_ms, by))
             print(f"K9 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
                   f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
@@ -1793,20 +1833,9 @@ def check_bucket_backward(dev, sites) -> tuple:
                         f"{e:.3e} of {scale:.3e}")
             k_ms = time_ms(lambda: mk.bucket_conv_backward_cuda(*args, c_out=co), iters=5)
             p_ms = time_ms(lambda: mk.bucket_conv_backward_reference(*args, c_out=co), iters=1)
-            H1 = H + 1
             pairs = int(cnt.sum())
             vq, vp = int(mk.kept_points(gs).sum()), int(mk.kept_points(gp).sum())
-            nw = H * c * (co or 1) + c * (co or 1) + 4 * H
-            nbytes = (4 * (b * M * 3 + b * N * 3 + 2 * b * N * c + b * M * CO + b * M + 2 * nw)
-                      + b * (M + N))
-            # as K6's count: per in-radius pair d2, offsets, H pre-activations,
-            # dpre's H x C and dW1 / db1; depthwise, X's (H+1) x C FMAs and its
-            # projections; full (the stem), d_f~ and G over (H+1) x C and the
-            # GEMMs dG = t Wcat and dWcat = t^T G
-            flops = pairs * (8 + 6 + 6 * H + 2 * H * c + 8 * H)
-            flops += (pairs * 2 * H1 * CO + 4 * vp * H1 * c + vq * H * c if co is None else
-                      pairs * 4 * H1 * c + 4 * vq * H1 * c * CO)
-            b_ms, by = bound(nbytes, flops)
+            b_ms, by = bucket_bwd_bound(b * M, b * N, c, co, pairs, vq, vp)
             bounds.append((b_ms, by))
             print(f"K10 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
                   f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
@@ -2854,6 +2883,206 @@ def run_dense_breakdown() -> dict:
     return counts
 
 
+# ------------------------------------------------------------ active bricks (K9a, K10a)
+
+
+def active_pairs(gs, gp, active) -> int:
+    """In-radius pairs of a visited sample and a source of a visited source
+    brick: the plain forward's count over the sources as samples (C = 1)."""
+    from mccnn_tpu_torch.core.mcconv import init_mcconv_params
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    dev = gs.positions.device
+    params = init_mcconv_params(torch.Generator().manual_seed(0), 1, None, device=dev)
+    ones = torch.ones((*gs.slot_of_point.shape, 1), device=dev)
+    _, cnt = mk.bucket_conv_reference(params, mk._visited_samples(gp, active.src, active.bz),
+                                      mk._visited_sources(gs, active.smp, active.bz), ones)
+    return int(cnt.sum())
+
+
+def check_active_pair(what, params, gs, gp, wf, active, gen, kw, lossless: bool,
+                      timed: bool = False) -> dict:
+    """K9a and K10a on ``active`` against their plain versions (and, when
+    ``lossless``, bit for bit against K9 / K10, and on repeat), with exact
+    zeros at the samples and sources of unvisited bricks; times, plain times
+    and bounds when ``timed``."""
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    co = kw["c_out"]
+    with torch.no_grad():
+        got, gcnt = mk.bucket_conv_active_cuda(params, gs, gp, wf, active, **kw)
+        want, wcnt = mk.bucket_conv_active_reference(params, gs, gp, wf, active, **kw)
+        torch.cuda.synchronize()
+        e_f, s_f = float((got - want).abs().max()), float(want.abs().max())
+        require(bool(torch.equal(gcnt, wcnt)), f"K9a neighbour counts differ at {what}")
+        require(e_f <= BUCKET_RTOL * s_f, f"K9a disagrees with its plain version at {what}: "
+                f"{e_f:.3e} of {s_f:.3e}")
+        dropped = mk.kept_points(gs) & ~mk.visited_points(gs, active.smp, active.bz)
+        require(bool((got[dropped] == 0).all()) and bool((gcnt[dropped] == 0).all()),
+                f"K9a wrote a sample of an unvisited brick at {what}")
+        dout = torch.randn(got.shape, generator=gen).to(got.device)
+        args = (params, gs, gp, wf, gcnt, dout)
+        gb = mk.bucket_conv_backward_active_cuda(*args, active, **kw)
+        wb = mk.bucket_conv_backward_active_reference(*args, active, **kw)
+        torch.cuda.synchronize()
+        gone = mk.kept_points(gp) & ~mk.visited_points(gp, active.src, active.bz)
+        require(bool((gb[0][gone] == 0).all()),
+                f"K10a gave a source of an unvisited brick a gradient at {what}")
+        e_b, parts = 0.0, []
+        for name, a, w in zip(names, gb, wb):
+            scale, e = float(w.abs().max()), float((a - w).abs().max())
+            e_b = max(e_b, e)
+            parts.append(f"{name} {e:.3e}/{scale:.3e}")
+            require(e <= BUCKET_BWD_RTOL * scale, f"K10a {name} disagrees with its plain version "
+                    f"at {what}: {e:.3e} of {scale:.3e}")
+        if lossless:
+            again, _ = mk.bucket_conv_active_cuda(params, gs, gp, wf, active, **kw)
+            k9, k9cnt = mk.bucket_conv_cuda(params, gs, gp, wf, **kw)
+            gb2 = mk.bucket_conv_backward_active_cuda(*args, active, **kw)
+            k10 = mk.bucket_conv_backward_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            require(bool(torch.equal(got, again)), f"K9a differs between two calls at {what}")
+            require(bool(torch.equal(got, k9)) and bool(torch.equal(gcnt, k9cnt)),
+                    f"K9a is not K9 bit for bit at {what}")
+            for name, a, a2, k in zip(names, gb, gb2, k10):
+                require(bool(torch.equal(a, a2)),
+                        f"K10a {name} differs between two calls at {what}")
+                require(bool(torch.equal(a, k)), f"K10a {name} is not K10 bit for bit at {what}")
+    res = dict(fwd_err=e_f, bwd_err=e_b, dropped_samples=int(dropped.sum()),
+               dropped_sources=int(gone.sum()))
+    line = (f"K9a / K10a {what} NBA={active.smp.nba} BZ={active.bz}: K9a max_abs_err={e_f:.3e} "
+            f"of {s_f:.3e}, K10a (err/scale) {', '.join(parts)}; samples of unvisited bricks "
+            f"{res['dropped_samples']}, sources {res['dropped_sources']} (all exact 0)"
+            + ("; bit for bit K9 / K10 and on repeat" if lossless else ""))
+    if timed:
+        b, M = gs.slot_of_point.shape
+        c = wf.shape[-1]
+        vq = int(mk.visited_points(gs, active.smp, active.bz).sum())
+        vp = int(mk.visited_points(gp, active.src, active.bz).sum())
+        fargs, bargs = (params, gs, gp, wf, active), (*args, active)
+        with torch.no_grad():
+            res["ms"] = time_ms(lambda: mk.bucket_conv_active_cuda(*fargs, **kw), iters=10)
+            res["k9_ms"] = time_ms(lambda: mk.bucket_conv_cuda(params, gs, gp, wf, **kw), iters=10)
+            res["plain_ms"] = time_ms(lambda: mk.bucket_conv_active_reference(*fargs, **kw),
+                                      iters=1)
+            res["bwd_ms"] = time_ms(lambda: mk.bucket_conv_backward_active_cuda(*bargs, **kw),
+                                    iters=5)
+            res["k10_ms"] = time_ms(lambda: mk.bucket_conv_backward_cuda(*args, **kw), iters=5)
+            res["bwd_plain_ms"] = time_ms(
+                lambda: mk.bucket_conv_backward_active_reference(*bargs, **kw), iters=1)
+        res["bound"] = bucket_fwd_bound(vq, int(mk.kept_points(gp).sum()), c, co,
+                                        int(gcnt.sum()), vq)
+        res["bwd_bound"] = bucket_bwd_bound(int(mk.kept_points(gs).sum()), vp, c, co,
+                                            active_pairs(gs, gp, active), vq, vp)
+        line += (f"; K9a {res['ms']:.4f} ms (K9 {res['k9_ms']:.4f}, plain {res['plain_ms']:.4f}, "
+                 f"bound {res['bound'][0]:.6f} ({res['bound'][1]})); K10a {res['bwd_ms']:.4f} ms "
+                 f"(K10 {res['k10_ms']:.4f}, plain {res['bwd_plain_ms']:.4f}, bound "
+                 f"{res['bwd_bound'][0]:.6f} ({res['bwd_bound'][1]}))")
+    print(line, flush=True)
+    return res
+
+
+def active_small_case(dev, gen):
+    """B = 4 clouds of 512 sources in boxes of 1, 2, 4 and 8 bricks (so other
+    occupied counts; the smaller boxes overflow their cells), the first 160
+    as samples, r = 0.2 (R = 6), caps 16 / 32 (BZ = 2, 27 bricks), C = 16 ->
+    32 (the full conv)."""
+    from mccnn_tpu_torch.core.buckets import build_buckets
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    rng = np.random.default_rng(SEED + 30)
+    edge = np.array([[0.35, 0.35, 0.35], [0.75, 0.35, 0.35], [0.75, 0.75, 0.35],
+                     [0.75, 0.75, 0.75]], np.float32)[:, None, :]
+    src = torch.from_numpy((rng.uniform(0, 1, (ACTIVE_SMALL_B, 512, 3)) * edge).astype(np.float32))
+    smask = torch.ones((ACTIVE_SMALL_B, 512), dtype=torch.bool)
+    smask[:, -30:] = False
+    src, smask = src.to(dev), smask.to(dev)
+    gp = build_buckets(src, smask, 0.2, 32)
+    gs = build_buckets(src[:, :160].contiguous(), smask[:, :160].contiguous(), 0.2, 16)
+    params = site_params(gen, 16, 32, dev)
+    feats = torch.randn((ACTIVE_SMALL_B, 512, 16), generator=gen).to(dev)
+    pdf = (torch.rand((ACTIVE_SMALL_B, 512), generator=gen) + 0.5).to(dev)
+    wf = torch.where(mk.kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
+    return params, gs, gp, wf
+
+
+def check_active_bricks(dev) -> dict:
+    """K9a / K10a: (a) at ``tools.bucket_32k``'s scene with cap 64 and NBA =
+    its occupied bricks (lossless), against their plain versions and bit for
+    bit against K9 / K10, timed; (b) there at a lossy NBA against their plain
+    versions, the dropped samples and sources exact zeros; (c) the full conv
+    (``c_out``, the mean both ways) at a B = 4 case whose clouds occupy
+    different numbers of bricks."""
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+    from mccnn_tpu_torch.tools import bucket_32k
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 30)
+    s = bucket_32k.scene(dev, ACTIVE_CAP)
+    grid, params = s["grid"], s["params"]
+    wf = torch.where(mk.kept_points(grid)[..., None], s["feats"] / s["pdf"][..., None], 0.0)
+    occupied = mk.count_active_bricks(grid).tolist()
+    bz = mk.pick_bz(grid.res, ACTIVE_CAP)
+    print(f"tools.bucket_32k's scene N={bucket_32k.N} r={bucket_32k.RADIUS} cap={ACTIVE_CAP}: "
+          f"R={grid.res} BZ={bz} bricks={mk.n_bricks(grid.res, bz)} occupied={occupied} "
+          f"overflow={int(grid.overflow.sum())}", flush=True)
+    require(occupied == [ACTIVE_NBA] and int(grid.overflow.sum()) == 0,
+            f"the 32k scene at cap {ACTIVE_CAP}: occupied {occupied}, "
+            f"overflow {int(grid.overflow.sum())}")
+    kw = dict(c_out=None, mean_normalize=False)
+    row = check_active_pair("32k scene", params, grid, grid, wf,
+                            mk.active_bricks(grid, grid, ACTIVE_NBA), gen, kw, lossless=True,
+                            timed=True)
+    lossy = check_active_pair("32k scene (lossy)", params, grid, grid, wf,
+                              mk.active_bricks(grid, grid, ACTIVE_LOSSY_NBA), gen, kw,
+                              lossless=False)
+    require(lossy["dropped_samples"] > 0 and lossy["dropped_sources"] > 0,
+            f"NBA={ACTIVE_LOSSY_NBA} dropped nothing")
+    params4, gs, gp, wf4 = active_small_case(dev, gen)
+    counts = [mk.brick_occupancy(g, mk.pick_bz(6, 16)).sum(dim=-1).tolist() for g in (gs, gp)]
+    nba = max(max(c) for c in counts)
+    print(f"B={ACTIVE_SMALL_B} case: occupied bricks per cloud sample {counts[0]} source "
+          f"{counts[1]}, lossless NBA={nba}", flush=True)
+    require(len(set(counts[1])) == ACTIVE_SMALL_B, "the B=4 clouds occupy equal brick counts")
+    for mean in (False, True):
+        check_active_pair(f"B={ACTIVE_SMALL_B} full conv 16->32 mean={mean}", params4, gs, gp,
+                          wf4, mk.active_bricks(gs, gp, nba), gen,
+                          dict(c_out=32, mean_normalize=mean), lossless=True)
+    print(f"active bricks checks: {time.perf_counter() - t0:.2f} s", flush=True)
+    bound_f, bound_b = row["bound"], row["bwd_bound"]
+    return {"K9a": (row["fwd_err"], row["ms"], row["plain_ms"], bound_f[0], bound_f[1], None),
+            "K10a": (row["bwd_err"], row["bwd_ms"], row["bwd_plain_ms"], bound_b[0], bound_b[1],
+                     None)}
+
+
+def run_bucket_32k(nba: int) -> dict:
+    """``python -m mccnn_tpu_torch.tools.bucket_32k 64 <nba>`` as a child
+    process: its printed counters must show K9a / K10a and not K9 / K10
+    when 0 < nba < the brick count, and the reverse at 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mccnn_tpu_torch.tools.bucket_32k", str(ACTIVE_CAP), str(nba)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, f"tools.bucket_32k {ACTIVE_CAP} {nba} failed "
+            f"({proc.returncode}): {proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        print(f"  bucket_32k {ACTIVE_CAP} {nba}: {line}", flush=True)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("launches ")]
+    require(len(line) == 1, f"tools.bucket_32k printed no counters: {proc.stdout[-2000:]}")
+    counts = json.loads(line[0][len("launches "):])
+    print(f"tools.bucket_32k {ACTIVE_CAP} {nba} (child process): {seconds:.2f} s, launches "
+          f"{counts}", flush=True)
+    on, off = (("K9a", "K10a"), ("K9", "K10")) if nba else (("K9", "K10"), ("K9a", "K10a"))
+    for kid in on:
+        require(counts[kid] > 0, f"{kid} was not launched by tools.bucket_32k {ACTIVE_CAP} {nba}")
+    for kid in off:
+        require(counts[kid] == 0, f"{kid} was launched by tools.bucket_32k {ACTIVE_CAP} {nba}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2861,6 +3090,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from mccnn_tpu_torch.ops.cuda import _build
+    from mccnn_tpu_torch.tools import card_line
 
     card = card_line()
     print("card:", card, flush=True)
@@ -2929,6 +3159,9 @@ def main() -> int:
     roofline_launches = {"tile_roofline": run_tile_roofline()}
     t1_results = check_t1(dev)
     breakdown_launches = {"dense_breakdown": run_dense_breakdown()}
+    active_results = check_active_bricks(dev)
+    active_launches = {f"bucket_32k_{ACTIVE_CAP}_{ACTIVE_NBA}": run_bucket_32k(ACTIVE_NBA),
+                       f"bucket_32k_{ACTIVE_CAP}_0": run_bucket_32k(0)}
 
     meta = {
         "K1": ("dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
@@ -3022,6 +3255,13 @@ def main() -> int:
     roofline += [(f"T1 {v}", f"dense_probe_{v}", "mccnn_tpu_torch/csrc/dense_probe.cu",
                   f"tools/exp_dense_breakdown.py:{line}", [t1_results[f"T1 {v}"]],
                   breakdown_launches, SERVE_B) for v, line in t1_lines.items()]
+    roofline += [("K9a", "bucket_mc_conv_active", "mccnn_tpu_torch/csrc/bucket_conv.cu",
+                  "mccnn_tpu/ops/pallas/mcconv_kernel.py:570",
+                  [active_results["K9a"]], active_launches, 1),
+                 ("K10a", "bucket_mc_conv_backward_active",
+                  "mccnn_tpu_torch/csrc/bucket_conv_bwd.cu",
+                  "mccnn_tpu/ops/pallas/mcconv_kernel.py:644",
+                  [active_results["K10a"]], active_launches, 1)]
     for kid, name, source, replaces, rows, paths, batch in roofline:
         lib_ms = [r[5] for r in rows if r[5] is not None]
         kernels.append({

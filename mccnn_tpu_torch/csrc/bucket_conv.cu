@@ -35,6 +35,20 @@
 // a d2 and H pre-activations (once per block, shared by its CB channels),
 // then (H+1) FMAs per channel. Everything is fp32 (the TPU kernel holds
 // features in bf16). Limits: H == 8, C <= 1024.
+//
+// K9a (kActive) is the same kernel over a list of bricks: it replaces
+// _fwd_kernel (:293) as called at :570 with a PrefetchScalarGridSpec, the
+// reference's `max_active_bricks`, which sweeps only the first NBA bricks
+// (2 x 2 x BZ sample cells) of each cloud's list, occupied bricks first. The
+// TPU prefetches the list as scalars for its index maps; here each block reads
+// its brick id from the list (bucket_brick_cell) and runs K9's per-cell body
+// unchanged, over the whole source layout as the reference's window DMAs
+// fetch it. Its grid is (NBA x 4 BZ cells x slot chunks, channel slices,
+// clouds). A visited cell's outputs are K9's bit for bit; the rows of the
+// other samples keep the zeros the wrapper allocated (the reference leaves
+// them uninitialised and masks them afterwards). What bounds it: K9's pair
+// arithmetic over the visited cells only; it saves the launches of the
+// blocks of unvisited cells, each of which K9 retires after one read.
 
 #include "common.cuh"
 
@@ -46,16 +60,17 @@ constexpr int kThreads = 256;
 constexpr int kOut = 8;       // (sample, channel) outputs per thread
 constexpr int kMaxCB = 64;    // channels per block
 
-template <int H>
+template <int H, bool kActive>
 __global__ void __launch_bounds__(kThreads)
 bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ smp_pts,
                    const int* __restrict__ smp_cnt, const float* __restrict__ src_pos,
                    const int* __restrict__ src_pts, const int* __restrict__ src_cnt,
                    const float* __restrict__ wf, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, int M, int N, int C, int CB, int R, int capS,
-                   int capP, int TS, int nsc, float r2, float radius, int mean, int depthwise,
-                   float* __restrict__ out, float* __restrict__ cnt) {
+                   const float* __restrict__ b2, const int* __restrict__ ids, int nba, int bz,
+                   int M, int N, int C, int CB, int R, int capS, int capP, int TS, int nsc,
+                   float r2, float radius, int mean, int depthwise, float* __restrict__ out,
+                   float* __restrict__ cnt) {
   constexpr int H1 = H + 1;
   extern __shared__ float sm[];
   float* plane = sm;                      // [kTJ][H1][TS]
@@ -71,8 +86,14 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
 
   const int Rp = R + 2;
   const size_t cells = (size_t)Rp * Rp * Rp;
-  const int cell = blockIdx.x / nsc, chunk = blockIdx.x % nsc;
   const int cb = blockIdx.y, b = blockIdx.z;
+  int cell, chunk;
+  if (kActive) {
+    cell = bucket_brick_cell(ids + (size_t)b * nba, blockIdx.x, nsc, R, bz, &chunk);
+  } else {
+    cell = blockIdx.x / nsc;
+    chunk = blockIdx.x % nsc;
+  }
   const int pid = bucket_padded_cell(cell, R);
   const int s0 = chunk * TS;
   const int ns = min(TS, smp_cnt[b * cells + pid] - s0);
@@ -167,6 +188,45 @@ bucket_conv_kernel(const float* __restrict__ smp_pos, const int* __restrict__ sm
   }
 }
 
+template <bool kActive>
+int bucket_conv_run(const void* smp_pos, const void* smp_pts, const void* smp_cnt,
+                    const void* src_pos, const void* src_pts, const void* src_cnt, const void* wf,
+                    const void* w1, const void* b1, const void* w2, const void* b2,
+                    const void* ids, int B, int M, int N, int C, int H, int R, int capS,
+                    int capP, int nba, int bz, float r2, float radius, int mean, int depthwise,
+                    void* out, void* cnt, void* stream) {
+  if (H != 8 || C < 1 || C > 1024 || B < 1 || B > 65535 || R < 1 || capS < 1 || capP < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kActive && (ids == nullptr || bz < 1 || R % 2 || R % bz || nba < 1 ||
+                  nba > (R / 2) * (R / 2) * (R / bz)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int TS = capS < kTS ? capS : kTS;
+  const int nsc = (capS + TS - 1) / TS;
+  int CB = kThreads * kOut / TS;
+  if (CB > kMaxCB) CB = kMaxCB;
+  if (CB > C) CB = C;
+  const long long cells = kActive ? (long long)nba * 4 * bz : (long long)R * R * R;
+  const long long nblocks = cells * nsc;
+  if (nblocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * ((size_t)kTJ * (H + 1) * TS + kTJ * kMaxCB + kTJ * 4 +
+                                       TS * 4 + 3 * H + H) +
+                      sizeof(int) * (TS + kTJ + 27 + 28);
+  cudaError_t err = cudaFuncSetAttribute(
+      bucket_conv_kernel<8, kActive>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((unsigned)nblocks, (C + CB - 1) / CB, B);
+  bucket_conv_kernel<8, kActive><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(smp_pos), static_cast<const int*>(smp_pts),
+      static_cast<const int*>(smp_cnt), static_cast<const float*>(src_pos),
+      static_cast<const int*>(src_pts), static_cast<const int*>(src_cnt),
+      static_cast<const float*>(wf), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const int*>(ids), nba, bz, M, N, C, CB, R,
+      capS, capP, TS, nsc, r2, radius, mean, depthwise, static_cast<float*>(out),
+      static_cast<float*>(cnt));
+  MCCNN_LAUNCH_RETURN();
+}
+
 }  // namespace
 
 // Layouts: *_pos (B, S+1, 3) slot positions, *_pts (B, S+1) point_of_slot,
@@ -179,29 +239,23 @@ extern "C" int bucket_conv_launch(const void* smp_pos, const void* smp_pts, cons
                                   const void* w2, const void* b2, int B, int M, int N, int C,
                                   int H, int R, int capS, int capP, float r2, float radius,
                                   int mean, int depthwise, void* out, void* cnt, void* stream) {
-  if (H != 8 || C < 1 || C > 1024 || B < 1 || B > 65535 || R < 1 || capS < 1 || capP < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int TS = capS < kTS ? capS : kTS;
-  const int nsc = (capS + TS - 1) / TS;
-  int CB = kThreads * kOut / TS;
-  if (CB > kMaxCB) CB = kMaxCB;
-  if (CB > C) CB = C;
-  const long long nblocks = (long long)R * R * R * nsc;
-  if (nblocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * ((size_t)kTJ * (H + 1) * TS + kTJ * kMaxCB + kTJ * 4 +
-                                       TS * 4 + 3 * H + H) +
-                      sizeof(int) * (TS + kTJ + 27 + 28);
-  cudaError_t err = cudaFuncSetAttribute(
-      bucket_conv_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((unsigned)nblocks, (C + CB - 1) / CB, B);
-  bucket_conv_kernel<8><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(smp_pos), static_cast<const int*>(smp_pts),
-      static_cast<const int*>(smp_cnt), static_cast<const float*>(src_pos),
-      static_cast<const int*>(src_pts), static_cast<const int*>(src_cnt),
-      static_cast<const float*>(wf), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), M, N, C, CB, R, capS, capP, TS, nsc, r2, radius, mean,
-      depthwise, static_cast<float*>(out), static_cast<float*>(cnt));
-  MCCNN_LAUNCH_RETURN();
+  return bucket_conv_run<false>(smp_pos, smp_pts, smp_cnt, src_pos, src_pts, src_cnt, wf, w1, b1,
+                                w2, b2, nullptr, B, M, N, C, H, R, capS, capP, 0, 0, r2, radius,
+                                mean, depthwise, out, cnt, stream);
+}
+
+// K9a: as bucket_conv_launch over the sample cells of the bricks in ids (B,
+// nba) int32, bricks of 2 x 2 x bz cells (R even, bz | R); the rows of the
+// other samples are not written.
+extern "C" int bucket_conv_active_launch(const void* smp_pos, const void* smp_pts,
+                                         const void* smp_cnt, const void* src_pos,
+                                         const void* src_pts, const void* src_cnt,
+                                         const void* wf, const void* w1, const void* b1,
+                                         const void* w2, const void* b2, const void* ids, int B,
+                                         int M, int N, int C, int H, int R, int capS, int capP,
+                                         int nba, int bz, float r2, float radius, int mean,
+                                         int depthwise, void* out, void* cnt, void* stream) {
+  return bucket_conv_run<true>(smp_pos, smp_pts, smp_cnt, src_pos, src_pts, src_cnt, wf, w1, b1,
+                               w2, b2, ids, B, M, N, C, H, R, capS, capP, nba, bz, r2, radius,
+                               mean, depthwise, out, cnt, stream);
 }

@@ -43,6 +43,21 @@
 // What bounds it on the H100: the pair arithmetic, as K9 and K6. Everything is
 // fp32 (the TPU kernel holds planes, features and the cotangent in bf16).
 // Limits: H == 8, channel slices of at most 16, C and c_out <= 1024.
+//
+// K10a (kActive) is the same kernel over a list of bricks: it replaces
+// _bwd_kernel (:366) as called at :644 with a PrefetchScalarGridSpec, the
+// backward of `max_active_bricks`, which sweeps only the first NBA bricks
+// (2 x 2 x BZ source cells) of each cloud's source-layout list. Each block
+// reads its brick id from the list (bucket_brick_cell) and runs K10's body
+// unchanged, over the whole sample layout; the wrapper's t is 0 at the samples
+// K9a did not visit (their count is 0 too). The d_f~ rows of sources in
+// unvisited bricks keep the zeros they were allocated with, and their pairs
+// are in no partial, although K9a read them: the reference's semantics
+// (its dfeat is an aliased zeros array, :640-654). A visited block writes its
+// partials where K10 writes that cell's, and the other rows stay 0, so K2's
+// reduction sums them in K10's order: at an NBA that visits every occupied
+// brick, d_f~ and every parameter gradient are K10's bit for bit. What bounds
+// it: K10's pair arithmetic over the visited source cells.
 
 #include "common.cuh"
 
@@ -54,7 +69,7 @@ constexpr int kThreads = 256; // a multiple of H (see the dpre loop)
 constexpr int kOut = 8;       // (source, channel) outputs per thread
 constexpr int kMaxCB = 16;    // channels per block (== kTJ: the epilogue reuses the plane)
 
-template <int H>
+template <int H, bool kActive>
 __global__ void __launch_bounds__(kThreads)
 bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict__ smp_pts,
                        const int* __restrict__ smp_cnt, const float* __restrict__ src_pos,
@@ -62,7 +77,8 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
                        const float* __restrict__ wf, const float* __restrict__ u,
                        const float* __restrict__ dg, const float* __restrict__ w1,
                        const float* __restrict__ b1, const float* __restrict__ w2,
-                       const float* __restrict__ b2, int M, int N, int C, int KU, int R,
+                       const float* __restrict__ b2, const int* __restrict__ ids, int nba,
+                       int bz, int M, int N, int C, int KU, int R,
                        int capS, int capP, int TP, int npc, int CB, float r2, float radius,
                        int depthwise, float* __restrict__ out, float* __restrict__ w1part,
                        float* __restrict__ w2part) {
@@ -85,8 +101,14 @@ bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict_
 
   const int Rp = R + 2;
   const size_t cells = (size_t)Rp * Rp * Rp;
-  const int cell = blockIdx.x / npc, chunk = blockIdx.x % npc;
   const int cb = blockIdx.y, b = blockIdx.z;
+  int cell, chunk;
+  if (kActive) {
+    cell = bucket_brick_cell(ids + (size_t)b * nba, blockIdx.x, npc, R, bz, &chunk);
+  } else {
+    cell = blockIdx.x / npc;
+    chunk = blockIdx.x % npc;
+  }
   const int pid = bucket_padded_cell(cell, R);
   const int s0 = chunk * TP;
   const int np = min(TP, src_cnt[b * cells + pid] - s0);
@@ -249,6 +271,43 @@ size_t bwd_smem(int H, int TP) {
          sizeof(int) * (TP + kTJ + 27 + 28);
 }
 
+template <bool kActive>
+int bucket_conv_bwd_run(const void* smp_pos, const void* smp_pts, const void* smp_cnt,
+                        const void* src_pos, const void* src_pts, const void* src_cnt,
+                        const void* wf, const void* u, const void* dg, const void* w1,
+                        const void* b1, const void* w2, const void* b2, const void* ids, int B,
+                        int M, int N, int C, int KU, int H, int R, int capS, int capP, int TP,
+                        int npc, int CB, int nba, int bz, float r2, float radius, int depthwise,
+                        void* out, void* w1part, void* w2part, void* stream) {
+  const int wide = C > KU ? C : KU;
+  if (H != 8 || C < 1 || KU < 1 || C > 1024 || KU > 1024 || CB < 1 || CB > kMaxCB ||
+      TP < 1 || TP > kTP || (long long)TP * npc < capP || TP * CB > kThreads * kOut || B < 1 ||
+      B > 65535 || R < 1 || (depthwise && KU != C))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kActive && (ids == nullptr || bz < 1 || R % 2 || R % bz || nba < 1 ||
+                  nba > (R / 2) * (R / 2) * (R / bz)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long cells = kActive ? (long long)nba * 4 * bz : (long long)R * R * R;
+  const long long nblocks = cells * npc;
+  if (nblocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_smem(H, TP);
+  cudaError_t err = cudaFuncSetAttribute(
+      bucket_conv_bwd_kernel<8, kActive>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((unsigned)nblocks, (wide + CB - 1) / CB, B);
+  bucket_conv_bwd_kernel<8, kActive><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(smp_pos), static_cast<const int*>(smp_pts),
+      static_cast<const int*>(smp_cnt), static_cast<const float*>(src_pos),
+      static_cast<const int*>(src_pts), static_cast<const int*>(src_cnt),
+      static_cast<const float*>(wf), static_cast<const float*>(u),
+      static_cast<const float*>(dg), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const int*>(ids), nba, bz, M, N, C, KU, R, capS,
+      capP, TP, npc, CB, r2, radius, depthwise, static_cast<float*>(out),
+      static_cast<float*>(w1part), static_cast<float*>(w2part));
+  MCCNN_LAUNCH_RETURN();
+}
+
 }  // namespace
 
 // Layouts as bucket_conv_launch's. u: t (B, M, KU) in sample point order.
@@ -267,27 +326,28 @@ extern "C" int bucket_conv_bwd_launch(const void* smp_pos, const void* smp_pts,
                                       int capP, int TP, int npc, int CB, float r2, float radius,
                                       int depthwise, void* out, void* w1part, void* w2part,
                                       void* stream) {
-  const int wide = C > KU ? C : KU;
-  if (H != 8 || C < 1 || KU < 1 || C > 1024 || KU > 1024 || CB < 1 || CB > kMaxCB ||
-      TP < 1 || TP > kTP || (long long)TP * npc < capP || TP * CB > kThreads * kOut || B < 1 ||
-      B > 65535 || R < 1 || (depthwise && KU != C))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long nblocks = (long long)R * R * R * npc;
-  if (nblocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd_smem(H, TP);
-  cudaError_t err = cudaFuncSetAttribute(
-      bucket_conv_bwd_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((unsigned)nblocks, (wide + CB - 1) / CB, B);
-  bucket_conv_bwd_kernel<8><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(smp_pos), static_cast<const int*>(smp_pts),
-      static_cast<const int*>(smp_cnt), static_cast<const float*>(src_pos),
-      static_cast<const int*>(src_pts), static_cast<const int*>(src_cnt),
-      static_cast<const float*>(wf), static_cast<const float*>(u),
-      static_cast<const float*>(dg), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), M, N, C, KU, R, capS, capP, TP, npc, CB, r2, radius,
-      depthwise, static_cast<float*>(out), static_cast<float*>(w1part),
-      static_cast<float*>(w2part));
-  MCCNN_LAUNCH_RETURN();
+  return bucket_conv_bwd_run<false>(smp_pos, smp_pts, smp_cnt, src_pos, src_pts, src_cnt, wf, u,
+                                    dg, w1, b1, w2, b2, nullptr, B, M, N, C, KU, H, R, capS,
+                                    capP, TP, npc, CB, 0, 0, r2, radius, depthwise, out, w1part,
+                                    w2part, stream);
+}
+
+// K10a: as bucket_conv_bwd_launch over the source cells of the bricks in ids
+// (B, nba) int32, bricks of 2 x 2 x bz cells (R even, bz | R). The partials
+// keep bucket_conv_bwd_launch's shapes and places; the rows of unvisited
+// cells, and the out rows of their sources, are not written.
+extern "C" int bucket_conv_bwd_active_launch(const void* smp_pos, const void* smp_pts,
+                                             const void* smp_cnt, const void* src_pos,
+                                             const void* src_pts, const void* src_cnt,
+                                             const void* wf, const void* u, const void* dg,
+                                             const void* w1, const void* b1, const void* w2,
+                                             const void* b2, const void* ids, int B, int M,
+                                             int N, int C, int KU, int H, int R, int capS,
+                                             int capP, int TP, int npc, int CB, int nba, int bz,
+                                             float r2, float radius, int depthwise, void* out,
+                                             void* w1part, void* w2part, void* stream) {
+  return bucket_conv_bwd_run<true>(smp_pos, smp_pts, smp_cnt, src_pos, src_pts, src_cnt, wf, u,
+                                   dg, w1, b1, w2, b2, ids, B, M, N, C, KU, H, R, capS, capP, TP,
+                                   npc, CB, nba, bz, r2, radius, depthwise, out, w1part, w2part,
+                                   stream);
 }

@@ -77,6 +77,22 @@ __device__ __forceinline__ int bucket_padded_cell(int cell, int R) {
   return ((cx + 1) * Rp + (cy + 1)) * Rp + (cz + 1);
 }
 
+// The real cell (of R^3) that K9a / K10a give block `x` of their grid: brick
+// `ids[x / (4 * bz * nsc)]` of the cloud's list, its cell `(x / nsc) % (4 * bz)`
+// and slot chunk `x % nsc` (into *chunk). A brick is 2 x 2 x bz cells; bricks
+// are numbered x-major with z fastest, and so are the cells of a brick, as
+// mccnn_tpu/ops/pallas/mcconv_kernel.py::_block_perm orders them.
+__device__ __forceinline__ int bucket_brick_cell(const int* __restrict__ ids, int x, int nsc,
+                                                 int R, int bz, int* chunk) {
+  const int per = 4 * bz * nsc;
+  const int brick = ids[x / per], local = (x % per) / nsc;
+  *chunk = x % nsc;
+  const int nbx = R / 2, nbz = R / bz;
+  const int bx = brick / (nbx * nbz), by = (brick / nbz) % nbx, bk = brick % nbz;
+  const int dx = local / (2 * bz), dy = (local / bz) % 2, dz = local % bz;
+  return ((2 * bx + dx) * R + (2 * by + dy)) * R + bz * bk + dz;
+}
+
 // The 27 window cells of padded cell `pid` (z fastest) into wcell, and the
 // prefix sums of their kept counts into wstart[0..27]; returns the window's
 // kept total. Every thread of the block calls it (two barriers).

@@ -76,6 +76,8 @@ SIGNATURES = {
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
     "bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "bucket_conv_active_launch": [P] * 12 + [I] * 10 + [F, F, I, I] + [P] * 3,
+    "bucket_conv_bwd_active_launch": [P] * 14 + [I] * 14 + [F, F, I] + [P] * 4,
 }
 
 

@@ -5,12 +5,16 @@ mccnn_tpu_torch.tools.<name>``): the twins of the reference's roofline tools.
   32k-point scene (``tools/exp_tile_roofline.py``'s twin).
 - ``dense_breakdown``: the dense forward (K1) stripped by T1's variants, at B =
   8 x 1024 (``tools/exp_dense_breakdown.py``'s twin).
+- ``bucket_32k``: the bucket conv (K9 / K10, or K9a / K10a over the occupied
+  bricks) at a 32k-point scene (``tools/exp_32k_bucket.py``'s twin).
 
 Nothing of the package's main path imports them. They refuse to run without
 a CUDA device: every number they print is a time on the card.
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -28,6 +32,13 @@ def require_card(tool: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def best_ms(fn, iters: int = 5, reps: int = 3) -> float:

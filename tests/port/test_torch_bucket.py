@@ -90,17 +90,16 @@ def port_grads(case, c_out, mean, cap_p=CAP_P):
 
 
 def jax_out_and_grads(case, conv):
-    """``conv(params, feats)`` masked, and ``jax.grad`` of sum(out * cot)
-    (traced: call it inside ``jax.jit``)."""
+    """``conv(params, feats)`` masked, and the gradients of sum(out * cot):
+    its VJP at cot, one trace of the forward (traced: call it inside
+    ``jax.jit``)."""
 
     def out_fn(params, feats):
         return jnp.where(case["qmask"][..., None], conv(JParams(*params), feats), 0.0)
 
-    def loss(params, feats):
-        return jnp.sum(out_fn(params, feats) * case["cot"])
-
-    gp, gf = jax.grad(loss, argnums=(0, 1))(case["params"], case["feats"])
-    return out_fn(case["params"], case["feats"]), [*gp, gf]
+    out, vjp = jax.vjp(out_fn, case["params"], case["feats"])
+    gp, gf = vjp(jnp.asarray(case["cot"], out.dtype))
+    return out, [*gp, gf]
 
 
 def assert_close_to_scale(got, want, rel, names=NAMES):

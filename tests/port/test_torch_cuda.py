@@ -438,6 +438,74 @@ def test_bucket_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_i
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=name)
 
 
+ACTIVE_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale
+    (8, None, False, 32, 16, 1.0), (8, None, True, 8, 16, 1.0), (40, 3, True, 32, 16, 1.0),
+    (1, 16, False, 8, 16, 1.0), (4, None, True, 136, 136, 0.3), (2, 5, False, 136, 136, 0.3)]
+
+
+def _bricks(gs, gp, nba):
+    bz = mcconv_kernel.pick_bz(gs.res, min(gs.cap, gp.cap))
+    return mcconv_kernel.ActiveBricks(mcconv_kernel._brick_activity(gs, bz, nba),
+                                      mcconv_kernel._brick_activity(gp, bz, nba), bz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", ACTIVE_CASES)
+def test_bucket_active_kernels_match_plain_and_k9_k10(cuda, c_in, c_out, mean, cap_p, cap_s,
+                                                      scale):
+    """K9a / K10a at an NBA that visits every occupied brick: bit for bit K9
+    / K10 and bit for bit on repeat; at an NBA that drops bricks: their plain
+    versions, with exact zeros at the dropped samples and sources."""
+    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+    kw = dict(c_out=c_out, mean_normalize=mean)
+    mk = mcconv_kernel
+    bz = mk.pick_bz(gs.res, min(cap_s, cap_p))
+    occupied = max(int(mk.brick_occupancy(g, bz).sum(dim=-1).max()) for g in (gs, gp))
+    lossless = _bricks(gs, gp, occupied)
+    before = (mk.launches_active, mk.backward_launches_active)
+    got, gcnt = mk.bucket_conv_active_cuda(params, gs, gp, wf, lossless, **kw)
+    again, _ = mk.bucket_conv_active_cuda(params, gs, gp, wf, lossless, **kw)
+    k9, k9cnt = mk.bucket_conv_cuda(params, gs, gp, wf, **kw)
+    args = (params, gs, gp, wf, gcnt, dout)
+    gb = mk.bucket_conv_backward_active_cuda(*args, lossless, **kw)
+    gb2 = mk.bucket_conv_backward_active_cuda(*args, lossless, **kw)
+    k10 = mk.bucket_conv_backward_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert (mk.launches_active, mk.backward_launches_active) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again) and torch.equal(got, k9) and torch.equal(gcnt, k9cnt)
+    for name, a, b, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), gb, gb2, k10):
+        assert torch.equal(a, b), f"{name}: two calls differ"
+        assert torch.equal(a, w), f"{name}: K10a differs from K10 at a lossless NBA"
+    lossy = _bricks(gs, gp, max(1, occupied - 3))
+    got, gcnt = mk.bucket_conv_active_cuda(params, gs, gp, wf, lossy, **kw)
+    want, wcnt = mk.bucket_conv_active_reference(params, gs, gp, wf, lossy, **kw)
+    dropped = mk.kept_points(gs) & ~mk.visited_points(gs, lossy.smp, bz)
+    assert bool(dropped.any()) and torch.equal(gcnt, wcnt)
+    assert bool((got[dropped] == 0).all()) and bool((gcnt[dropped] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    args = (params, gs, gp, wf, gcnt, dout, lossy)
+    gb = mk.bucket_conv_backward_active_cuda(*args, **kw)
+    want = mk.bucket_conv_backward_active_reference(*args, **kw)
+    gone = mk.kept_points(gp) & ~mk.visited_points(gp, lossy.src, bz)
+    assert bool(gone.any()) and bool((gb[0][gone] == 0).all())
+    for name, a, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), gb, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=name)
+
+
+def test_bucket_active_kernel_wrappers_refuse_cpu_tensors():
+    params, gs, gp, wf, dout = _bucket_inputs("cpu", 2, None)
+    cnt = torch.ones(dout.shape[:2])
+    active = _bricks(gs, gp, 3)
+    mk = mcconv_kernel
+    before = (mk.launches_active, mk.backward_launches_active)
+    for call in (lambda: mk.bucket_conv_active_cuda(params, gs, gp, wf, active),
+                 lambda: mk.bucket_conv_backward_active_cuda(params, gs, gp, wf, cnt, dout,
+                                                             active)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    assert (mk.launches_active, mk.backward_launches_active) == before
+
+
 def test_bucket_kernel_wrappers_refuse_cpu_tensors():
     params, gs, gp, wf, dout = _bucket_inputs("cpu", 2, None)
     cnt = torch.ones(dout.shape[:2])

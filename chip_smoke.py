@@ -28,7 +28,12 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
 4. Holds K2 (the dense MC-conv backward) against its plain version at the
    three conv sites of a B=8 and of a B=32 training batch (N=1024
    hierarchies: the row splits and partial sums differ with B), checks that
-   two calls give bit-identical gradients, and times both.
+   two calls give bit-identical gradients, and times both. Then K1 and K2
+   at ShapeNet's three 1024 -> 1024 sites (MCSeg grow 64: the stem at r
+   0.025, 17 -> 64 channels; enc_0_1 and dec_1_0 at r 0.05, depthwise 64 and
+   256) for a batch of 32 synthetic part clouds: against their plain
+   versions, counts bit-equal, bitwise on repeat, with times, bounds and the
+   GEMM parts' library calls.
 5. Serving: builds MCClassS(40, grow=128) with seeded weights and BN
    statistics and serves request batches of 8, 3 and 1 clouds through
    ``serve.Predictor``; checks that the logits are finite, agree with the same
@@ -166,8 +171,9 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    ``64 0`` as child processes, whose counters must show K9a / K10a and not
    K9 / K10, and the reverse.
 31. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, K5-K10, K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed
-   over the zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
+   B=32, and K1 / K2 again at ShapeNet's three 1024 -> 1024 sites, K5-K10,
+   K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed over the
+   zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
    two sweeps at B=32, K1p over the 17 dense sites at B=32, the probes over
    the four tile sites, T1 at its tool's shapes and K9a / K10a at the 32k
    scene; each with its least
@@ -631,6 +637,86 @@ def check_backward(dev, b: int) -> list:
                   f"matmul_ms={lms:.4f} (torch.matmul {R}x{co} @ {co}x{K} and "
                   f"{K}x{R} @ {R}x{co})", flush=True)
             rows.append((err, ms, pms, bms, by, lms))
+    return rows
+
+
+def check_shapenet_sites(dev) -> dict:
+    """K1 and K2 against their plain versions at ShapeNet's three 1024 -> 1024
+    sites (``tools.dense_ab.shapenet_sites``) at the trainer's batch: counts
+    bit-equal, bitwise repeat, times, bounds and the GEMM parts' library calls."""
+    from mccnn_tpu_torch.ops.cuda import dense_conv
+    from mccnn_tpu_torch.tools.dense_ab import shapenet_sites, site_inputs
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = {"K1": [], "K2": []}
+    names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    with torch.no_grad():
+        for site in shapenet_sites(TRAIN_B, dev):
+            name, _, _, radius, c, co = site
+            params, smp, qmask, src, smask, wf, dout = site_inputs(site, gen, dev)
+            b, M, Ns = smp.shape[0], smp.shape[1], src.shape[1]
+            fargs = (params, smp, qmask, src, smask, wf, radius, co, False)
+            out, cnt, G = dense_conv._forward_cuda(*fargs)
+            out2, _, G2 = dense_conv._forward_cuda(*fargs)
+            want, wcnt, wG = dense_conv._forward_reference(*fargs)
+            torch.cuda.synchronize()
+            require(bool(torch.equal(cnt, wcnt)), f"K1 neighbour counts differ at {name}")
+            require(bool(torch.equal(out, out2) and torch.equal(G, G2)),
+                    f"K1 differs between two calls at {name}")
+            err, scale = float((out - want).abs().max()), float(want.abs().max())
+            require(bool(torch.allclose(out, want, rtol=CONV_RTOL, atol=CONV_RTOL * scale)),
+                    f"K1 disagrees with its plain version at {name}")
+            valid, inr = pair_counts(smp, qmask, src, smask, radius)
+            nq = int(qmask.sum())
+            R, K = b * M, (H + 1) * c
+            ms = time_ms(lambda: dense_conv._forward_cuda(*fargs))
+            pms = time_ms(lambda: dense_conv._forward_reference(*fargs), iters=5)
+            bms, by = dense_bound(b, M, Ns, c, co, valid, inr, nq, backward=False)
+            Gr = wG.reshape(R, H + 1, c)
+            if co is None:  # depthwise: G's rows against [w2; b2] channel by channel
+                Wd = torch.cat([params.w2, params.b2[None]]).contiguous()
+                lms = time_ms(lambda: torch.einsum("rkc,kc->rc", Gr, Wd))
+                lib_what = f"torch.einsum rkc,kc->rc over {R}x{H + 1}x{c}"
+            else:
+                W, Gf = wcat(params, c, co), wG.reshape(R, K)
+                lms = time_ms(lambda: torch.matmul(Gf, W))
+                lib_what = f"torch.matmul {R}x{K} @ {K}x{co}"
+            print(f"K1 B={b} {name} N={Ns} M={M} C={c} CO={co} pairs={valid} in_radius={inr}: "
+                  f"max_abs_err={err:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
+                  f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) "
+                  f"library_ms={lms:.4f} ({lib_what})", flush=True)
+            rows["K1"].append((err, ms, pms, bms, by, lms))
+
+            bargs = (params, smp, qmask, src, smask, wf, radius, wG, wcnt, dout)
+            got = dense_conv.dense_mc_conv_backward_cuda(*bargs, c_out=co)
+            again = dense_conv.dense_mc_conv_backward_cuda(*bargs, c_out=co)
+            ref = dense_conv.dense_mc_conv_backward_reference(*bargs, c_out=co)
+            torch.cuda.synchronize()
+            berr, parts = 0.0, []
+            for part, a, a2, w in zip(names, got, again, ref):
+                require(bool(torch.equal(a, a2)), f"K2 {part} differs between two calls at {name}")
+                sc, e = float(w.abs().max()), float((a - w).abs().max())
+                berr = max(berr, e)
+                tol = BWD_W1_RTOL if part in ("dw1", "db1") else BWD_RTOL
+                parts.append(f"{part} {e:.3e}/{sc:.3e}")
+                require(bool(torch.allclose(a, w, rtol=tol, atol=tol * sc)),
+                        f"K2 {part} disagrees with its plain version at {name}")
+            ms = time_ms(lambda: dense_conv.dense_mc_conv_backward_cuda(*bargs, c_out=co))
+            pms = time_ms(lambda: dense_conv.dense_mc_conv_backward_reference(*bargs, c_out=co),
+                          iters=3)
+            bms, by = dense_bound(b, M, Ns, c, co, valid, inr, nq, backward=True)
+            t = dout.reshape(R, -1).contiguous()
+            if co is None:
+                lms = time_ms(lambda: (t[:, None, :] * Wd, torch.einsum("rkc,rc->kc", Gr, t)))
+                lib_what = f"t * [w2; b2] and torch.einsum rkc,rc->kc over {R}x{H + 1}x{c}"
+            else:
+                lms = time_ms(lambda: (torch.matmul(t, W.T), torch.matmul(Gf.T, t)))
+                lib_what = f"torch.matmul {R}x{co} @ {co}x{K} and {K}x{R} @ {R}x{co}"
+            print(f"K2 B={b} {name} N={Ns} M={M} C={c} CO={co} pairs={valid} in_radius={inr}: "
+                  f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
+                  f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) "
+                  f"library_ms={lms:.4f} ({lib_what})", flush=True)
+            rows["K2"].append((berr, ms, pms, bms, by, lms))
     return rows
 
 
@@ -3110,6 +3196,7 @@ def main() -> int:
     results = check_kernels(dev, TRAIN_B)
     check_backward(dev, SERVE_B)
     results["K2"] = check_backward(dev, TRAIN_B)
+    shapenet_rows = check_shapenet_sites(dev)
     serve_launches = serve(dev)
     for b in (SERVE_B, TRAIN_B):
         check_train_step(dev, b)
@@ -3275,6 +3362,25 @@ def main() -> int:
             "bound_ms": sum(r[3] for r in rows),
             "bound_by": max(rows, key=lambda r: r[3])[4],
             "library_ms": sum(lib_ms) if lib_ms else None,
+        })
+    for kid, name, source, replaces in (
+            ("K1", "dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
+             "mccnn_tpu/ops/pallas/dense_conv.py:360"),
+            ("K2", "dense_mc_conv_backward", "mccnn_tpu_torch/csrc/dense_conv_bwd.cu",
+             "mccnn_tpu/ops/pallas/dense_conv.py:422")):
+        rows = shapenet_rows[kid]  # ShapeNet's three 1024 -> 1024 sites at the trainer's batch
+        kernels.append({
+            "name": f"{kid} {name} (ShapeNet stem, enc_0_1, dec_1_0)", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": norm_launches["shapenet_train"][kid],
+            "launches_by_path": {"shapenet_train": norm_launches["shapenet_train"][kid]},
+            "batch": TRAIN_B,
+            "max_abs_err": max(r[0] for r in rows),
+            "ms": sum(r[1] for r in rows),
+            "plain_ms": sum(r[2] for r in rows),
+            "bound_ms": sum(r[3] for r in rows),
+            "bound_by": max(rows, key=lambda r: r[3])[4],
+            "library_ms": sum(r[5] for r in rows),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,69 +18,90 @@
 // give every output one writer, all in fp32:
 //
 //   1. dG: a 64x64x16 tiled GEMM (t @ Wcat^T) whose B operand reads W2 and b2
-//      in place; the depthwise form is elementwise.
+//      in place, its reduction over CO split over blocks where the output
+//      tiles alone would not fill the card (the global site: 32 rows). A
+//      depthwise dG is t * [w2; b2], which the pair kernel forms where it
+//      reads it: no dG is stored.
 //   2. dWcat: the same tiled GEMM in its transposed form (G^T t), split over
 //      the rows of the batch (R = B*M up to 16k at conv_0_1) into chunks
 //      whose partial products a third kernel sums in chunk order.
-//   3. the pair kernel: a block owns TJ sources of one cloud and walks all
-//      samples in tiles of TI. Per tile it stages dG and the sample positions
-//      in shared memory and builds the (TI, H+1, TJ) plane of a_h values with
-//      the same expressions as K1's pair kernel (d2 with __fmul_rn/__fadd_rn,
-//      so a pair at the radius boundary is in or out on both passes). Each
-//      thread then accumulates up to four (source, channel) outputs of d_f~,
-//      and, for a fixed h = thread % H, the dpre dot products of its pairs into
-//      four registers (dW1[:, h], db1[h]). The block sums those in thread order
-//      and writes one partial per block; the reduction kernel sums the
-//      partials in block order.
+//   3. the pair kernel (d_f~, dW1, db1), below.
+//
+// What bounds the pair kernel on the H100: only the in-radius pairs of valid
+// points carry work (8 pre-activations, (H+1) FMAs a channel for d_f~, H for
+// dpre) and the dG rows those pairs read; every other pair needs one d2 test
+// on positions (16 bytes a point). A kernel that stages every sample's dG for
+// every source block reads the cloud's dG once a block: 9.4 MB a cloud and
+// 256 blocks a cloud at ShapeNet's dec_1_0 (C = 256). So:
+//
+//   - a block owns a tile of sources of one cloud and sweeps the cloud's
+//     sample positions in staged chunks, building each source's list of
+//     in-radius samples with warp ballots, with their a_h and offsets
+//     (dense_pairs.cuh; the same d2, offsets and a_h as K1's, so a pair at the
+//     radius is in or out on both passes). It reads dG rows only for listed
+//     pairs, from L2, and stages no dG at all. A source tile with no valid
+//     source writes its zero rows of d_f~ and a zero partial and exits;
+//   - a thread holds up to 4 channels of one source: their d_f~ sums and f~
+//     values stay in registers (at C > 64, in passes of 64 channels over at
+//     least 16 sources a block, as K1). Per listed sample it loads the 9 dG
+//     rows of its channels (at a depthwise site it loads t's row and forms
+//     dG = t * [w2; b2] itself, the values a stored dG would hold), adds
+//     sum_h a_h dG to each d_f~ sum in one FMA chain in
+//     increasing i (one writer per (j, c): bit-equal to the all-pairs kernel,
+//     whose skipped terms were exact zeros), and forms this thread's share of
+//     each dot product dG[i,h,:] . f~[j,:] over its channels. It adds that
+//     share times [a_h > 0] (o_x, o_y, o_z, 1) into 32 register sums of dW1 /
+//     db1: the C-long dot products are spread over the threads that hold the
+//     channels, and no thread walks one alone;
+//   - the block sums the 32 values over its threads in a fixed order (warp
+//     shuffles, then warps in order) into one partial; the reduction kernel
+//     sums the partials in block order;
+//   - where the grid would not fill the card (B * tiles < 264) the channels
+//     are split over a third grid dimension, as in K1.
 //
 // No float atomics anywhere: two calls give bit-identical gradients, as the
 // reference's do (tests/test_pallas_mcconv.py:82). The ReLU step is taken as
 // a_h > 0, i.e. pre_h > 0 in fp32, so pre_h == 0 takes the step value 0 as
 // jnp.where(pre > 0, ...) does.
 //
-// What bounds it on the H100: the pair kernel's arithmetic (per pair, 8
-// pre-activations, (H+1)*C FMAs for d_f~ and H*C for dpre) and, at the global
-// site, the bytes of W2 and dW2 (9.4 MB each at C=256, CO=1024). A simple
-// first design: fp32 FMAs from shared memory, no tensor cores.
-//
 // Limits: H == 8 (KERNEL_HIDDEN) and C <= 1024, as K1.
 
-#include "common.cuh"
+#include "dense_pairs.cuh"
 
 namespace {
 
-constexpr int kHidden = 8;  // H, as K1's KERNEL_HIDDEN
-constexpr int kThreads = 256;  // a multiple of kHidden (see the pair kernel)
-constexpr int kOutPerThread = 4;
-constexpr int kMaxOut = kThreads * kOutPerThread;
-constexpr int kTileFloats = 9600;  // the staged dG tile, TI * (H+1) * (C|1) floats
-constexpr int kMaxTI = 16;
-constexpr int kMaxTJ = 64;
+using namespace dense_pairs;
+
+constexpr int kListBudget = 1024;  // list entries a block (52 bytes each)
 
 constexpr int kBM = 64, kBN = 64, kBK = 16;
 
 // dG[r, n] = sum_o t[r, o] * Wcat[n, o]; rows n < KW of Wcat are w2 (KW, CO),
-// the rest b2 (NC - KW, CO).
+// the rest b2 (NC - KW, CO). As K1's projection, the o range is split over
+// gridDim.z where the output tiles would not fill the card (part[z], summed
+// in z order by mcconv_bwd_reduce_kernel).
 __global__ void mcconv_bwd_dg_full_kernel(const float* __restrict__ t,
                                           const float* __restrict__ w2,
                                           const float* __restrict__ b2, int R, int CO,
-                                          int KW, int NC, float* __restrict__ dG) {
+                                          int KW, int NC, int kchunk, float* __restrict__ dG,
+                                          float* __restrict__ part) {
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Bs[kBK][kBN + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int r0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int kb = blockIdx.z * kchunk, ke = min(CO, kb + kchunk);
   float acc[4][4] = {};
-  for (int k0 = 0; k0 < CO; k0 += kBK) {
+  for (int k0 = kb; k0 < ke; k0 += kBK) {
     for (int i = threadIdx.x; i < kBM * kBK; i += blockDim.x) {
       const int rr = i / kBK, kk = i % kBK;
       const int r = r0 + rr, k = k0 + kk;
-      As[kk][rr] = (r < R && k < CO) ? t[(size_t)r * CO + k] : 0.f;
+      As[kk][rr] = (r < R && k < ke) ? t[(size_t)r * CO + k] : 0.f;
     }
     for (int i = threadIdx.x; i < kBN * kBK; i += blockDim.x) {
       const int nn = i / kBK, kk = i % kBK;
       const int n = n0 + nn, k = k0 + kk;
       float w = 0.f;
-      if (n < NC && k < CO)
+      if (n < NC && k < ke)
         w = n < KW ? w2[(size_t)n * CO + k] : b2[(size_t)(n - KW) * CO + k];
       Bs[kk][nn] = w;
     }
@@ -99,6 +120,7 @@ __global__ void mcconv_bwd_dg_full_kernel(const float* __restrict__ t,
     }
     __syncthreads();
   }
+  float* dst = gridDim.z == 1 ? dG : part + (size_t)blockIdx.z * R * NC;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
     const int r = r0 + ty + 16 * u;
@@ -106,7 +128,7 @@ __global__ void mcconv_bwd_dg_full_kernel(const float* __restrict__ t,
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int n = n0 + tx + 16 * v;
-      if (n < NC) dG[(size_t)r * NC + n] = acc[u][v];
+      if (n < NC) dst[(size_t)r * NC + n] = acc[u][v];
     }
   }
 }
@@ -162,21 +184,6 @@ __global__ void mcconv_bwd_dw2_full_kernel(const float* __restrict__ A,
   }
 }
 
-// dG[r, h, c] = t[r, c] * (h < H ? w2[h, c] : b2[c]).
-__global__ void mcconv_bwd_dg_depthwise_kernel(const float* __restrict__ t,
-                                               const float* __restrict__ w2,
-                                               const float* __restrict__ b2, int R, int H,
-                                               int C, float* __restrict__ dG) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)R * (H + 1) * C;
-  if (i >= total) return;
-  const int c = i % C;
-  const int h = (i / C) % (H + 1);
-  const size_t r = i / ((size_t)(H + 1) * C);
-  const float w = h < H ? w2[h * C + c] : b2[c];
-  dG[i] = t[r * C + c] * w;
-}
-
 // part[z, h, c] = sum over rows r of chunk z of G[r, h, c] * t[r, c].
 __global__ void mcconv_bwd_dw2_depthwise_kernel(const float* __restrict__ G,
                                                 const float* __restrict__ t, int R, int H1,
@@ -201,222 +208,269 @@ __global__ void mcconv_bwd_reduce_kernel(const float* __restrict__ part, int Z, 
   out[l] = acc;
 }
 
-template <int H>
-__global__ void mcconv_bwd_pair_kernel(const float* __restrict__ smp,
-                                       const uint8_t* __restrict__ smask,
-                                       const float* __restrict__ src,
-                                       const uint8_t* __restrict__ srcmask,
-                                       const float* __restrict__ wf,
-                                       const float* __restrict__ w1,
-                                       const float* __restrict__ b1,
-                                       const float* __restrict__ dG, int M, int N, int C,
-                                       int TJ, int TI, float r2, float radius,
-                                       float* __restrict__ dwf, float* __restrict__ part) {
-  constexpr int H1 = H + 1;
-  const int Cs = C | 1;  // odd row stride: strided reads across rows hit distinct banks
-  extern __shared__ float sm[];
-  float* sdg = sm;                          // [TI][H1][Cs]
-  float* sfeat = sdg + TI * H1 * Cs;        // [TJ][Cs]
-  float* plane = sfeat + TJ * Cs;           // [TI][H1][TJ]
-  float* spos = plane + TI * H1 * TJ;       // [TJ][4]: x, y, z, |p|^2
-  float* qpos = spos + TJ * 4;              // [TI][4]
-  float* sw1 = qpos + TI * 4;               // [3][H]
-  float* sb1 = sw1 + 3 * H;                 // [H]
-  float* sred = sb1 + H;                    // [blockDim][4]
-  uint8_t* svalid = reinterpret_cast<uint8_t*>(sred + 4 * blockDim.x);  // [TJ]
-  uint8_t* qvalid = svalid + TJ;                                        // [TI]
+// kDepthwise: dG is not formed; `dG` points at t (B, M, C) and each dG value
+// is formed where it is read, t[i,c] * (h < H ? w2[h,c] : b2[c]), the
+// product the elementwise dG kernel would have stored.
+template <bool kDepthwise>
+__global__ void __launch_bounds__(kThreads, 2)
+    mcconv_bwd_pair_kernel(const float* __restrict__ smp, const uint8_t* __restrict__ smask,
+                           const float* __restrict__ src, const uint8_t* __restrict__ srcmask,
+                           const float* __restrict__ wf, const float* __restrict__ w1,
+                           const float* __restrict__ b1, const float* __restrict__ w2,
+                           const float* __restrict__ b2, const float* __restrict__ dG, int M,
+                           int N, int C, int TJ, int TPS, int passes, int chunk, int cap,
+                           float r2,
+                           float radius, float* __restrict__ dwf, float* __restrict__ part) {
+  constexpr int H = kHidden, H1 = kHidden + 1;
+  extern __shared__ float4 sm4[];
+  float4* opos = sm4;           // [chunk] samples
+  float4* jpos = opos + chunk;  // [TJ] sources
+  Lists L;
+  L.cap = cap;
+  L.ostride = cap + 1;
+  L.astride = 8 * cap + 4;
+  L.istride = cap + 1;
+  L.off = jpos + TJ;                                              // [TJ][ostride]
+  L.act = reinterpret_cast<float*>(L.off + (size_t)TJ * L.ostride);  // [TJ][astride]
+  L.idx = reinterpret_cast<int*>(L.act + (size_t)TJ * L.astride);  // [TJ][istride]
+  unsigned* ogrp = reinterpret_cast<unsigned*>(L.idx + TJ * L.istride);  // [chunk / 32]
+  L.resume = reinterpret_cast<int*>(ogrp + chunk / 32);
+  L.len = L.resume + TJ;
+  L.count = L.len + TJ;
+  int* jvalid = L.count + TJ;
+  float* sw1 = reinterpret_cast<float*>(jvalid + TJ);  // [3][H]
+  float* sb1 = sw1 + 3 * H;                            // [H]
+  float* red = sb1 + H;                                // [warps][4 * H]
 
   const int b = blockIdx.y;
   const int j0 = blockIdx.x * TJ;
   const int nj = min(TJ, N - j0);
-  const int nout = TJ * C;
+  const int CS = kCpt * TPS;
 
   for (int t = threadIdx.x; t < TJ; t += blockDim.x) {
     float x = 0.f, y = 0.f, z = 0.f;
-    uint8_t v = 0;
+    int v = 0;
     if (t < nj) {
-      const float* p = src + ((size_t)b * N + j0 + t) * 3;
-      x = p[0];
-      y = p[1];
-      z = p[2];
-      v = srcmask[(size_t)b * N + j0 + t];
+      const size_t k = (size_t)b * N + j0 + t;
+      x = src[3 * k];
+      y = src[3 * k + 1];
+      z = src[3 * k + 2];
+      v = srcmask[k] != 0;
     }
-    spos[4 * t] = x;
-    spos[4 * t + 1] = y;
-    spos[4 * t + 2] = z;
-    spos[4 * t + 3] = sq_norm_rn(x, y, z);
-    svalid[t] = v;
-  }
-  for (int t = threadIdx.x; t < nout; t += blockDim.x) {
-    const int j = t / C, c = t % C;
-    sfeat[j * Cs + c] = j < nj ? wf[((size_t)b * N + j0 + j) * C + c] : 0.f;
+    jpos[t] = make_float4(x, y, z, sq_norm_rn(x, y, z));
+    jvalid[t] = v;
+    L.count[t] = 0;
   }
   for (int t = threadIdx.x; t < 3 * H; t += blockDim.x) sw1[t] = w1[t];
   for (int t = threadIdx.x; t < H; t += blockDim.x) sb1[t] = b1[t];
 
-  float acc[kOutPerThread];
+  // This thread's outputs in a pass: source s, channels c0 + cl + k * TPS.
+  const int s = threadIdx.x / TPS, cl = threadIdx.x % TPS;
+  const bool owner = s < nj;
+  float gw[4][H];  // this thread's share of dW1[0..2][h] and db1[h], over every pass
 #pragma unroll
-  for (int k = 0; k < kOutPerThread; ++k) acc[k] = 0.f;
-  // blockDim is a multiple of H, so this thread's items all share h = tid % H.
-  float gx = 0.f, gy = 0.f, gz = 0.f, gb = 0.f;
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int h = 0; h < H; ++h) gw[k][h] = 0.f;
+  const bool any = __syncthreads_or(threadIdx.x < nj && srcmask[(size_t)b * N + j0 + threadIdx.x]);
+  bool reuse = false;  // the lists hold every in-radius pair of the tile
+  for (int pass = 0; pass < passes; ++pass) {
+    const int c0 = (blockIdx.z * passes + pass) * CS, cend = min(C, c0 + CS);
+    int ch[kCpt];
+    bool cv[kCpt];
+    float f[kCpt], acc[kCpt];
+#pragma unroll
+    for (int k = 0; k < kCpt; ++k) {
+      ch[k] = c0 + cl + k * TPS;
+      cv[k] = owner && ch[k] < cend;
+      f[k] = cv[k] ? wf[((size_t)b * N + j0 + s) * C + ch[k]] : 0.f;
+      acc[k] = 0.f;
+    }
 
-  for (int i0 = 0; i0 < M; i0 += TI) {
-    const int ni = min(TI, M - i0);
-    __syncthreads();  // the previous tile is consumed (and the prologue stored)
-    for (int t = threadIdx.x; t < TI; t += blockDim.x) {
-      float x = 0.f, y = 0.f, z = 0.f;
-      uint8_t v = 0;
-      if (t < ni) {
-        const float* q = smp + ((size_t)b * M + i0 + t) * 3;
-        x = q[0];
-        y = q[1];
-        z = q[2];
-        v = smask[(size_t)b * M + i0 + t];
-      }
-      qpos[4 * t] = x;
-      qpos[4 * t + 1] = y;
-      qpos[4 * t + 2] = z;
-      qpos[4 * t + 3] = sq_norm_rn(x, y, z);
-      qvalid[t] = v;
-    }
-    const float* gtile = dG + ((size_t)b * M + i0) * H1 * C;
-    for (int t = threadIdx.x; t < ni * H1 * C; t += blockDim.x) {
-      const int row = t / C, c = t % C;  // row = i * H1 + h
-      sdg[row * Cs + c] = gtile[t];
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < ni * TJ; t += blockDim.x) {
-      const int i = t / TJ, j = t % TJ;
-      const float px = spos[4 * j], py = spos[4 * j + 1], pz = spos[4 * j + 2];
-      const float qx = qpos[4 * i], qy = qpos[4 * i + 1], qz = qpos[4 * i + 2];
-      const float d2 = pair_d2_rn(qx, qy, qz, qpos[4 * i + 3], px, py, pz, spos[4 * j + 3]);
-      const bool in = qvalid[i] && svalid[j] && d2 <= r2;
-      // the offsets and pre-activations exactly as K1's pair kernel forms them
-      const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
-                  oz = mc_offset(pz, qz, radius);
-      float* pl = plane + (size_t)i * H1 * TJ + j;
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float pre = mc_preact(ox, oy, oz, sw1, sb1, H, h);
-        pl[h * TJ] = in ? fmaxf(pre, 0.f) : 0.f;
-      }
-      pl[H * TJ] = in ? 1.f : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kOutPerThread; ++k) {
-      const int q = threadIdx.x + k * blockDim.x;
-      if (q < nout) {
-        const int j = q / C, c = q % C;
-        float s = acc[k];
-        for (int i = 0; i < ni; ++i) {
-          const float* pl = plane + (size_t)i * H1 * TJ + j;
-          const float* g = sdg + (size_t)i * H1 * Cs + c;
-#pragma unroll
-          for (int h = 0; h < H1; ++h) s += pl[h * TJ] * g[h * Cs];
+    if (any) {  // else a tile of padding: zero rows, a zero partial
+      int rounds = 0;
+      for (int o0 = 0; o0 < M; o0 += chunk) {
+        const int n = min(chunk, M - o0);
+        if (!reuse) {
+          __syncthreads();  // the previous chunk's lists are consumed
+          stage_others(smp, smask, b, M, o0, n, opos, ogrp);
+          for (int t = threadIdx.x; t < TJ; t += blockDim.x) L.resume[t] = 0;
+          __syncthreads();
         }
-        acc[k] = s;
-      }
-    }
-    const int items = ni * TJ * H;
-    for (int q = threadIdx.x; q < items; q += blockDim.x) {
-      const int h = q % H, p = q / H;
-      const int i = p / TJ, j = p % TJ;
-      if (plane[((size_t)i * H1 + h) * TJ + j] > 0.f) {
-        const float* g = sdg + ((size_t)i * H1 + h) * Cs;
-        const float* f = sfeat + (size_t)j * Cs;
-        float d = 0.f;
-        for (int c = 0; c < C; ++c) d += g[c] * f[c];
-        gx += d * mc_offset(spos[4 * j], qpos[4 * i], radius);
-        gy += d * mc_offset(spos[4 * j + 1], qpos[4 * i + 1], radius);
-        gz += d * mc_offset(spos[4 * j + 2], qpos[4 * i + 2], radius);
-        gb += d;
-      }
-    }
-  }
+        bool more = false;
+        do {
+          if (!reuse)
+            more = __syncthreads_or(sweep_round<false>(jpos, jvalid, nj, opos, ogrp,
+                                                       (n + 31) >> 5, o0, sw1, sb1, r2, radius,
+                                                       L));
+          // This thread's source's listed samples, in increasing i: d_f~ into
+          // acc, this thread's share of dW1 / db1 into gw.
+          if (owner) {
+            const int ne = L.len[s];
+            const int* li = L.idx + s * L.istride;
+            const float* la = L.act + (size_t)s * L.astride;
+            const float4* lo = L.off + s * L.ostride;
+            for (int e = 0; e < ne; ++e) {
+              const float4 a0 = *reinterpret_cast<const float4*>(la + 8 * e);
+              const float4 a1 = *reinterpret_cast<const float4*>(la + 8 * e + 4);
+              const float a[H] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+              float gv[kCpt][H1];
+              if constexpr (kDepthwise) {
+                const float* trow = dG + ((size_t)b * M + li[e]) * C;
 #pragma unroll
-  for (int k = 0; k < kOutPerThread; ++k) {
-    const int q = threadIdx.x + k * blockDim.x;
-    if (q < nout) {
-      const int j = q / C, c = q % C;
-      if (j < nj) dwf[((size_t)b * N + j0 + j) * C + c] = acc[k];
+                for (int k = 0; k < kCpt; ++k) {
+                  const float tv = cv[k] ? __ldg(trow + ch[k]) : 0.f;
+#pragma unroll
+                  for (int h = 0; h < H; ++h)
+                    gv[k][h] = cv[k] ? __fmul_rn(tv, __ldg(w2 + h * C + ch[k])) : 0.f;
+                  gv[k][H] = cv[k] ? __fmul_rn(tv, __ldg(b2 + ch[k])) : 0.f;
+                }
+              } else {
+                const float* g = dG + ((size_t)b * M + li[e]) * H1 * C;
+#pragma unroll
+                for (int k = 0; k < kCpt; ++k)
+#pragma unroll
+                  for (int h = 0; h < H1; ++h)
+                    gv[k][h] = cv[k] ? __ldg(g + (size_t)h * C + ch[k]) : 0.f;
+              }
+              float d[H];
+#pragma unroll
+              for (int h = 0; h < H; ++h) d[h] = 0.f;
+#pragma unroll
+              for (int k = 0; k < kCpt; ++k) {
+#pragma unroll
+                for (int h = 0; h < H; ++h) {
+                  acc[k] = __fmaf_rn(a[h], gv[k][h], acc[k]);
+                  d[h] = __fmaf_rn(gv[k][h], f[k], d[h]);
+                }
+                acc[k] = __fadd_rn(acc[k], gv[k][H]);  // a_H = 1
+              }
+              const float4 o = lo[e];
+#pragma unroll
+              for (int h = 0; h < H; ++h) {
+                const float dh = a[h] > 0.f ? d[h] : 0.f;
+                gw[0][h] = __fmaf_rn(dh, o.x, gw[0][h]);
+                gw[1][h] = __fmaf_rn(dh, o.y, gw[1][h]);
+                gw[2][h] = __fmaf_rn(dh, o.z, gw[2][h]);
+                gw[3][h] = __fadd_rn(gw[3][h], dh);
+              }
+            }
+          }
+          if (!reuse) __syncthreads();  // the lists are consumed before the next round
+          ++rounds;
+        } while (more);
+      }
+      reuse = rounds == 1;  // one chunk, one round: the next pass walks these lists
     }
+#pragma unroll
+    for (int k = 0; k < kCpt; ++k)
+      if (cv[k]) dwf[((size_t)b * N + j0 + s) * C + ch[k]] = acc[k];
   }
-  float* red = sred + 4 * threadIdx.x;
-  red[0] = gx;
-  red[1] = gy;
-  red[2] = gz;
-  red[3] = gb;
+
+  // One partial of dW1 / db1 a block: warp trees, then the warps in order.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float v = gw[k][h];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+      if (lane == 0) red[warp * 4 * H + k * H + h] = v;
+    }
   __syncthreads();
   if (threadIdx.x < 4 * H) {
-    const int k = threadIdx.x / H, h = threadIdx.x % H;
-    float s = 0.f;
-    for (int t = h; t < (int)blockDim.x; t += H) s += sred[4 * t + k];
-    part[((size_t)b * gridDim.x + blockIdx.x) * 4 * H + k * H + h] = s;
+    float v = 0.f;
+    for (int w = 0; w < nw; ++w) v += red[w * 4 * H + threadIdx.x];
+    const size_t blk = ((size_t)b * gridDim.x + blockIdx.x) * gridDim.z + blockIdx.z;
+    part[blk * 4 * H + threadIdx.x] = v;
   }
 }
 
-int pair_tiles(int C, int M, int* TJ, int* TI) {
-  const int Cs = C | 1;
-  int tj = kMaxOut / C;
-  if (tj > kMaxTJ) tj = kMaxTJ;
-  int ti = kTileFloats / ((kHidden + 1) * Cs);
-  if (ti > kMaxTI) ti = kMaxTI;
-  if (ti > M) ti = M;
-  if (tj < 1 || ti < 1) return 0;
-  *TJ = tj;
-  *TI = ti;
-  return 1;
+Plan bwd_plan(int B, int N, int M, int C) {
+  return make_plan(B, N, M, C, false, kListBudget, 32);
 }
 
-size_t pair_smem(int C, int TJ, int TI, int H) {
-  const int Cs = C | 1;
-  return sizeof(float) * ((size_t)TI * (H + 1) * Cs + (size_t)TJ * Cs +
-                          (size_t)TI * (H + 1) * TJ + TJ * 4 + TI * 4 + 3 * H + H +
-                          4 * kThreads) +
-         TJ + TI;
+size_t pair_smem(const Plan& p) {
+  const size_t TJ = p.owners, cap = p.cap;
+  return sizeof(float4) * ((size_t)p.chunk + TJ + TJ * (cap + 1)) +
+         sizeof(float) * TJ * (8 * cap + 4) + sizeof(int) * TJ * (cap + 1) +
+         sizeof(unsigned) * (p.chunk / 32) + sizeof(int) * 4 * TJ +
+         sizeof(float) * (4 * kHidden + (p.threads / 32) * 4 * kHidden);
 }
 
 }  // namespace
 
-// Number of source blocks per cloud of the pair kernel (the caller sizes the
-// partial buffer as B * blocks * 4 * H floats), or 0 if the shape is refused.
-extern "C" int mcconv_bwd_pair_blocks(int N, int M, int C) {
-  int TJ, TI;
-  if (C < 1 || C > kMaxOut || N < 1 || M < 1 || !pair_tiles(C, M, &TJ, &TI)) return 0;
-  return (N + TJ - 1) / TJ;
+// Partial rows of dW1 / db1 the pair kernel writes for a batch (the caller
+// sizes the buffer as that many times 4 * H floats), or 0 if the shape is
+// refused.
+extern "C" int mcconv_bwd_pair_blocks(int B, int N, int M, int C) {
+  if (B < 1 || C < 1 || C > kMaxC || N < 1 || M < 1) return 0;
+  const Plan p = bwd_plan(B, N, M, C);
+  return B * p.tiles * p.slices;
 }
 
-extern "C" int mcconv_bwd_pair_launch(const void* smp, const void* smask, const void* src,
-                                      const void* srcmask, const void* wf, const void* w1,
-                                      const void* b1, const void* dG, int B, int M, int N,
-                                      int C, int H, float r2, float radius, void* dwf,
-                                      void* part, void* stream) {
-  int TJ, TI;
-  if (H != kHidden || C < 1 || C > kMaxOut || M < 1 || N < 1 || B < 1 ||
-      !pair_tiles(C, M, &TJ, &TI))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pair_smem(C, TJ, TI, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      mcconv_bwd_pair_kernel<kHidden>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool kDepthwise>
+int launch_bwd_pair(const Plan& p, cudaStream_t stream, const void* smp, const void* smask,
+                    const void* src, const void* srcmask, const void* wf, const void* w1,
+                    const void* b1, const void* w2, const void* b2, const void* dG, int B,
+                    int M, int N, int C, float r2, float radius, void* dwf, void* part) {
+  const size_t smem = pair_smem(p);
+  cudaError_t err = cudaFuncSetAttribute(mcconv_bwd_pair_kernel<kDepthwise>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + TJ - 1) / TJ, B);
-  mcconv_bwd_pair_kernel<kHidden><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(p.tiles, B, p.slices);
+  mcconv_bwd_pair_kernel<kDepthwise><<<grid, p.threads, smem, stream>>>(
       static_cast<const float*>(smp), static_cast<const uint8_t*>(smask),
       static_cast<const float*>(src), static_cast<const uint8_t*>(srcmask),
       static_cast<const float*>(wf), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(dG), M, N, C, TJ, TI, r2,
-      radius, static_cast<float*>(dwf), static_cast<float*>(part));
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(dG), M, N, C, p.owners, p.tps,
+      p.passes, p.chunk, p.cap, r2, radius, static_cast<float*>(dwf), static_cast<float*>(part));
   MCCNN_LAUNCH_RETURN();
 }
 
+// With depthwise, dG is t (B, M, C) and the kernel forms dG's values from w2
+// (H, C) and b2 (C); else dG is (B, M, H+1, C) and w2 / b2 are not read.
+extern "C" int mcconv_bwd_pair_launch(const void* smp, const void* smask, const void* src,
+                                      const void* srcmask, const void* wf, const void* w1,
+                                      const void* b1, const void* w2, const void* b2,
+                                      const void* dG, int B, int M, int N, int C, int H,
+                                      int depthwise, float r2, float radius, void* dwf,
+                                      void* part, void* stream) {
+  if (H != kHidden || C < 1 || C > kMaxC || M < 1 || N < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = bwd_plan(B, N, M, C);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return depthwise ? launch_bwd_pair<true>(p, st, smp, smask, src, srcmask, wf, w1, b1, w2, b2,
+                                           dG, B, M, N, C, r2, radius, dwf, part)
+                   : launch_bwd_pair<false>(p, st, smp, smask, src, srcmask, wf, w1, b1, w2,
+                                            b2, dG, B, M, N, C, r2, radius, dwf, part);
+}
+
+// Splits of the dG GEMM's o range for an R x NC output over CO (the caller
+// sizes the partials as splits * R * NC floats where splits > 1).
+extern "C" int mcconv_bwd_dg_splits(int R, int CO, int NC) {
+  int kchunk;
+  return split_k(div_up(NC, kBN) * div_up(R, kBM), CO, &kchunk);
+}
+
 extern "C" int mcconv_bwd_dg_full_launch(const void* t, const void* w2, const void* b2,
-                                         int R, int CO, int KW, int NC, void* dG,
+                                         int R, int CO, int KW, int NC, void* part, void* dG,
                                          void* stream) {
-  dim3 grid((NC + kBN - 1) / kBN, (R + kBM - 1) / kBM);
-  mcconv_bwd_dg_full_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int kchunk;
+  const int splits = split_k(div_up(NC, kBN) * div_up(R, kBM), CO, &kchunk);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(div_up(NC, kBN), div_up(R, kBM), splits);
+  mcconv_bwd_dg_full_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(t), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), R, CO, KW, NC, static_cast<float*>(dG));
+      static_cast<const float*>(b2), R, CO, KW, NC, kchunk, static_cast<float*>(dG),
+      static_cast<float*>(part));
+  if (splits > 1) {
+    const size_t L = (size_t)R * NC;
+    mcconv_bwd_reduce_kernel<<<(unsigned)((L + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        static_cast<const float*>(part), splits, (int)L, static_cast<float*>(dG));
+  }
   MCCNN_LAUNCH_RETURN();
 }
 
@@ -427,16 +481,6 @@ extern "C" int mcconv_bwd_dw2_full_launch(const void* G, const void* t, int R, i
   mcconv_bwd_dw2_full_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(G), static_cast<const float*>(t), R, MA, CO, rchunk,
       static_cast<float*>(part));
-  MCCNN_LAUNCH_RETURN();
-}
-
-extern "C" int mcconv_bwd_dg_depthwise_launch(const void* t, const void* w2, const void* b2,
-                                              int R, int H, int C, void* dG, void* stream) {
-  const size_t total = (size_t)R * (H + 1) * C;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  mcconv_bwd_dg_depthwise_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(t), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), R, H, C, static_cast<float*>(dG));
   MCCNN_LAUNCH_RETURN();
 }
 

@@ -1,0 +1,219 @@
+// The in-radius pair lists of the dense MC conv's pair kernels, K1
+// (dense_conv.cu) and K2 (dense_conv_bwd.cu).
+//
+// A block owns a few points of one cloud (K1: samples, K2: sources) and
+// sweeps the other side of the pair (K1: sources, K2: samples) in chunks
+// staged in shared memory. The sweep tests every pair with the exact d2 of
+// `pair_d2_rn` and the two masks, nothing more. A warp takes one owner at a
+// time and 32 others at a time: `__ballot_sync` marks the in-radius others
+// and a prefix `__popc` gives each hit its slot in the owner's list. So a
+// list holds the owner's in-radius others in increasing index, and only
+// those pairs ever cost more than a distance test. A group of 32 others with
+// no valid point is skipped on its validity bits alone. Once an owner's list
+// for the round is complete, the warp forms the listed pairs' offsets and 8
+// activations a_h = relu(pre_h), one entry a lane: no lane waits on another
+// lane's hit, and dense lists keep every lane busy.
+//
+// A list holds `cap` entries (cap >= 32). A warp stops an owner's sweep
+// before a group whose hits would not fit, and resumes there in the next
+// round: a round is one sweep of every owner, a barrier, the kernel's
+// contraction over the lists, a barrier. The contraction keeps its sums in registers across rounds, so
+// every output still adds its terms in increasing index, whatever `cap` is.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace dense_pairs {
+
+constexpr int kHidden = 8;        // H, the kernel MLP's hidden width (KERNEL_HIDDEN)
+constexpr int kThreads = 256;     // the largest block
+constexpr int kChunk = 1024;      // others staged per chunk
+constexpr int kMaxOwners = 32;    // owners per block
+constexpr int kFillBlocks = 264;  // two blocks per SM of an H100: below it, split channels
+constexpr unsigned kFull = 0xffffffffu;
+
+// The others [o0, o0 + n) of cloud b (N of them a cloud) into opos as (x, y,
+// z, |p|^2), and one validity word per group of 32 into ogrp. blockDim is a
+// multiple of 32, so each warp's lanes fall in one group.
+__device__ __forceinline__ void stage_others(const float* __restrict__ pts,
+                                             const uint8_t* __restrict__ mask, int b, int N,
+                                             int o0, int n, float4* opos, unsigned* ogrp) {
+  const int npad = (n + 31) & ~31;
+  for (int t = threadIdx.x; t < npad; t += blockDim.x) {
+    bool v = false;
+    if (t < n) {
+      const size_t k = (size_t)b * N + o0 + t;
+      const float x = pts[3 * k], y = pts[3 * k + 1], z = pts[3 * k + 2];
+      opos[t] = make_float4(x, y, z, sq_norm_rn(x, y, z));
+      v = mask[k] != 0;
+    }
+    const unsigned bal = __ballot_sync(kFull, v);
+    if ((threadIdx.x & 31) == 0) ogrp[t >> 5] = bal;
+  }
+}
+
+// The pair lists of one block. Entry e of owner s: the other's index in its
+// cloud at idx[s * istride + e], a_0..a_7 at act[s * astride + 8 e], and
+// (with offsets) o_x, o_y, o_z at off[s * ostride + e]. The strides are padded
+// so that the owners a warp reads at once fall in different banks.
+struct Lists {
+  int* idx;
+  float* act;
+  float4* off;
+  int istride, astride, ostride, cap;
+  int* resume;  // [owner]: the first group of the chunk not yet swept
+  int* len;     // [owner]: this round's entries
+  int* count;   // [owner]: in-radius pairs so far
+};
+
+// The in-radius test of owner q against lane's other of a group with
+// validity word vm (sample first in d2, as every kernel orders it).
+template <bool kOwnerIsSample>
+__device__ __forceinline__ bool in_radius(float4 q, const float4* opos, unsigned vm, int t,
+                                          int lane, float r2) {
+  if (!((vm >> lane) & 1u)) return false;
+  const float4 p = opos[t];
+  const float d2 = kOwnerIsSample ? pair_d2_rn(q.x, q.y, q.z, q.w, p.x, p.y, p.z, p.w)
+                                  : pair_d2_rn(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w);
+  return d2 <= r2;
+}
+
+// One round of the sweep over a staged chunk (`ngroups` groups of 32, the
+// chunk's first other at index o0 of its cloud): warp w takes owners w, w +
+// nwarps, ... . Owners are (x, y, z, |p|^2) with a validity flag; an invalid
+// owner lists nothing. kOwnerIsSample: K1's lists (owner = sample); else
+// K2's (owner = source, with the offsets). Two groups are tested at a time
+// (two independent d2 chains a lane) and their hits appended in order; once
+// an owner's list for the round is complete, the warp's lanes form its
+// entries' offsets and 8 activations a_h = relu(pre_h), one entry a lane,
+// from the staged owner and chunk (`mc_offset` / `mc_preact`, bit for bit as
+// every other kernel forms them). Returns true where an owner stopped before
+// the chunk's end.
+template <bool kOwnerIsSample>
+__device__ __forceinline__ bool sweep_round(const float4* own, const int* own_valid,
+                                            int n_owner, const float4* opos,
+                                            const unsigned* ogrp, int ngroups, int o0,
+                                            const float* w1, const float* b1, float r2,
+                                            float radius, Lists L) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  bool more = false;
+  for (int s = threadIdx.x >> 5; s < n_owner; s += nw) {
+    const float4 q = own[s];
+    int* idx = L.idx + s * L.istride;
+    int g = own_valid[s] ? L.resume[s] : ngroups;
+    int len = 0;
+    while (g < ngroups) {
+      const unsigned vm0 = ogrp[g], vm1 = g + 1 < ngroups ? ogrp[g + 1] : 0u;
+      if ((vm0 | vm1) == 0u) {  // two groups of padding: no valid other
+        g += 2;
+        continue;
+      }
+      const int t0 = (g << 5) + lane, t1 = t0 + 32;
+      const bool in0 = in_radius<kOwnerIsSample>(q, opos, vm0, t0, lane, r2);
+      const bool in1 = in_radius<kOwnerIsSample>(q, opos, vm1, t1, lane, r2);
+      const unsigned bal0 = __ballot_sync(kFull, in0), bal1 = __ballot_sync(kFull, in1);
+      const int n0 = __popc(bal0), n1 = __popc(bal1);
+      if (len + n0 > L.cap) break;  // resumes at group g next round
+      if (in0) idx[len + __popc(bal0 & below)] = o0 + t0;
+      len += n0;
+      if (len + n1 > L.cap) {  // resumes at group g + 1
+        ++g;
+        break;
+      }
+      if (in1) idx[len + __popc(bal1 & below)] = o0 + t1;
+      len += n1;
+      g += 2;
+    }
+    if (g > ngroups) g = ngroups;
+    __syncwarp();  // the list's indices are visible to every lane
+    for (int e = lane; e < len; e += 32) {
+      const float4 p = opos[idx[e] - o0];
+      const float4 src = kOwnerIsSample ? p : q, smp = kOwnerIsSample ? q : p;
+      const float ox = mc_offset(src.x, smp.x, radius), oy = mc_offset(src.y, smp.y, radius),
+                  oz = mc_offset(src.z, smp.z, radius);
+      float a[kHidden];
+#pragma unroll
+      for (int h = 0; h < kHidden; ++h)
+        a[h] = fmaxf(mc_preact(ox, oy, oz, w1, b1, kHidden, h), 0.f);
+      float4* dst = reinterpret_cast<float4*>(L.act + (size_t)s * L.astride + 8 * e);
+      dst[0] = make_float4(a[0], a[1], a[2], a[3]);
+      dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+      if constexpr (!kOwnerIsSample) L.off[s * L.ostride + e] = make_float4(ox, oy, oz, 0.f);
+    }
+    if (lane == 0) {
+      L.resume[s] = g;
+      L.len[s] = len;
+      L.count[s] += len;
+    }
+    more |= g < ngroups;
+  }
+  return more;
+}
+
+// A kernel's block shape, chosen on the host. `owners` points a block; `hg`
+// thread groups an owner's (H+1) rows are split into (K1 at C <= 4: one row
+// a thread); `tps` threads per owner and row group, each holding kCpt
+// channels strided by tps, so a pass covers 4 * tps channels; `passes` such
+// runs of channels a block, in turn; `slices` blocks share an owner tile's
+// channels (one more grid dimension, where the owner tiles alone would not
+// fill the card); `cap` entries a list; `chunk` others staged at once.
+constexpr int kCpt = 4;
+constexpr int kMaxC = kThreads * kCpt;  // the kernels' channel limit (the wrappers' MAX_C)
+constexpr int kMinOwners = 16;  // wide C takes passes rather than fewer owners a block
+
+struct Plan {
+  int owners, hg, tps, passes, slices, cap, chunk, threads, tiles;
+};
+
+inline int div_up(int a, int b) { return (a + b - 1) / b; }
+
+// n_owner points a cloud own, n_other are swept; budget = list entries a block.
+inline Plan make_plan(int B, int n_owner, int n_other, int C, bool rows_split, int budget,
+                      int min_cap) {
+  Plan p;
+  p.hg = rows_split ? kHidden + 1 : 1;
+  const int groups = rows_split ? 1 : div_up(C, kCpt);  // runs of 4 channels
+  int owners = kThreads / (p.hg * groups);
+  if (owners < kMinOwners && !rows_split) owners = kMinOwners;
+  if (owners < 1) owners = 1;
+  if (owners > kMaxOwners) owners = kMaxOwners;
+  if (owners > n_owner) owners = n_owner;
+  p.owners = owners;
+  p.tiles = div_up(n_owner, owners);
+  p.slices = 1;
+  if (B * p.tiles < kFillBlocks && groups > 1) {
+    p.slices = div_up(kFillBlocks, B * p.tiles);
+    if (p.slices > groups) p.slices = groups;
+  }
+  const int per_block = div_up(groups, p.slices);
+  p.slices = div_up(groups, per_block);
+  p.tps = per_block < kThreads / (owners * p.hg) ? per_block : kThreads / (owners * p.hg);
+  p.passes = div_up(per_block, p.tps);
+  p.slices = div_up(groups, p.passes * p.tps);  // a block covers passes * tps runs
+  p.threads = kThreads;  // every warp sweeps; the first owners * hg * tps threads contract
+  int cap = budget / owners;
+  if (cap < min_cap) cap = min_cap;
+  if (cap > 256) cap = 256;
+  p.cap = cap;
+  p.chunk = (n_other < kChunk ? (n_other + 31) / 32 * 32 : kChunk);
+  return p;
+}
+
+// The k split of a tiled GEMM whose output tiles make `blocks` blocks:
+// one split where they fill the card's 132 SMs, else enough splits to reach
+// kFillBlocks, each at least 64 of K, in chunks of 16 (*kchunk).
+inline int split_k(int blocks, int K, int* kchunk) {
+  int s = 1;
+  if (blocks < 132) {
+    s = div_up(kFillBlocks, blocks);
+    const int most = K / 64;
+    if (s > most) s = most;
+    if (s < 1) s = 1;
+  }
+  *kchunk = div_up(div_up(K, s), 16) * 16;
+  return div_up(K, *kchunk);
+}
+
+}  // namespace dense_pairs

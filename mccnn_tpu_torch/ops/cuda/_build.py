@@ -50,13 +50,14 @@ SIGNATURES = {
     "poisson_sweep_v4_launch": [P, P, P, P, I, I, I, F, P, P],
     "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
     "mcconv_planes_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
-    "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P],
+    "mcconv_project_splits": [I, I, I],
+    "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P, P],
     "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],
-    "mcconv_bwd_pair_blocks": [I, I, I],
-    "mcconv_bwd_pair_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
-    "mcconv_bwd_dg_full_launch": [P, P, P, I, I, I, I, P, P],
+    "mcconv_bwd_pair_blocks": [I, I, I, I],
+    "mcconv_bwd_pair_launch": [P] * 10 + [I] * 6 + [F, F] + [P] * 3,
+    "mcconv_bwd_dg_splits": [I, I, I],
+    "mcconv_bwd_dg_full_launch": [P, P, P, I, I, I, I, P, P, P],
     "mcconv_bwd_dw2_full_launch": [P, P, I, I, I, I, I, P, P],
-    "mcconv_bwd_dg_depthwise_launch": [P, P, P, I, I, I, P, P],
     "mcconv_bwd_dw2_depthwise_launch": [P, P, I, I, I, I, I, P, P],
     "mcconv_bwd_reduce_launch": [P, I, I, P, P],
     "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,

@@ -14,8 +14,14 @@ features before its one wide MXU product, K1 contracts over the neighbours
 first (the bilinear factorisation of ``mccnn_tpu/core/mcconv.py:98-126``): a
 pair kernel forms ``G[b,i,h,c] = sum_j a_h(i,j) f~[b,j,c]`` and a projection
 kernel applies (W2, b2). The forward keeps G for the backward, whose GEMM
-parts (dG, dW2) and pair parts (d_f~, dW1, db1) split the same way (see the
-sources' headers). Everything is fp32.
+parts (dG, dW2) and pair parts (d_f~, dW1, db1) split the same way. Both pair
+kernels test every pair's d2 and form planes and FMAs only for the in-radius
+pairs of valid points: a block sweeps the other side of the pair and builds,
+per owned point, the list of its in-radius partners with warp ballots
+(``csrc/dense_pairs.cuh``); K2 reads dG rows only for listed pairs. Every
+output keeps one writer and adds its terms in increasing index, so G and
+d_f~ are what the all-pairs kernels gave, bit for bit (see the sources'
+headers). Everything is fp32.
 
 K1v1 and K2v1 replace the reference's per-h variant of the same pair,
 ``_fwd_kernel`` (``:99``, called at ``:584``) and ``_bwd_kernel`` (``:129``,
@@ -59,7 +65,7 @@ from ...core.grid import pair_d2, radius_sq
 from ...core.mcconv import MCConvParams
 from . import _build
 
-MAX_C = 1024  # the pair kernels keep TS * C <= 1024 outputs per block
+MAX_C = 1024  # the pair kernels hold C in 256 threads of 4 channels
 HIDDEN = 8  # the pair kernels' accumulators are unrolled for H = 8
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
 
@@ -251,11 +257,12 @@ def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, 
             f"{name} is built for H={HIDDEN} and C<={MAX_C}; got H={H}, C={C}"
         )
     dev = sample_pts.device
-    out = torch.zeros((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((B, M), dtype=torch.float32, device=dev)
+    new = torch.zeros if B * M == 0 or N == 0 else torch.empty  # the kernels write every value
+    out = new((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
+    cnt = new((B, M), dtype=torch.float32, device=dev)
+    G = new((B, M, H + 1, C), dtype=torch.float32, device=dev)
     if B * M == 0 or N == 0:
-        return out, cnt, torch.zeros((B, M, H + 1, C), dtype=torch.float32, device=dev)
-    G = torch.empty((B, M, H + 1, C), dtype=torch.float32, device=dev)
+        return out, cnt, G
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
     pair_launch = lib.mcconv_planes_pair_launch if planes else lib.mcconv_pair_launch
@@ -272,12 +279,10 @@ def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, 
             _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
             B * M, H, C, _build.ptr(out), stream,
         )
+        _build.check(err, "mcconv_project_depthwise_kernel")
     else:
-        err = lib.mcconv_project_full_launch(
-            _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
-            B * M, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
-        )
-    _build.check(err, "mcconv_project_kernel")
+        project_full(G, w2, b2, scale, B * M, (H + 1) * C, H * C, c_out, out,
+                     "mcconv_project_full_kernel")
     if planes:
         launches_planes += 1
     else:
@@ -401,45 +406,72 @@ def dense_mc_conv_backward_cuda(
                          f"{tuple(t.shape)} do not match B={B}, M={M}, C={C}, CO={CO}")
     dev = sample_pts.device
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-    d_wf = zeros(B, N, C)
-    dw1, db1 = zeros(3, H), zeros(H)
-    dwcat = zeros(H1 * C * CO) if c_out is not None else zeros(H1, C)
     if B * M == 0 or N == 0:
-        return d_wf, dw1, db1, *_split_wcat(dwcat, H, C, c_out, w2, b2)
+        dwcat = zeros(H1 * C * CO) if c_out is not None else zeros(H1, C)
+        return zeros(B, N, C), zeros(3, H), zeros(H), *_split_wcat(dwcat, H, C, c_out, w2, b2)
+    # the pair kernel writes every row of d_wf, the reduction every value of w1b1
+    d_wf = torch.empty((B, N, C), dtype=torch.float32, device=dev)
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
     R = B * M
 
-    dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
-    if c_out is None:
-        err = lib.mcconv_bwd_dg_depthwise_launch(
-            _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, H, C, _build.ptr(dG), stream)
-        _build.check(err, "mcconv_bwd_dg_depthwise_kernel")
+    if c_out is None:  # the pair kernel forms dG = t * [w2; b2] where it reads it
+        dG = t
         dwcat = wcat_grad(G, t, R, H1, C, depthwise=True)
     else:
-        err = lib.mcconv_bwd_dg_full_launch(
-            _build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, CO, H * C, H1 * C,
-            _build.ptr(dG), stream)
-        _build.check(err, "mcconv_bwd_dg_full_kernel")
+        dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
+        dg_full(t, w2, b2, R, CO, H * C, H1 * C, dG, "mcconv_bwd_dg_full_kernel")
         dwcat = wcat_grad(G, t, R, H1 * C, CO)
 
-    blocks = lib.mcconv_bwd_pair_blocks(N, M, C)
+    blocks = lib.mcconv_bwd_pair_blocks(B, N, M, C)
     if blocks <= 0:
         raise ValueError(f"dense_mc_conv_backward_cuda: refused shape N={N}, M={M}, C={C}")
-    pair_part = torch.empty((B * blocks, 4, H), dtype=torch.float32, device=dev)
+    pair_part = torch.empty((blocks, 4, H), dtype=torch.float32, device=dev)
     err = lib.mcconv_bwd_pair_launch(
         _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
         _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
-        _build.ptr(dG), B, M, N, C, H, radius_sq(radius), float(radius), _build.ptr(d_wf),
-        _build.ptr(pair_part), stream,
+        _build.ptr(w2), _build.ptr(b2), _build.ptr(dG), B, M, N, C, H, int(c_out is None),
+        radius_sq(radius), float(radius), _build.ptr(d_wf), _build.ptr(pair_part), stream,
     )
     _build.check(err, "mcconv_bwd_pair_kernel")
-    w1b1 = zeros(4, H)
-    err = lib.mcconv_bwd_reduce_launch(_build.ptr(pair_part), B * blocks, 4 * H,
+    w1b1 = torch.empty((4, H), dtype=torch.float32, device=dev)
+    err = lib.mcconv_bwd_reduce_launch(_build.ptr(pair_part), blocks, 4 * H,
                                        _build.ptr(w1b1), stream)
     _build.check(err, "mcconv_bwd_reduce_kernel (dW1, db1)")
     backward_launches += 1
     return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+
+
+def project_full(G, w2, b2, scale, R: int, K: int, KW: int, CO: int, out: torch.Tensor,
+                 what: str) -> None:
+    """K1's projection GEMM into ``out`` (R, CO): ``scale[r] * sum_k G[r, k]
+    [w2; b2][k, o]`` with w2 the first KW of the K rows. The tile and bucket
+    convs share it. Where the output tiles would not fill the card the k
+    range is split, its partials summed in split order (``_build`` sizes the
+    split: ``mcconv_project_splits``)."""
+    lib = _build.library()
+    splits = lib.mcconv_project_splits(R, K, CO)
+    part = out if splits == 1 else torch.empty((splits, R, CO), dtype=torch.float32,
+                                               device=out.device)
+    err = lib.mcconv_project_full_launch(_build.ptr(G), _build.ptr(w2), _build.ptr(b2),
+                                         _build.ptr(scale), R, K, KW, CO, _build.ptr(part),
+                                         _build.ptr(out), _build.stream_of(out))
+    _build.check(err, what)
+
+
+def dg_full(t, w2, b2, R: int, CO: int, KW: int, NC: int, dG: torch.Tensor, what: str) -> None:
+    """K2's dG GEMM into ``dG`` (R, NC): ``sum_o t[r, o] Wcat[n, o]`` with
+    Wcat's first KW rows from w2 (KW, CO), the rest from b2. The tile and
+    bucket backwards share it. Its o range is split as the projection's k
+    range (``mcconv_bwd_dg_splits``)."""
+    lib = _build.library()
+    splits = lib.mcconv_bwd_dg_splits(R, CO, NC)
+    part = dG if splits == 1 else torch.empty((splits, R, NC), dtype=torch.float32,
+                                              device=dG.device)
+    err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, CO,
+                                        KW, NC, _build.ptr(part), _build.ptr(dG),
+                                        _build.stream_of(dG))
+    _build.check(err, what)
 
 
 def wcat_grad(A: torch.Tensor, t: torch.Tensor, R: int, MA: int, CO: int, *,

@@ -441,11 +441,8 @@ def _conv_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid,
     _build.check(err, what)
     if not depthwise:
         scale = dense_conv._scale(cnt, kept, mean_normalize).contiguous()
-        err = lib.mcconv_project_full_launch(
-            _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
-            B * M, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
-        )
-        _build.check(err, f"mcconv_project_full_kernel ({what})")
+        dense_conv.project_full(G, w2, b2, scale, B * M, (H + 1) * C, H * C, c_out, out,
+                                f"mcconv_project_full_kernel ({what})")
     return out, cnt
 
 
@@ -539,9 +536,8 @@ def _conv_backward_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid
             _partials(B * n_blocks, H1 * C, dev)
     else:
         dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
-        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
-                                            B * M, CO, H * C, H1 * C, _build.ptr(dG), stream)
-        _build.check(err, f"mcconv_bwd_dg_full_kernel ({what} dG)")
+        dense_conv.dg_full(t, w2, b2, B * M, CO, H * C, H1 * C, dG,
+                           f"mcconv_bwd_dg_full_kernel ({what} dG)")
         out, w2part = torch.zeros((B, N, H1, CO), dtype=torch.float32, device=dev), w1part
     args = [*(_build.ptr(x) for x in (*smp, *src, wf, t, dG, w1, b1, w2, b2)),
             B, M, N, C, CO, H, R, sample_grid.cap, cap_p, chunk_rows, n_chunks, CB]
@@ -565,9 +561,8 @@ def _conv_backward_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid
         rows, K = B * N, H1 * CO
         wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
         d_wf = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(out), _build.ptr(wr), _build.ptr(wr),
-                                            rows, K, C, C, _build.ptr(d_wf), stream)
-        _build.check(err, f"mcconv_bwd_dg_full_kernel ({what} d_wf)")
+        dense_conv.dg_full(out, wr, wr, rows, K, C, C, d_wf,
+                           f"mcconv_bwd_dg_full_kernel ({what} d_wf)")
         dwcat = dense_conv.wcat_grad(wf, out, rows, C, K).reshape(C, H1, CO).transpose(0, 1)
     return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
 

@@ -667,11 +667,8 @@ def _launch_k5(params: MCConvParams, lay: ConvLayout, wf, radius, c_out, mean_no
         return (val * scale)[..., None].expand(B, NS, CO).contiguous(), cnt
     if not depthwise:
         scale = dense_conv._scale(cnt, lay.smp_valid, mean_normalize).contiguous()
-        err = lib.mcconv_project_full_launch(
-            _build.ptr(G), _build.ptr(w2), _build.ptr(b2), _build.ptr(scale),
-            B * NS, (H + 1) * C, H * C, c_out, _build.ptr(out), stream,
-        )
-        _build.check(err, f"mcconv_project_full_kernel ({name})")
+        dense_conv.project_full(G, w2, b2, scale, B * NS, (H + 1) * C, H * C, c_out, out,
+                                f"mcconv_project_full_kernel ({name})")
     return out, cnt
 
 
@@ -872,9 +869,8 @@ def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_o
         dG, out, w2part = t, empty(B, NP, C), empty(B * ntp, H1, C)
     else:
         dG, out, w2part = empty(B, NS, H1, C), empty(B, NP, H1, CO), w1part
-        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
-                                            B * NS, CO, H * C, H1 * C, _build.ptr(dG), stream)
-        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} dG)")
+        dense_conv.dg_full(t, w2, b2, B * NS, CO, H * C, H1 * C, dG,
+                           f"mcconv_bwd_dg_full_kernel ({name} dG)")
     head = (_build.ptr(lay.src), _build.ptr(lay.src_valid), _build.ptr(wf))
     rest = (_build.ptr(dG), _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1),
             _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H,
@@ -904,9 +900,8 @@ def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_o
         R, K = B * NP, H1 * CO
         wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
         d_wf = empty(B, NP, C)
-        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(out), _build.ptr(wr), _build.ptr(wr),
-                                            R, K, C, C, _build.ptr(d_wf), stream)
-        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} d_wf)")
+        dense_conv.dg_full(out, wr, wr, R, K, C, C, d_wf,
+                           f"mcconv_bwd_dg_full_kernel ({name} d_wf)")
         dwcat = dense_conv.wcat_grad(wf, out, R, C, K).reshape(C, H1, CO).transpose(0, 1)
     return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
 
@@ -1060,9 +1055,8 @@ def tile_conv_backward_v1_sorted_cuda(params: MCConvParams, lay: ConvLayout, wf:
     dG = t
     if not depthwise:
         dG = empty(B, NS, H1, C)
-        err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2),
-                                            B * NS, CO, H * C, H1 * C, _build.ptr(dG), stream)
-        _build.check(err, f"mcconv_bwd_dg_full_kernel ({name} t_h)")
+        dense_conv.dg_full(t, w2, b2, B * NS, CO, H * C, H1 * C, dG,
+                           f"mcconv_bwd_dg_full_kernel ({name} t_h)")
     d_wf, w1part, w2part = empty(B, NP, C), empty(B * ntp * nb, 4, H), empty(B * ntp, width)
     err = lib.tile_conv_bwd_v1_launch(
         _build.ptr(lay.smp), _build.ptr(lay.smp_valid), _build.ptr(lay.src),

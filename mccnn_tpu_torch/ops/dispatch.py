@@ -7,17 +7,37 @@ reference's K-capacity conv). The conv layer promotes ``bucket`` to ``tile``
 when the cache holds a tile capacity. The device then picks kernel or plain
 version inside each backend. Ported backends: ``dense`` (K1 / K2), ``tile``
 (K5 / K6) and ``bucket`` (K9 / K10); ``jnp`` (the K-capacity conv) raises
-where it is reached (``models/layers.py``). ``mode`` forces a backend, as the
-reference's ``MCCNN_TPU_CONV_BACKEND`` variable does; the port takes it as an
-argument.
+where it is reached (``models/layers.py``).
+
+A backend is forced as in the reference: ``MCCNN_TPU_CONV_BACKEND`` in the
+environment when this module is imported (``_FORCED``, mapped as the
+reference's ``conv_backend()`` maps it: ``pallas`` or ``bucket`` -> bucket,
+``dense`` / ``jnp`` / ``tile`` as named, anything else auto), consulted where
+the caller's ``mode`` is ``auto``; an explicit ``mode`` (``SpatialCache.
+conv_backend``, ``tasks.scannet --conv-backend``) forces its own.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 DENSE_MAX_N = 3072  # mccnn_tpu/ops/pallas/dense_conv.py:53, copied for parity
 BACKENDS = ("auto", "dense", "tile", "bucket", "jnp")
+
+
+def _forced_backend(value: str | None) -> str:
+    """The reference's ``conv_backend()`` (``mccnn_tpu/ops/dispatch.py:26-35``)
+    of one value of ``MCCNN_TPU_CONV_BACKEND``."""
+    if value in ("pallas", "bucket"):
+        return "bucket"
+    if value in ("dense", "jnp", "tile"):
+        return value
+    return "auto"
+
+
+# The reference reads the variable at every dispatch; the port reads it once here.
+_FORCED = _forced_backend(os.environ.get("MCCNN_TPU_CONV_BACKEND"))
 
 
 def dense_fits(n_sources: int, c_in: int, c_out: int | None,
@@ -43,9 +63,12 @@ def pick_backend(
     *,
     mode: str = "auto",
 ) -> str:
-    """``"dense"``, ``"bucket"`` or ``"jnp"`` by shape, or ``mode`` when forced."""
+    """``"dense"``, ``"bucket"`` or ``"jnp"`` by shape, or the forced backend:
+    ``mode``, else ``MCCNN_TPU_CONV_BACKEND`` (``_FORCED``)."""
     if mode not in BACKENDS:
         raise ValueError(f"conv backend {mode!r}: expected one of {BACKENDS}")
+    if mode == "auto":
+        mode = _FORCED
     if mode != "auto":
         return mode
     if dense_fits(n_sources, c_in, c_out, n_samples):

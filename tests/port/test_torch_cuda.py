@@ -194,6 +194,83 @@ def test_conv_autograd_runs_k1_and_k2(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
 
 
+def _sphere(seed, B, N, device):
+    """Points on a sphere of radius 0.45 about the cube's centre: a surface
+    like a normalised shape's, where a radius of 0.025 meets a few points."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(B, N, 3))
+    v = 0.5 + 0.45 * v / np.linalg.norm(v, axis=-1, keepdims=True)
+    return torch.from_numpy(v.astype(np.float32)).to(device)
+
+
+# (name, B, N sources, M samples, C, CO, radius): the pair kernels' cases that
+# test what the lists, their rounds and the block shapes do. "stem" / "dec"
+# are ShapeNet's 1024 -> 1024 sites (samples = sources); "masked" masks whole
+# sample and source tiles; "overflow" gives every sample 1000 in-radius
+# sources, more than a list holds; "global" is M = 1 at the global radius
+# with C = 256; "c1" is C = 1 (K1's rows spread over threads); "passes" runs
+# four passes of 64 channels over two staged chunks and many rounds each.
+GLOBAL_R = math.sqrt(3.0) + 0.1
+PAIR_CASES = [("stem", 2, 1024, 1024, 17, 64, 0.025), ("dec", 2, 1024, 1024, 256, None, 0.05),
+              ("masked", 2, 300, 200, 8, 4, 0.3), ("overflow", 1, 1000, 8, 4, 8, GLOBAL_R),
+              ("global", 3, 40, 1, 256, 64, GLOBAL_R), ("c1", 2, 256, 70, 1, 16, 0.3),
+              ("passes", 1, 1100, 1100, 256, None, GLOBAL_R)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,N,M,C,CO,radius", PAIR_CASES, ids=[c[0] for c in PAIR_CASES])
+def test_pair_kernels_match_plain_on_their_edge_cases(cuda, name, B, N, M, C, CO, radius):
+    """K1 and K2 against their plain versions where the in-radius lists, their
+    rounds, skipped tiles and channel slices matter: G, counts and every
+    gradient, bit for bit on repeat; a skipped tile writes zero rows of G
+    into memory the allocator last held NaN in, and no NaN reaches dW2."""
+    g = torch.Generator().manual_seed(11)
+    src = _sphere(12, B, N, cuda)
+    smp = src if N == M else _sphere(13, B, M, cuda)
+    smask = torch.ones((B, N), dtype=torch.bool, device=cuda)
+    qmask = torch.ones((B, M), dtype=torch.bool, device=cuda)
+    if name == "masked":  # a whole sample tile and a whole source tile of padding
+        qmask[:, :64] = False
+        qmask[1, 150:] = False
+        smask[:, 32:128] = False
+    params = init_mcconv_params(g, C, CO, device=cuda)
+    params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(cuda))
+    feats = torch.randn((B, N, C), generator=g).to(cuda)
+    pdf = (torch.rand((B, N), generator=g) + 0.5).to(cuda)
+    wf = dense_conv._weighted_features(feats, pdf, smask)
+    fargs = (params, smp, qmask, src, smask, wf, radius, CO, False)
+    nan = torch.full((B, M, 9, C), float("nan"), device=cuda)
+    del nan  # G's torch.empty may now reuse NaN memory
+    before = (dense_conv.launches, dense_conv.backward_launches)
+    out, cnt, G = dense_conv._forward_cuda(*fargs)
+    out2, cnt2, G2 = dense_conv._forward_cuda(*fargs)
+    want, wcnt, wG = dense_conv._forward_reference(*fargs)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G2) and torch.equal(out, out2)  # no atomics
+    assert torch.equal(cnt, wcnt)
+    assert not torch.isnan(G).any()
+    assert torch.equal(G[~qmask], torch.zeros_like(G[~qmask]))
+    # fp32 sums over neighbours and channels in another order than the plain version's
+    for got, ref in ((G, wG), (out, want)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    dout = torch.randn(out.shape, generator=g).to(cuda)
+    bargs = (params, smp, qmask, src, smask, wf, radius, G, cnt, dout)
+    got = dense_conv.dense_mc_conv_backward_cuda(*bargs, c_out=CO)
+    again = dense_conv.dense_mc_conv_backward_cuda(*bargs, c_out=CO)
+    # the plain backward with pre_h rounded as mc_preact: the ReLU steps fall
+    # as in the kernel at every one of these pairs
+    terms = dense_conv._pair_terms(params, smp, qmask, src, smask, radius, kernel_rounding=True)
+    t = dout * dense_conv._scale(cnt, qmask, False)[..., None]
+    ref = dense_conv._backward_reference(params, *terms, wf, G, t, CO)
+    torch.cuda.synchronize()
+    assert (dense_conv.launches, dense_conv.backward_launches) == (before[0] + 2, before[1] + 2)
+    for part, a, a2, w in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, ref):
+        assert torch.equal(a, a2), f"{part}: two calls differ"
+        assert torch.isfinite(a).all(), part
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=part)
+    assert torch.equal(got[0][~smask], torch.zeros_like(got[0][~smask]))
+
+
 V1_CASES = [(1, 16, False), (8, 4, True), (8, None, False), (8, None, True), (300, 2, False),
             (40, 600, False)]
 

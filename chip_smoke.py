@@ -104,10 +104,13 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    one evaluation, with MCClassS's conv_0_1 on K9 and K10.
 16. K1v1 and K2v1 (the per-h dense conv and its backward) at the 14 dense
    conv sites of MCClass (grow 64, radii 0.1 / 0.2 / 0.4) and MCClassH (grow
-   128) for batches of 8 and 32 clouds of 1024 points: each against its
-   plain version and against K1 / K2 on the same inputs, bit for bit on
-   repeat; at B=32 the times of both, of their plain versions, of K1 / K2 and
-   of one torch.matmul of the GEMM part, and the bounds.
+   128; ``tools.dense_ab.ZOO_SITES``) for batches of 8 and 32 clouds of 1024
+   points: each against its plain version and against K1 / K2 on the same
+   inputs (K2v1 bit for bit against K2 on K1's G), bit for bit on repeat,
+   with each site's valid and in-radius pair counts and K2v1's transient
+   device memory, and K1's and K2's counters still across two K2v1 calls;
+   at B=32 the times of both, of their plain versions, of K1 / K2 and of one
+   torch.matmul of the GEMM part, the bounds and the sums over the sites.
 17. MCClass and MCClassH at their published widths (seeded weights and BN
    statistics) served through ``serve.Predictor`` at B=8: the first two
    clouds against the CPU plain path (B=2; every head of MCClassH), batch
@@ -118,7 +121,8 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    gradient`` at B=32, N=1024: two epochs of 3 steps (the second profiled)
    and one evaluation with 2 votes, K1-K4 launched.
 20. The same MCClass training under ``MCCNN_DENSE_V1=1`` in a child process:
-   its printed counters must show K1v1 / K2v1 launched and K1 / K2 not.
+   its printed counters must show K1v1 / K2v1 launched and K1 / K2 not; its
+   warm step is printed beside the default MCClass trainer's of 19.
 21. K3v2, K3v3 and K3v4 (the Poisson sweep variants) at every sweep of
    MCNorm (N = 1024 at r 0.1, 496 at r 0.4), MCNormS (r 0.15), ShapeNet's
    MCSeg (r 0.025 / 0.1 / 0.4) and MCClassS for batches of 32 clouds, and
@@ -229,7 +233,7 @@ ZOO_STEP_B = 4  # the zoo train steps, card vs the CPU plain path (B >= 3: the h
 ZOO_TRAIN_STEPS = 3  # tasks.modelnet steps an epoch, two epochs (the second profiled)
 RADII_3 = (0.1, 0.2, 0.4)
 RADII_2 = (0.1, 0.4)  # also MCClassS's hierarchy
-# MCClassS's three dense sites (as ZOO_SITES below), checked with K1p
+# MCClassS's three dense sites (as tools.dense_ab.ZOO_SITES), checked with K1p
 MCCLASSS_SITES = [("MCClassS conv_0_1", RADII_2, 0, 1, 0.2, 1, GROW),
                   ("MCClassS conv_1_2", RADII_2, 1, 2, 0.8, GROW, 2 * GROW),
                   ("MCClassS conv_2_3", RADII_2, 2, 3, None, 2 * GROW, 8 * GROW)]
@@ -239,24 +243,6 @@ ACTIVE_NBA = 784  # the occupied bricks of that scene at cap 64 (of 2000): lossl
 ACTIVE_LOSSY_NBA = 600
 ACTIVE_SMALL_B = 4
 FWD_PROBES = ("noop", "planes", "mm")
-# Every dense conv site of both models: (name, hierarchy radii, in level,
-# out level, radius (None: the global radius), C, CO (None: depthwise)).
-ZOO_SITES = [
-    ("MCClass stem", RADII_3, 0, 0, 0.1, 1, 64),
-    ("MCClass down_0_1", RADII_3, 0, 1, 0.2, 64, None),
-    ("MCClass same_1", RADII_3, 1, 1, 0.2, 128, None),
-    ("MCClass down_1_2", RADII_3, 1, 2, 0.4, 128, None),
-    ("MCClass same_2", RADII_3, 2, 2, 0.4, 256, None),
-    ("MCClass down_2_3", RADII_3, 2, 3, 0.8, 256, None),
-    ("MCClass same_3", RADII_3, 3, 3, 0.8, 512, None),
-    ("MCClass down_3_4", RADII_3, 3, 4, None, 512, None),
-    ("MCClassH path_a conv_0_1", RADII_2, 0, 1, 0.2, 1, 128),
-    ("MCClassH path_a conv_1_2", RADII_2, 1, 2, 0.8, 128, 256),
-    ("MCClassH path_a conv_2_3", RADII_2, 2, 3, None, 256, 1024),
-    ("MCClassH path_b conv_1_2", RADII_3, 1, 2, 0.4, 1, 128),
-    ("MCClassH path_b conv_2_3", RADII_3, 2, 3, 0.8, 128, 256),
-    ("MCClassH path_b conv_3_4", RADII_3, 3, 4, None, 256, 1024),
-]
 
 # Normal estimation and ShapeNet part segmentation at the CLIs' defaults
 # (mccnn_tpu/tasks/normals.py, shapenet.py): MCNorm (grow 64, radii 0.1 /
@@ -366,7 +352,9 @@ V1_FWD_RTOL = 3e-6
 # K2v1 against its plain version and against K2: d_wf, dW2 and db2 within
 #     1e-5 of their largest value (fp32 sums over samples, pairs and block
 #     partials in other orders); dW1 / db1 1e-4 (sums over every pair of the
-#     batch with cancellation; the ReLU steps fall as in the kernels).
+#     batch with cancellation; the ReLU steps fall as in the kernels). Against
+#     K2 on K1's G also bit for bit: K2v1 forms the same G rows and t and runs
+#     K2's kernels on them.
 V1_BWD_RTOL = 1e-5
 V1_BWD_W1_RTOL = 1e-4
 # K1p against its plain version: the tensor cores sum cw, -sw and b1 (exact
@@ -2108,18 +2096,25 @@ def plain_forward64(params, smp, qmask, src, smask, wf, radius, co):
 def check_v1_kernels(dev, b: int, timed: bool) -> dict:
     """K1v1 and K2v1 at every dense conv site of MCClass and MCClassH for a
     batch of ``b`` clouds of N points (hierarchies built by the CPU plain path),
-    each against its plain version and against K1 / K2 on the same inputs,
-    bit for bit on repeat; with ``timed``, CUDA-event times of the kernels,
-    their plain versions, K1 / K2 and one torch.matmul of the GEMM part (full
-    sites), and the bounds. Returns the rows of the kernels line."""
+    each against its plain version and against K1 / K2 on the same inputs
+    (K2 on K1's G: K2v1 forms the same G rows and runs K2's kernels on them,
+    so it must equal K2 bit for bit), bit for bit on repeat, with the site's
+    valid and in-radius pair counts and K2v1's transient device memory; K1's
+    and K2's counters must not move across two K2v1 calls. With ``timed``,
+    CUDA-event times of the kernels, their plain versions, K1 / K2 and one
+    torch.matmul of the GEMM part (full sites), the bounds, and the sums over
+    the sites. Returns the rows of the kernels line."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
     from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
+    from mccnn_tpu_torch.tools.dense_ab import ZOO_SITES
 
     req = request(np.random.default_rng(SEED + 20 + b), b)
     lvs = {radii: levels(req, dev, radii) for radii in (RADII_3, RADII_2)}
     gen = torch.Generator().manual_seed(SEED + 20)
     rows = {"K1v1": [], "K2v1": []}
     names = ("d_wf", "dw1", "db1", "dw2", "db2")
+    totals = np.zeros(4)  # K1v1, K1, K2v1, K2 ms over the sites
+    peak = (0.0, "")  # K2v1's largest transient memory (MiB) and its site
     with torch.no_grad():
         for site, radii, i, o, radius, c, co in ZOO_SITES:
             radius = GLOBAL_RADIUS if radius is None else radius
@@ -2133,9 +2128,9 @@ def check_v1_kernels(dev, b: int, timed: bool) -> dict:
             fargs = (params, smp, qmask, src, smask, wf, radius, co, False)
             out, cnt = dense_conv._forward_cuda_v1(*fargs)
             again, _ = dense_conv._forward_cuda_v1(*fargs)
-            want, wcnt, G = dense_conv._forward_reference(*fargs)
+            want, wcnt, _ = dense_conv._forward_reference(*fargs)
             want64 = plain_forward64(params, smp, qmask, src, smask, wf, radius, co)
-            k1, k1cnt, _ = dense_conv._forward_cuda(*fargs)
+            k1, k1cnt, G = dense_conv._forward_cuda(*fargs)
             torch.cuda.synchronize()
             scale = float(want64.abs().max())
             e_plain = float((out.double() - want64).abs().max()) / scale
@@ -2145,18 +2140,30 @@ def check_v1_kernels(dev, b: int, timed: bool) -> dict:
             require(bool(torch.equal(out, again)), f"K1v1 differs between two calls at {site}")
             require(bool(torch.equal(cnt, wcnt)) and bool(torch.equal(cnt, k1cnt)),
                     f"K1v1 neighbour counts differ at {site}")
+            valid, inr = pair_counts(smp, qmask, src, smask, radius)
             dout = torch.randn((b, M, c if co is None else co), generator=gen).to(dev)
             bargs = (params, smp, qmask, src, smask, wf, radius, cnt, dout)
-            got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
-            rep = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
-            bwant = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, c_out=co)
             k2 = dense_conv.dense_mc_conv_backward_cuda(params, smp, qmask, src, smask, wf,
                                                         radius, G, cnt, dout, c_out=co)
             torch.cuda.synchronize()
+            k12 = (dense_conv.launches, dense_conv.backward_launches)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
+            torch.cuda.synchronize()
+            transient = (torch.cuda.max_memory_allocated() - base) / 2**20
+            rep = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
+            torch.cuda.synchronize()
+            require((dense_conv.launches, dense_conv.backward_launches) == k12,
+                    f"K2v1 moved K1's or K2's launch counter at {site}")
+            peak = max(peak, (transient, site))
+            bwant = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, c_out=co)
             parts, b_err = [], 0.0
             for name, a, a2, w, w2 in zip(names, got, rep, bwant, k2):
                 require(bool(torch.equal(a, a2)),
                         f"K2v1 {name} differs between two calls at {site}")
+                require(bool(torch.equal(a, w2)), f"K2v1 {name} differs from K2 on K1's G at "
+                        f"{site}")
                 top = max(float(w.abs().max()), 1e-30)
                 e_w, e_k2 = float((a - w).abs().max()) / top, float((a - w2).abs().max()) / top
                 tol = V1_BWD_W1_RTOL if name in ("dw1", "db1") else V1_BWD_RTOL
@@ -2166,17 +2173,17 @@ def check_v1_kernels(dev, b: int, timed: bool) -> dict:
                 parts.append(f"{name} {e_w:.2e}/{e_k2:.2e}")
                 b_err = max(b_err, float((a - w).abs().max()))
             mode = "depthwise" if co is None else "full"
-            line = (f"v1 B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co}: K1v1 rel_err "
-                    f"plain_f64={e_plain:.3e} K1={e_k1:.3e} plain_f32={e_fp32:.3e} (max |out| "
-                    f"{scale:.3e}); K2v1 rel_err plain/K2 {', '.join(parts)}; "
-                    f"bitwise_repeatable=True")
+            line = (f"v1 B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co} pairs={valid} "
+                    f"in_radius={inr}: K1v1 rel_err plain_f64={e_plain:.3e} K1={e_k1:.3e} "
+                    f"plain_f32={e_fp32:.3e} (max |out| {scale:.3e}); K2v1 rel_err plain/K2 "
+                    f"{', '.join(parts)} (bit-equal to K2 on K1's G); K2v1 transient "
+                    f"{transient:.3f} MiB; bitwise_repeatable=True")
             require(e_plain <= V1_FWD_RTOL and e_k1 <= V1_FWD_RTOL and e_fp32 <= CONV_RTOL,
                     f"K1v1 at {site}: {e_plain:.3e} of the largest output from its plain "
                     f"version in float64 (limit {V1_FWD_RTOL:g}), {e_k1:.3e} from K1 (limit "
                     f"{V1_FWD_RTOL:g}), {e_fp32:.3e} from the fp32 plain version (limit "
                     f"{CONV_RTOL:g})")
             if timed:
-                valid, inr = pair_counts(smp, qmask, src, smask, radius)
                 nq = int(qmask.sum())
                 ms = time_ms(lambda: dense_conv._forward_cuda_v1(*fargs))
                 pms = time_ms(lambda: dense_conv._forward_reference(*fargs), iters=3)
@@ -2186,6 +2193,7 @@ def check_v1_kernels(dev, b: int, timed: bool) -> dict:
                     *bargs, c_out=co), iters=3)
                 k2ms = time_ms(lambda: dense_conv.dense_mc_conv_backward_cuda(
                     params, smp, qmask, src, smask, wf, radius, G, cnt, dout, c_out=co))
+                totals += (ms, k1ms, bms, k2ms)
                 fb, fby = dense_bound(b, M, Ns, c, co, valid, inr, nq, False)
                 bb, bby = dense_bound(b, M, Ns, c, co, valid, inr, nq, True)
                 lms = blms = None
@@ -2202,6 +2210,12 @@ def check_v1_kernels(dev, b: int, timed: bool) -> dict:
                 rows["K1v1"].append((e_plain * scale, ms, pms, fb, fby, lms))
                 rows["K2v1"].append((b_err, bms, bpms, bb, bby, blms))
             print(line, flush=True)
+    summary = f"v1 B={b}: K2v1's largest transient memory {peak[0]:.3f} MiB at {peak[1]}"
+    if timed:
+        summary += (f"; over the {len(ZOO_SITES)} sites K1v1 {totals[0]:.4f} ms (K1 "
+                    f"{totals[1]:.4f} in the same call), K2v1 {totals[2]:.4f} ms (K2 "
+                    f"{totals[3]:.4f})")
+    print(summary, flush=True)
     return rows
 
 
@@ -2294,10 +2308,11 @@ def check_zoo_train_steps(dev) -> dict:
     return launches
 
 
-def run_zoo_trainer(name: str, extra=()) -> dict:
+def run_zoo_trainer(name: str, extra=()) -> tuple[dict, float]:
     """``tasks.modelnet --model name`` at the CLI's shape (B = 32, N = 1024,
     published widths): two epochs of ZOO_TRAIN_STEPS steps (the second
-    profiled) and one voting evaluation; K1-K4 must launch."""
+    profiled) and one voting evaluation; K1-K4 must launch. Returns the
+    launch counts and the first epoch's warm step time (ms)."""
     from mccnn_tpu_torch.tasks import modelnet
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2329,7 +2344,7 @@ def run_zoo_trainer(name: str, extra=()) -> dict:
     require(all(np.isfinite(r["loss"]) for r in train), f"{name}: the trainer's loss")
     for kid in ("K1", "K2", "K3", "K4"):
         require(launches[kid] > 0, f"{kid} was not launched by tasks.modelnet --model {name}")
-    return launches
+    return launches, train[0]["warm_step_ms"]
 
 
 _DENSE_CHILD = r"""
@@ -2353,11 +2368,13 @@ print("DENSE_COUNTS " + json.dumps({
 """
 
 
-def run_dense_switch_trainer(var: str, value: str, attr: str, launched, not_launched) -> dict:
+def run_dense_switch_trainer(var: str, value: str, attr: str, launched, not_launched,
+                             default_ms: float) -> dict:
     """MCClass training through ``tasks.modelnet`` with ``var=value`` in a
     child process (``dense_conv.<attr>`` must be set there): its printed
     counters must show the kernels of ``launched`` and none of
-    ``not_launched``; a failed child fails the script."""
+    ``not_launched``; a failed child fails the script. Its warm step is
+    printed beside ``default_ms``, the default MCClass trainer's."""
     what = f"{var}={value}"
     env = dict(os.environ, **{var: value})
     code = _DENSE_CHILD % (attr, TRAIN_B, N, N_CLASSES, ZOO_TRAIN_STEPS)
@@ -2373,7 +2390,8 @@ def run_dense_switch_trainer(var: str, value: str, attr: str, launched, not_laun
     counts = res["launches"]
     print(f"trainer under {what} (child process, tasks.modelnet --model MCClass, "
           f"B={TRAIN_B}, N={N}, {ZOO_TRAIN_STEPS} steps and one eval): {res} "
-          f"child_sec={seconds:.2f}", flush=True)
+          f"child_sec={seconds:.2f}; warm_step_ms {res['warm_step_ms']:.3f} against "
+          f"{default_ms:.3f} without the switch (phase 19)", flush=True)
     require(bool(np.isfinite(res["loss"])), f"the {what} trainer's loss")
     for kid in launched:
         require(counts[kid] > 0, f"{kid} was not launched under {what}")
@@ -2685,6 +2703,7 @@ def check_planes_kernels(dev, b: int, timed: bool) -> list:
     Returns the rows of the kernels line."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
     from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
+    from mccnn_tpu_torch.tools.dense_ab import ZOO_SITES
 
     req = request(np.random.default_rng(SEED + 30 + b), b)
     lvs = {radii: levels(req, dev, radii) for radii in (RADII_3, RADII_2)}
@@ -3224,10 +3243,10 @@ def main() -> int:
     zoo_step = check_zoo_train_steps(dev)
     zoo_launches = {f"{name}_serve": zoo_serve[name] for name in ZOO}
     zoo_launches |= {f"{name}_train_step": zoo_step[name] for name in ZOO}
-    zoo_launches["MCClass_train"] = run_zoo_trainer("MCClass")
-    zoo_launches["MCClassH_train"] = run_zoo_trainer("MCClassH", ("--protocol", "gradient"))
+    zoo_launches["MCClass_train"], mcclass_ms = run_zoo_trainer("MCClass")
+    zoo_launches["MCClassH_train"], _ = run_zoo_trainer("MCClassH", ("--protocol", "gradient"))
     v1_launches = {"MCClass_train_v1": run_dense_switch_trainer(
-        "MCCNN_DENSE_V1", "1", "_USE_V1", ("K1v1", "K2v1"), ("K1", "K2"))}
+        "MCCNN_DENSE_V1", "1", "_USE_V1", ("K1v1", "K2v1"), ("K1", "K2"), mcclass_ms)}
 
     sweep_results = check_sweep_variants(dev, TRAIN_B, ("MCNorm", "MCNormS", "ShapeNet MCSeg",
                                                          "MCClassS"))
@@ -3242,7 +3261,8 @@ def main() -> int:
     check_planes_kernels(dev, SERVE_B, timed=False)
     planes_rows = check_planes_kernels(dev, TRAIN_B, timed=True)
     planes_launches = {"MCClass_train_planes": run_dense_switch_trainer(
-        "MCCNN_DENSE_PLANES", "mxu", "_PLANES_MXU", ("K1p", "K2"), ("K1", "K1v1", "K2v1"))}
+        "MCCNN_DENSE_PLANES", "mxu", "_PLANES_MXU", ("K1p", "K2"), ("K1", "K1v1", "K2v1"),
+        mcclass_ms)}
     roofline_launches = {"tile_roofline": run_tile_roofline()}
     t1_results = check_t1(dev)
     breakdown_launches = {"dense_breakdown": run_dense_breakdown()}

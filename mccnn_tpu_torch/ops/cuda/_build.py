@@ -61,8 +61,7 @@ SIGNATURES = {
     "mcconv_bwd_dw2_depthwise_launch": [P, P, I, I, I, I, I, P, P],
     "mcconv_bwd_reduce_launch": [P, I, I, P, P],
     "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
-    "mcconv_v1_bwd_tiles": [I, I, I, I],
-    "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
+    "mcconv_v1_g_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
     "tile_conv_launch": [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
     "tile_conv_packed_launch": [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
     "tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
@@ -191,9 +190,9 @@ def check(err: int, what: str) -> None:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # -1 on the CPU
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: every input must be on the same CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

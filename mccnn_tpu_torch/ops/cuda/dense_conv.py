@@ -26,11 +26,13 @@ headers). Everything is fp32.
 K1v1 and K2v1 replace the reference's per-h variant of the same pair,
 ``_fwd_kernel`` (``:99``, called at ``:584``) and ``_bwd_kernel`` (``:129``,
 called at ``:617``), which ``MCCNN_DENSE_V1=1`` selects (``:735-736``). They
-compute K1's and K2's function in one launch each and keep no G: K1v1
-(``csrc/dense_conv_v1.cu``) folds each sample tile's G into (W2, b2) in the
-block that formed it, and K2v1 (``csrc/dense_conv_v1_bwd.cu``) forms the
-pair planes again from the forward's inputs and count. Their plain versions
-are ``dense_mc_conv_reference`` and ``dense_mc_conv_v1_backward_reference``.
+compute K1's and K2's function and keep no G between them: K1v1
+(``csrc/dense_conv_v1.cu``) forms each sample tile's G from the same
+in-radius lists and folds it into (W2, b2) in the block that formed it;
+K2v1 (``csrc/dense_conv_v1_bwd.cu``) forms G's rows again with K1v1's tile
+kernel into a transient buffer and runs K2's GEMMs and pair kernel on them.
+Their plain versions are ``dense_mc_conv_reference`` and
+``dense_mc_conv_v1_backward_reference``.
 
 K1p replaces ``_plane_fill_mxu`` (``:314``), which ``MCCNN_DENSE_PLANES=mxu``
 (``:357``) puts in place of the plane fill of the v2 forward
@@ -57,6 +59,7 @@ through the Function, as the reference's ``_core_bwd`` returns zeros for them.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -74,9 +77,6 @@ _TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
 _USE_V1 = os.environ.get("MCCNN_DENSE_V1") == "1"
 # K1p's switch (dense_conv.py:357): the v2 forward's planes on the tensor cores.
 _PLANES_MXU = os.environ.get("MCCNN_DENSE_PLANES") == "mxu"
-# K2v1's parameter partials (one per block, the block's run of source tiles
-# summed into it) stay within this many floats: 256 MiB.
-_V1_PARTIAL_FLOATS = 64 << 20
 
 # Launches of K1, K2, K1v1, K2v1 and K1p since the last reset (see density_kernel.py).
 launches = 0
@@ -378,18 +378,36 @@ def dense_mc_conv_backward_cuda(
 ):
     """Launch K2 on CUDA tensors; the arguments and outputs of the plain version."""
     global backward_launches
+    grads = _backward_cuda("dense_mc_conv_backward_cuda", params, sample_pts, sample_mask,
+                           source_pts, source_mask, wf, radius, cnt, dout, c_out,
+                           mean_normalize, G)
+    backward_launches += 1
+    return grads
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_blocks(B: int, N: int, M: int, C: int) -> int:
+    """K2's pair-kernel partial rows for a batch shape (0: refused)."""
+    return _build.library().mcconv_bwd_pair_blocks(B, N, M, C)
+
+
+def _backward_cuda(name, params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
+                   cnt, dout, c_out, mean_normalize, G=None):
+    """K2's launches: the dG GEMM (full), the row-split [dW2; db2] GEMM over
+    G, the pair kernel (d_wf and the dW1 / db1 partials) and their reduction,
+    on ``t = s * dout``. With ``G=None`` (K2v1) G's rows are formed again
+    first by K1v1's tile kernel (``mcconv_v1_g_launch``), which also writes t,
+    into a buffer freed after the dW2 GEMM."""
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
     source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
-    wf, G = wf.contiguous(), G.contiguous()
-    t = (dout * _scale(cnt, sample_mask, mean_normalize)[..., None]).contiguous()
-    _build.require_cuda(
-        "dense_mc_conv_backward_cuda", sample_pts, sample_mask, source_pts, source_mask,
-        wf, w1, b1, w2, b2, G, t,
-    )
-    if any(x.dtype != torch.float32 for x in (sample_pts, source_pts, wf, w1, b1, w2, b2, G, t)):
-        raise TypeError("dense_mc_conv_backward_cuda: positions, features, params, G "
-                        "and dout must be float32")
+    wf, cnt, dout = wf.contiguous(), cnt.contiguous(), dout.contiguous()
+    given = () if G is None else (G.contiguous(),)
+    floats = (sample_pts, source_pts, wf, w1, b1, w2, b2, cnt, dout, *given)
+    _build.require_cuda(name, sample_mask, source_mask, *floats)
+    if any(x.dtype != torch.float32 for x in floats):
+        raise TypeError(f"{name}: positions, features, params, G, counts and dout must be "
+                        "float32")
     B, M, _ = sample_pts.shape
     N = source_pts.shape[1]
     H = w1.shape[1]
@@ -397,13 +415,13 @@ def dense_mc_conv_backward_cuda(
     H1 = H + 1
     CO = C if c_out is None else c_out
     if H != HIDDEN or C > MAX_C:
-        raise NotImplementedError(
-            f"dense_mc_conv_backward_cuda is built for H={HIDDEN} and C<={MAX_C}; "
-            f"got H={H}, C={C}"
-        )
-    if tuple(G.shape) != (B, M, H1, C) or tuple(t.shape) != (B, M, CO):
-        raise ValueError(f"dense_mc_conv_backward_cuda: G {tuple(G.shape)} / dout "
-                         f"{tuple(t.shape)} do not match B={B}, M={M}, C={C}, CO={CO}")
+        raise NotImplementedError(f"{name} is built for H={HIDDEN} and C<={MAX_C}; "
+                                  f"got H={H}, C={C}")
+    if (tuple(cnt.shape) != (B, M) or tuple(dout.shape) != (B, M, CO)
+            or (G is not None and tuple(G.shape) != (B, M, H1, C))):
+        raise ValueError(f"{name}: cnt {tuple(cnt.shape)} / dout {tuple(dout.shape)}"
+                         + ("" if G is None else f" / G {tuple(G.shape)}")
+                         + f" do not match B={B}, M={M}, C={C}, CO={CO}")
     dev = sample_pts.device
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
     if B * M == 0 or N == 0:
@@ -414,31 +432,45 @@ def dense_mc_conv_backward_cuda(
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
     R = B * M
+    r2 = radius_sq(radius)
+    if G is None:  # the tile kernel writes every row of G and t
+        G = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
+        t = torch.empty((B, M, CO), dtype=torch.float32, device=dev)
+        err = lib.mcconv_v1_g_launch(
+            _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
+            _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
+            _build.ptr(dout), _build.ptr(cnt), B, M, N, C, c_out or 0, H, int(mean_normalize),
+            r2, float(radius), _build.ptr(G), _build.ptr(t), stream,
+        )
+        _build.check(err, "mcconv_v1_tile_kernel (K2v1's G rows)")
+    else:
+        G = given[0]
+        t = (dout * _scale(cnt, sample_mask, mean_normalize)[..., None]).contiguous()
 
     if c_out is None:  # the pair kernel forms dG = t * [w2; b2] where it reads it
         dG = t
-        dwcat = wcat_grad(G, t, R, H1, C, depthwise=True)
+        dwcat = wcat_grad(G, t, R, H1, C, depthwise=True, stream=stream)
     else:
         dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
-        dg_full(t, w2, b2, R, CO, H * C, H1 * C, dG, "mcconv_bwd_dg_full_kernel")
-        dwcat = wcat_grad(G, t, R, H1 * C, CO)
+        dg_full(t, w2, b2, R, CO, H * C, H1 * C, dG, "mcconv_bwd_dg_full_kernel", stream)
+        dwcat = wcat_grad(G, t, R, H1 * C, CO, stream=stream)
+    del G  # K2v1's buffer goes back to the allocator before the pair kernel
 
-    blocks = lib.mcconv_bwd_pair_blocks(B, N, M, C)
+    blocks = _pair_blocks(B, N, M, C)
     if blocks <= 0:
-        raise ValueError(f"dense_mc_conv_backward_cuda: refused shape N={N}, M={M}, C={C}")
+        raise ValueError(f"{name}: refused shape N={N}, M={M}, C={C}")
     pair_part = torch.empty((blocks, 4, H), dtype=torch.float32, device=dev)
     err = lib.mcconv_bwd_pair_launch(
         _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
         _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
         _build.ptr(w2), _build.ptr(b2), _build.ptr(dG), B, M, N, C, H, int(c_out is None),
-        radius_sq(radius), float(radius), _build.ptr(d_wf), _build.ptr(pair_part), stream,
+        r2, float(radius), _build.ptr(d_wf), _build.ptr(pair_part), stream,
     )
     _build.check(err, "mcconv_bwd_pair_kernel")
     w1b1 = torch.empty((4, H), dtype=torch.float32, device=dev)
     err = lib.mcconv_bwd_reduce_launch(_build.ptr(pair_part), blocks, 4 * H,
                                        _build.ptr(w1b1), stream)
     _build.check(err, "mcconv_bwd_reduce_kernel (dW1, db1)")
-    backward_launches += 1
     return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
 
 
@@ -459,29 +491,32 @@ def project_full(G, w2, b2, scale, R: int, K: int, KW: int, CO: int, out: torch.
     _build.check(err, what)
 
 
-def dg_full(t, w2, b2, R: int, CO: int, KW: int, NC: int, dG: torch.Tensor, what: str) -> None:
+def dg_full(t, w2, b2, R: int, CO: int, KW: int, NC: int, dG: torch.Tensor, what: str,
+            stream=None) -> None:
     """K2's dG GEMM into ``dG`` (R, NC): ``sum_o t[r, o] Wcat[n, o]`` with
     Wcat's first KW rows from w2 (KW, CO), the rest from b2. The tile and
     bucket backwards share it. Its o range is split as the projection's k
-    range (``mcconv_bwd_dg_splits``)."""
+    range (``mcconv_bwd_dg_splits``). ``stream``: dG's current stream, where
+    the caller has it already."""
     lib = _build.library()
     splits = lib.mcconv_bwd_dg_splits(R, CO, NC)
     part = dG if splits == 1 else torch.empty((splits, R, NC), dtype=torch.float32,
                                               device=dG.device)
     err = lib.mcconv_bwd_dg_full_launch(_build.ptr(t), _build.ptr(w2), _build.ptr(b2), R, CO,
                                         KW, NC, _build.ptr(part), _build.ptr(dG),
-                                        _build.stream_of(dG))
+                                        _build.stream_of(dG) if stream is None else stream)
     _build.check(err, what)
 
 
 def wcat_grad(A: torch.Tensor, t: torch.Tensor, R: int, MA: int, CO: int, *,
-              depthwise: bool = False) -> torch.Tensor:
+              depthwise: bool = False, stream=None) -> torch.Tensor:
     """``[dW2; db2]`` through K2's row-split GEMM over R rows, its chunks'
     partial sums reduced in chunk order: ``A^T t`` as (MA, CO) for A (R, MA)
     and t (R, CO), or with ``depthwise`` ``sum_r A[r, h, c] t[r, c]`` as
-    (MA, CO) for A (R, MA, CO)."""
+    (MA, CO) for A (R, MA, CO). ``stream``: A's current stream, where the
+    caller has it already."""
     lib = _build.library()
-    stream = _build.stream_of(A)
+    stream = _build.stream_of(A) if stream is None else stream
     if depthwise:
         splits, rchunk = _split_rows(R, -(-MA * CO // 256))
         launch, what = lib.mcconv_bwd_dw2_depthwise_launch, "mcconv_bwd_dw2_depthwise_kernel"
@@ -511,30 +546,29 @@ def _split_wcat(dwcat, H, C, c_out, w2, b2):
 # ------------------------------------------------------------------ K1v1 and K2v1
 
 
-def _check_v1(name, tensors, C, H):
-    _build.require_cuda(name, *tensors)
-    if any(t.dtype != torch.float32 for t in tensors if t.is_floating_point()):
-        raise TypeError(f"{name}: positions, features, params, counts and dout must be float32")
-    if H != HIDDEN or C > MAX_C:
-        raise NotImplementedError(f"{name} is built for H={HIDDEN} and C<={MAX_C}; "
-                                  f"got H={H}, C={C}")
-
-
 def _forward_cuda_v1(params, sample_pts, sample_mask, source_pts, source_mask, wf, radius,
                      c_out, mean_normalize):
-    """Launch K1v1 (one kernel: pairs, G in the block, projection): ``(out, cnt)``."""
+    """Launch K1v1 (one kernel: in-radius lists, the tile's G in the block, its
+    fold into (W2, b2)): ``(out, cnt)``."""
     global launches_v1
+    name = "dense_mc_conv (K1v1)"
     w1, b1, w2, b2 = (t.contiguous() for t in params)
     sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
     source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
     wf = wf.contiguous()
     B, M, _ = sample_pts.shape
     N, C, H = source_pts.shape[1], wf.shape[-1], w1.shape[1]
-    _check_v1("dense_mc_conv (K1v1)", (sample_pts, sample_mask, source_pts, source_mask, wf,
-                                       w1, b1, w2, b2), C, H)
+    floats = (sample_pts, source_pts, wf, w1, b1, w2, b2)
+    _build.require_cuda(name, sample_mask, source_mask, *floats)
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"{name}: positions, features and params must be float32")
+    if H != HIDDEN or C > MAX_C:
+        raise NotImplementedError(f"{name} is built for H={HIDDEN} and C<={MAX_C}; "
+                                  f"got H={H}, C={C}")
     dev = sample_pts.device
-    out = torch.zeros((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((B, M), dtype=torch.float32, device=dev)
+    new = torch.zeros if B * M == 0 or N == 0 else torch.empty  # the kernel writes every value
+    out = new((B, M, C if c_out is None else c_out), dtype=torch.float32, device=dev)
+    cnt = new((B, M), dtype=torch.float32, device=dev)
     if B * M == 0 or N == 0:
         return out, cnt
     err = _build.library().mcconv_v1_fwd_launch(
@@ -544,7 +578,7 @@ def _forward_cuda_v1(params, sample_pts, sample_mask, source_pts, source_mask, w
         radius_sq(radius), float(radius), _build.ptr(out), _build.ptr(cnt),
         _build.stream_of(sample_pts),
     )
-    _build.check(err, "mcconv_v1_fwd_kernel (K1v1)")
+    _build.check(err, "mcconv_v1_tile_kernel (K1v1)")
     launches_v1 += 1
     return out, cnt
 
@@ -592,54 +626,17 @@ def dense_mc_conv_v1_backward_cuda(
 ):
     """Launch K2v1 on CUDA tensors; the arguments and outputs of its plain version.
 
-    Each block walks a run of (cloud, source tile) units and sums their
-    [dW2; db2] into its own partial of ``L = (H+1) * C * (c_out or 1)``
-    floats; at most ``_V1_PARTIAL_FLOATS`` of them in all, and at most
-    ``_TARGET_BLOCKS`` blocks. K2's reduction kernel sums the partials in
-    block order."""
+    G's rows are formed again from sample-owner in-radius lists by K1v1's
+    tile kernel (``csrc/dense_conv_v1_bwd.cu``), then K2's dG GEMM (full
+    sites), row-split [dW2; db2] GEMM, pair kernel and reduction run on them
+    (``_backward_cuda``): K2's gradients on K1's G, bit for bit. K1's and
+    K2's launch counters do not move."""
     global backward_launches_v1
-    w1, b1, w2, b2 = (t.contiguous() for t in params)
-    sample_pts, sample_mask = sample_pts.contiguous(), sample_mask.contiguous()
-    source_pts, source_mask = source_pts.contiguous(), source_mask.contiguous()
-    wf, cnt, dout = wf.contiguous(), cnt.contiguous(), dout.contiguous()
-    B, M, _ = sample_pts.shape
-    N, C, H = source_pts.shape[1], wf.shape[-1], w1.shape[1]
-    CO = C if c_out is None else c_out
-    _check_v1("dense_mc_conv_v1_backward_cuda (K2v1)",
-              (sample_pts, sample_mask, source_pts, source_mask, wf, w1, b1, w2, b2, cnt,
-               dout), C, H)
-    if tuple(cnt.shape) != (B, M) or tuple(dout.shape) != (B, M, CO):
-        raise ValueError(f"dense_mc_conv_v1_backward_cuda: cnt {tuple(cnt.shape)} / dout "
-                         f"{tuple(dout.shape)} do not match B={B}, M={M}, CO={CO}")
-    dev = sample_pts.device
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-    L = (H + 1) * C * (1 if c_out is None else c_out)
-    d_wf, w1b1 = zeros(B, N, C), zeros(4, H)
-    dwcat = zeros(H + 1, C) if c_out is None else zeros(L)  # the layout _split_wcat takes
-    if B * M == 0 or N == 0:
-        return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
-    lib = _build.library()
-    stream = _build.stream_of(sample_pts)
-    tiles = lib.mcconv_v1_bwd_tiles(N, M, C, c_out or 0)
-    if tiles <= 0:
-        raise ValueError(f"dense_mc_conv_v1_backward_cuda: refused shape N={N}, M={M}, C={C}, "
-                         f"CO={c_out}")
-    blocks = max(1, min(B * tiles, _TARGET_BLOCKS, _V1_PARTIAL_FLOATS // L))
-    part_w, part_p = zeros(blocks, L), zeros(blocks, 4 * H)
-    err = lib.mcconv_v1_bwd_launch(
-        _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
-        _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
-        _build.ptr(w2), _build.ptr(b2), _build.ptr(cnt), _build.ptr(dout), B, M, N, C,
-        c_out or 0, H, int(mean_normalize), radius_sq(radius), float(radius), blocks,
-        _build.ptr(d_wf), _build.ptr(part_w), _build.ptr(part_p), stream,
-    )
-    _build.check(err, "mcconv_v1_bwd_kernel (K2v1)")
-    for part, out, what in ((part_w, dwcat, "dW2, db2"), (part_p, w1b1, "dW1, db1")):
-        err = lib.mcconv_bwd_reduce_launch(_build.ptr(part), blocks, part.shape[1],
-                                           _build.ptr(out), stream)
-        _build.check(err, f"mcconv_bwd_reduce_kernel (K2v1 {what})")
+    grads = _backward_cuda("dense_mc_conv_v1_backward_cuda (K2v1)", params, sample_pts,
+                           sample_mask, source_pts, source_mask, wf, radius, cnt, dout, c_out,
+                           mean_normalize)
     backward_launches_v1 += 1
-    return d_wf, w1b1[:3], w1b1[3], *_split_wcat(dwcat, H, C, c_out, w2, b2)
+    return grads
 
 
 # ------------------------------------------------------------------ autograd

@@ -1,7 +1,8 @@
 """K1 and K2 with this checkout's pair kernels against another checkout's, on
-the same inputs in one process on the card.
+the same inputs in one process on the card; with ``--v1``, K1v1 and K2v1.
 
     python -m mccnn_tpu_torch.tools.dense_ab OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --v1 OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
 ``ops/cuda/_build.py``, in a child process) and loaded beside this one's.
@@ -21,6 +22,16 @@ each K1 and K2, of each pair kernel alone (CUDA events, warm, best of
 several runs, taken in the order other, this, this, other) and of each
 one's GEMM parts, K1's projection and K2's dG / dW2 GEMMs. The outputs
 differ where this checkout splits a GEMM's reduction (``out_rel_diff``).
+With ``--v1`` it runs this checkout's K1v1 / K2v1 (``dense_conv``'s
+wrappers) against the other checkout's ``mcconv_v1_fwd_launch`` /
+``mcconv_v1_bwd_launch`` (``OTHER_V1_SIGNATURES``: the single-launch K2v1
+with per-block [dW2; db2] partials, sized as its wrapper sized them and
+reduced by this checkout's reduction kernel) at the 14 dense sites of
+MCClass and MCClassH (``ZOO_SITES``, B = 32), and prints per site whether
+the counts and K1v1's ``out`` are bit-equal, the largest relative
+difference of ``out`` and of each K2v1 gradient, and both checkouts' times
+of each kernel (order other, this, this, other), then their sums.
+
 It refuses to run without a CUDA device.
 """
 
@@ -48,6 +59,36 @@ OTHER_SIGNATURES = {
     "mcconv_bwd_dg_depthwise_launch": [P] * 3 + [I] * 3 + [P] * 2,
 }
 OTHER_BLOCKS = [I, I, I]  # mcconv_bwd_pair_blocks(N, M, C): partial rows a cloud
+OTHER_V1_SIGNATURES = {
+    "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
+    "mcconv_v1_bwd_tiles": [I] * 4,
+    "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
+}
+# The other K2v1's partials: at most this many blocks, and floats in all.
+OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS = 264, 64 << 20
+
+RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
+# Every dense conv site of the classification zoo at its published widths
+# (mccnn_tpu/models/mcclass.py, mcclass_h.py), N = 1024: MCClass (grow 64) on
+# the hierarchy 0.1 / 0.2 / 0.4, MCClassH (grow 128) on path A's 0.1 / 0.4 and
+# path B's 0.1 / 0.2 / 0.4. (name, hierarchy radii, in level, out level,
+# radius (None: the global radius), C, CO (None: depthwise)).
+ZOO_SITES = [
+    ("MCClass stem", RADII_3, 0, 0, 0.1, 1, 64),
+    ("MCClass down_0_1", RADII_3, 0, 1, 0.2, 64, None),
+    ("MCClass same_1", RADII_3, 1, 1, 0.2, 128, None),
+    ("MCClass down_1_2", RADII_3, 1, 2, 0.4, 128, None),
+    ("MCClass same_2", RADII_3, 2, 2, 0.4, 256, None),
+    ("MCClass down_2_3", RADII_3, 2, 3, 0.8, 256, None),
+    ("MCClass same_3", RADII_3, 3, 3, 0.8, 512, None),
+    ("MCClass down_3_4", RADII_3, 3, 4, None, 512, None),
+    ("MCClassH path_a conv_0_1", RADII_2, 0, 1, 0.2, 1, 128),
+    ("MCClassH path_a conv_1_2", RADII_2, 1, 2, 0.8, 128, 256),
+    ("MCClassH path_a conv_2_3", RADII_2, 2, 3, None, 256, 1024),
+    ("MCClassH path_b conv_1_2", RADII_3, 1, 2, 0.4, 1, 128),
+    ("MCClassH path_b conv_2_3", RADII_3, 2, 3, 0.8, 128, 256),
+    ("MCClassH path_b conv_3_4", RADII_3, 3, 4, None, 256, 1024),
+]
 
 
 def _levels(points, mask, radii, global_level, dev):
@@ -58,16 +99,21 @@ def _levels(points, mask, radii, global_level, dev):
     return [(lv.points.to(dev), lv.mask.to(dev)) for lv in hier.levels]
 
 
+def _clouds(seed: int, b: int) -> np.ndarray:
+    """``b`` synthetic classification clouds of 1024 points, normalised."""
+    from mccnn_tpu_torch.data.datasets import _normalize_np
+    from mccnn_tpu_torch.data.synthetic import classification_batch
+
+    pts, _ = classification_batch(np.random.default_rng(seed), b, 1024)
+    return np.stack([_normalize_np(p) for p in pts])
+
+
 def mcclass_s_sites(b: int, dev) -> list:
     """MCClassS's three conv sites on a batch of ``b`` synthetic clouds:
     ``(name, sample level, source level, radius, C, CO)``, with the levels."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
-    from mccnn_tpu_torch.data.datasets import _normalize_np
-    from mccnn_tpu_torch.data.synthetic import classification_batch
 
-    pts, _ = classification_batch(np.random.default_rng(SEED + b), b, 1024)
-    pts = np.stack([_normalize_np(p) for p in pts])
-    lv = _levels(pts, np.ones((b, 1024), bool), (0.1, 0.4), True, dev)
+    lv = _levels(_clouds(SEED + b, b), np.ones((b, 1024), bool), RADII_2, True, dev)
     return [("MCClassS conv_0_1", lv[1], lv[0], 0.2, 1, 128),
             ("MCClassS conv_1_2", lv[2], lv[1], 0.8, 128, 256),
             ("MCClassS conv_2_g", lv[3], lv[2], GLOBAL_RADIUS, 256, 1024)]
@@ -89,6 +135,18 @@ def shapenet_sites(b: int, dev) -> list:
             ("ShapeNet dec_1_0", lv[0], lv[1], r1, 256, None)]
 
 
+def zoo_sites(b: int, dev) -> list:
+    """The 14 sites of ``ZOO_SITES`` on a batch of ``b`` synthetic clouds (the
+    clouds ``chip_smoke.py`` checks K1v1 / K2v1 on), as ``mcclass_s_sites``
+    gives them."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
+
+    pts, mask = _clouds(SEED + 20 + b, b), np.ones((b, 1024), bool)
+    lvs = {radii: _levels(pts, mask, radii, True, dev) for radii in (RADII_3, RADII_2)}
+    return [(name, lvs[radii][o], lvs[radii][i], GLOBAL_RADIUS if r is None else r, c, co)
+            for name, radii, i, o, r, c, co in ZOO_SITES]
+
+
 def site_inputs(site, gen, dev):
     """Seeded parameters, weighted features and dout of one site."""
     from mccnn_tpu_torch.core.mcconv import init_mcconv_params
@@ -106,18 +164,64 @@ def site_inputs(site, gen, dev):
     return params, smp, qmask, src, smask, wf, dout
 
 
-def other_library(checkout: str):
-    """Build the other checkout's kernel library there and load it."""
+def other_library(checkout: str, signatures: dict):
+    """Build the other checkout's kernel library there and load it, with the
+    argument types of ``signatures`` (name -> types)."""
     code = "from mccnn_tpu_torch.ops.cuda import _build; print(_build.library().path)"
     out = subprocess.run([sys.executable, "-c", code], cwd=checkout, capture_output=True,
                          text=True, check=True)
     lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
-    for name, argtypes in OTHER_SIGNATURES.items():
+    for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
-    lib.mcconv_bwd_pair_blocks.argtypes = OTHER_BLOCKS
-    lib.mcconv_bwd_pair_blocks.restype = ctypes.c_int
     return lib
+
+
+def other_k1v1(lib, params, smp, qmask, src, smask, wf, radius, co, mean=False):
+    """The other checkout's K1v1, as its wrapper launched it: ``(out, cnt)``."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build
+
+    ptr = _build.ptr
+    b, m, _ = smp.shape
+    n, c = src.shape[1], wf.shape[-1]
+    out = torch.zeros((b, m, c if co is None else co), dtype=torch.float32, device=smp.device)
+    cnt = torch.zeros((b, m), dtype=torch.float32, device=smp.device)
+    _build.check(lib.mcconv_v1_fwd_launch(
+        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
+        ptr(params.w2), ptr(params.b2), b, m, n, c, co or 0, H, int(mean), radius_sq(radius),
+        float(radius), ptr(out), ptr(cnt), _build.stream_of(smp)), "other K1v1")
+    return out, cnt
+
+
+def other_k2v1(lib, params, smp, qmask, src, smask, wf, radius, cnt, dout, co, mean=False):
+    """The other checkout's K2v1, as its wrapper launched it (per-block
+    [dW2; db2] partials), its partials summed by this checkout's reduction
+    kernel: ``(d_wf, dw1, db1, dw2, db2)``."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
+
+    ptr, this = _build.ptr, _build.library()
+    b, m, _ = smp.shape
+    n, c = src.shape[1], wf.shape[-1]
+    dev, stream = smp.device, _build.stream_of(smp)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
+    L = (H + 1) * c * (1 if co is None else co)
+    d_wf, w1b1 = zeros(b, n, c), zeros(4, H)
+    dwcat = zeros(H + 1, c) if co is None else zeros(L)
+    tiles = lib.mcconv_v1_bwd_tiles(n, m, c, co or 0)
+    blocks = max(1, min(b * tiles, OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS // L))
+    part_w, part_p = zeros(blocks, L), zeros(blocks, 4 * H)
+    _build.check(lib.mcconv_v1_bwd_launch(
+        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
+        ptr(params.w2), ptr(params.b2), ptr(cnt), ptr(dout), b, m, n, c, co or 0, H, int(mean),
+        radius_sq(radius), float(radius), blocks, ptr(d_wf), ptr(part_w), ptr(part_p), stream),
+        "other K2v1")
+    for part, out in ((part_w, dwcat), (part_p, w1b1)):
+        _build.check(this.mcconv_bwd_reduce_launch(ptr(part), blocks, part.shape[1], ptr(out),
+                                                   stream), "reduce")
+    return (d_wf, w1b1[:3], w1b1[3],
+            *dense_conv._split_wcat(dwcat, H, c, co, params.w2, params.b2))
 
 
 def k1(pair_lib, other, params, smp, qmask, src, smask, wf, radius, co, part=None,
@@ -219,17 +323,73 @@ def k2(pair_lib, other, params, smp, qmask, src, smask, wf, radius, G, cnt, dout
     return (d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, c, co, w2, b2))
 
 
+def rel_diff(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def main_v1(other, dev) -> int:
+    """K1v1 / K2v1 of this checkout against ``other``'s at the zoo's 14 sites."""
+    from mccnn_tpu_torch.ops.cuda import dense_conv
+
+    from . import best_ms
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    total = np.zeros(4)  # K1v1 other, this; K2v1 other, this
+    for site in zoo_sites(B, dev):
+        name, _, _, radius, c, co = site
+        params, smp, qmask, src, smask, wf, dout = site_inputs(site, gen, dev)
+        fargs = (params, smp, qmask, src, smask, wf, radius, co)
+        with torch.no_grad():
+            o_out, o_cnt = other_k1v1(other, *fargs)
+            n_out, n_cnt = dense_conv._forward_cuda_v1(*fargs, False)
+            bargs = (params, smp, qmask, src, smask, wf, radius, n_cnt, dout)
+            o_bwd = other_k2v1(other, *bargs, co)
+            n_bwd = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
+            torch.cuda.synchronize()
+            runs = {"K1v1": {"other": lambda: other_k1v1(other, *fargs),
+                             "this": lambda: dense_conv._forward_cuda_v1(*fargs, False)},
+                    "K2v1": {"other": lambda: other_k2v1(other, *bargs, co),
+                             "this": lambda: dense_conv.dense_mc_conv_v1_backward_cuda(
+                                 *bargs, c_out=co)}}
+            times = {}
+            for kid, fns in runs.items():
+                for who in ("other", "this", "this", "other"):
+                    # the best of 5 runs of 20 calls (host-bound calls are noisy),
+                    # of 3 runs of 3 where one call takes over 5 ms (the other K2v1)
+                    fast = best_ms(fns[who], iters=1, reps=1) < 5
+                    ms = best_ms(fns[who], iters=20 if fast else 3, reps=5 if fast else 3)
+                    times[kid, who] = min(times.get((kid, who), float("inf")), ms)
+        total += [times["K1v1", "other"], times["K1v1", "this"], times["K2v1", "other"],
+                  times["K2v1", "this"]]
+        grads = ", ".join(f"{g} {rel_diff(a, r):.3e}" for g, a, r in
+                          zip(("d_wf", "dw1", "db1", "dw2", "db2"), n_bwd, o_bwd))
+        print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
+              f"cnt_bit_equal={torch.equal(o_cnt, n_cnt)} out_bit_equal="
+              f"{torch.equal(o_out, n_out)} out_rel_diff={rel_diff(n_out, o_out):.3e}; K2v1 "
+              f"rel_diff {grads}; K1v1_ms other={times['K1v1', 'other']:.4f} "
+              f"this={times['K1v1', 'this']:.4f} K2v1_ms other={times['K2v1', 'other']:.4f} "
+              f"this={times['K2v1', 'this']:.4f}", flush=True)
+    print(f"over the {len(ZOO_SITES)} sites: K1v1_ms other={total[0]:.4f} this={total[1]:.4f} "
+          f"K2v1_ms other={total[2]:.4f} this={total[3]:.4f}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     from mccnn_tpu_torch.ops.cuda import _build
 
     from . import best_ms, card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
+    v1 = argv[:1] == ["--v1"]
+    argv = argv[1:] if v1 else argv
     if len(argv) != 1 or not os.path.isdir(argv[0]):
-        raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab OTHER_CHECKOUT")
+        raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab [--v1] OTHER_CHECKOUT")
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
-    this, other = _build.library(), other_library(argv[0])
+    if v1:
+        return main_v1(other_library(argv[0], OTHER_V1_SIGNATURES), dev)
+    this = _build.library()
+    other = other_library(argv[0], {**OTHER_SIGNATURES, "mcconv_bwd_pair_blocks": OTHER_BLOCKS})
     gen = torch.Generator().manual_seed(SEED)
     sites = mcclass_s_sites(B, dev) + shapenet_sites(B, dev)
     for site in sites:

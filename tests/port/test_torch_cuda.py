@@ -271,45 +271,96 @@ def test_pair_kernels_match_plain_on_their_edge_cases(cuda, name, B, N, M, C, CO
     assert torch.equal(got[0][~smask], torch.zeros_like(got[0][~smask]))
 
 
-V1_CASES = [(1, 16, False), (8, 4, True), (8, None, False), (8, None, True), (300, 2, False),
-            (40, 600, False)]
+# (name, c_in, c_out, mean, geometry): K1v1 / K2v1's cases. "base" is
+# _k2_inputs at r 0.3; the others are (B, N sources, M samples, radius) on
+# _sphere clouds: "overflow" gives every sample all 1000 sources and every
+# source all 600 samples in radius, more than a list holds, so the sweeps
+# resume in rounds; "masked" masks whole groups of 32 samples and sources;
+# "global" is the M = 1 site at C = 256, CO = 1024; "stem" the C = 1 stem
+# at CO = 128.
+V1_CASES = [("base", 1, 16, False, None), ("base", 8, 4, True, None),
+            ("base", 8, None, False, None), ("base", 8, None, True, None),
+            ("base", 300, 2, False, None), ("base", 40, 600, False, None),
+            ("overflow", 4, 8, False, (1, 1000, 8, GLOBAL_R)),
+            ("overflow", 16, None, True, (1, 600, 600, GLOBAL_R)),
+            ("masked", 8, 4, False, (2, 300, 200, 0.3)),
+            ("masked", 64, None, True, (2, 300, 200, 0.3)),
+            ("global", 256, 1024, False, (3, 40, 1, GLOBAL_R)),
+            ("stem", 1, 128, False, (2, 256, 70, 0.3))]
+
+
+def _v1_inputs(device, name, c_in, c_out, geometry):
+    """``(params, smp, qmask, src, smask, wf, dout, radius)`` of a V1_CASES case."""
+    if geometry is None:
+        params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(device, c_in, c_out)
+        return (params, smp, qmask, src, smask, dense_conv._weighted_features(feats, pdf, smask),
+                dout, 0.3)
+    B, N, M, radius = geometry
+    g = torch.Generator().manual_seed(17)
+    src = _sphere(18, B, N, device)
+    smp = src if N == M else _sphere(19, B, M, device)
+    smask = torch.ones((B, N), dtype=torch.bool, device=device)
+    qmask = torch.ones((B, M), dtype=torch.bool, device=device)
+    if name == "masked":  # whole groups of 32 padding points on both sides
+        qmask[:, :64] = False
+        qmask[1, 150:] = False
+        smask[:, 32:128] = False
+    params = init_mcconv_params(g, c_in, c_out, device=device)
+    params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device),
+                             b2=(0.1 * torch.randn(params.b2.shape, generator=g)).to(device))
+    feats = torch.randn((B, N, c_in), generator=g).to(device)
+    pdf = (torch.rand((B, N), generator=g) + 0.5).to(device)
+    dout = torch.randn((B, M, c_in if c_out is None else c_out), generator=g).to(device)
+    return (params, smp, qmask, src, smask, dense_conv._weighted_features(feats, pdf, smask),
+            dout, radius)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean", V1_CASES)
-def test_v1_kernels_match_plain_and_k1_k2_and_repeat_bitwise(cuda, c_in, c_out, mean):
-    params, smp, qmask, src, smask, feats, pdf, dout = _k2_inputs(cuda, c_in, c_out)
-    wf = dense_conv._weighted_features(feats, pdf, smask)
-    fargs = (params, smp, qmask, src, smask, wf, 0.3, c_out, mean)
+@pytest.mark.parametrize("name,c_in,c_out,mean,geometry", V1_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}" for c in V1_CASES])
+def test_v1_kernels_match_plain_and_k1_k2_and_repeat_bitwise(cuda, name, c_in, c_out, mean,
+                                                             geometry):
+    """K1v1 against its plain version and K1, K2v1 against its plain version
+    and bit for bit against K2 on K1's G (K2v1 forms the same G rows and runs
+    K2's kernels on them), both bit for bit on repeat; two K2v1 calls move
+    only K2v1's counter."""
+    params, smp, qmask, src, smask, wf, dout, radius = _v1_inputs(cuda, name, c_in, c_out,
+                                                                  geometry)
+    fargs = (params, smp, qmask, src, smask, wf, radius, c_out, mean)
     before = (dense_conv.launches_v1, dense_conv.backward_launches_v1)
     out, cnt = dense_conv._forward_cuda_v1(*fargs)
     again, _ = dense_conv._forward_cuda_v1(*fargs)
-    want, wcnt, G = dense_conv._forward_reference(*fargs)
-    k1, _, _ = dense_conv._forward_cuda(*fargs)
+    want, wcnt, _ = dense_conv._forward_reference(*fargs)
+    k1, k1cnt, G1 = dense_conv._forward_cuda(*fargs)
     torch.cuda.synchronize()
-    assert torch.equal(out, again) and torch.equal(cnt, wcnt)  # no atomics
+    assert torch.equal(out, again) and torch.equal(cnt, wcnt) and torch.equal(cnt, k1cnt)
+    assert torch.isfinite(out).all()
     scale = float(want.abs().max())
     # fp32 sums over neighbours and channels in other orders (TF32 off)
     for ref in (want, k1):
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * scale)
-    bargs = (params, smp, qmask, src, smask, wf, 0.3, cnt, dout)
+    bargs = (params, smp, qmask, src, smask, wf, radius, cnt, dout)
     kw = dict(c_out=c_out, mean_normalize=mean)
-    got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
-    again = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
-    want = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, **kw)
-    k2 = dense_conv.dense_mc_conv_backward_cuda(params, smp, qmask, src, smask, wf, 0.3, G,
+    k2 = dense_conv.dense_mc_conv_backward_cuda(params, smp, qmask, src, smask, wf, radius, G1,
                                                 cnt, dout, **kw)
     torch.cuda.synchronize()
+    k12 = (dense_conv.launches, dense_conv.backward_launches)
+    got = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
+    again = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    assert (dense_conv.launches, dense_conv.backward_launches) == k12
+    want = dense_conv.dense_mc_conv_v1_backward_reference(*bargs, **kw)
     assert (dense_conv.launches_v1, dense_conv.backward_launches_v1) == (before[0] + 2,
                                                                          before[1] + 2)
-    for name, a, a2, w, w2 in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want, k2):
-        assert a.shape == w.shape, name
-        assert torch.equal(a, a2), f"{name}: two calls differ"
+    for part, a, a2, w, w2 in zip(("d_wf", "dw1", "db1", "dw2", "db2"), got, again, want, k2):
+        assert a.shape == w.shape, part
+        assert torch.equal(a, a2), f"{part}: two calls differ"
+        assert torch.equal(a, w2), f"{part}: differs from K2 on K1's G"
+        assert torch.isfinite(a).all(), part
         # fp32 sums over pairs, channels and partials in other orders; the
-        # plain version and K2 round pre_h as mc_preact does (the same ReLU steps)
-        for ref in (w, w2):
-            torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()),
-                                       msg=name)
+        # plain version rounds pre_h as mc_preact does (the same ReLU steps)
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=part)
+    assert torch.equal(got[0][~smask], torch.zeros_like(got[0][~smask]))
 
 
 @pytest.mark.cuda
@@ -875,7 +926,7 @@ def test_tile_variant_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean", V1_CASES)
+@pytest.mark.parametrize("c_in,c_out,mean", [c[1:4] for c in V1_CASES if c[4] is None])
 def test_planes_kernel_matches_plain_and_k1_and_repeats_bitwise(cuda, c_in, c_out, mean):
     params, smp, qmask, src, smask, feats, pdf, _ = _k2_inputs(cuda, c_in, c_out)
     wf = dense_conv._weighted_features(feats, pdf, smask)

@@ -143,13 +143,17 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
 25. The same ``tasks.normals`` run under ``MCCNN_POISSON_SWEEP=v2``, ``v3``
    and ``v4``, each in a child process: its counters must show that
    variant's kernel launched and no other variant's.
-26. The roofline instruments. K1p (the dense forward with its planes on
-   the tensor cores, ``MCCNN_DENSE_PLANES=mxu``) at the zoo's 14 sites and
-   MCClassS's 3 for batches of 8 and 32: against its plain version and K1 on
-   the same inputs, bit for bit on repeat; at B=32 the times of K1p, its
-   plain version, K1 and one torch.matmul of the GEMM part, and the bounds.
+26. The roofline instruments. K1p (the dense forward over K1's in-radius
+   lists with its pre-activations on the tensor cores,
+   ``MCCNN_DENSE_PLANES=mxu``) at the zoo's 14 sites and MCClassS's 3 for
+   batches of 8 and 32: against its plain version and K1 on the same inputs,
+   its count equal to K1's, bit for bit on repeat, with each site's valid
+   and in-radius pair counts; at B=32 the times of K1p, its plain version,
+   K1 and one torch.matmul of the GEMM part, the bounds, and K1p / K1 summed
+   over the zoo's sites, MCClassS's and the C = 1 stems.
 27. MCClass training under ``MCCNN_DENSE_PLANES=mxu`` in a child process: its
-   counters must show K1p and K2 launched and K1 not.
+   counters must show K1p and K2 launched and K1 not; its warm step is
+   printed beside the default trainer's.
 28. The K5 / K6 probes (``MCCNN_TILE_PROBE``: noop, planes, mm, bwd_noop) at
    the four ScanNet tile sites of the B=8 x 8192 block batch: each against
    its plain version, the packed ones (K5p / K6p) bit for bit against the
@@ -162,7 +166,9 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    r=0.2): each against its plain version, bit for bit on repeat, with times,
    the bounds of each variant's function (planes and contractions over the
    in-radius pairs) and the library calls (``xla_equiv``'s torch.matmul,
-   noop's torch.full); then
+   noop's torch.full); mm_big (its H+1 contractions as bf16 tensor-core
+   GEMMs) also beside the walked floor of its contractions at the bf16 peak
+   and its ratios to ``xla_equiv`` and mm_only; then
    ``tools.dense_breakdown`` prints its table, every variant launched.
 30. K9a / K10a (the bucket conv and its backward over the first NBA
    occupied bricks, ``bucket_mc_conv(..., max_active_bricks=)``) at
@@ -2699,8 +2705,10 @@ def check_planes_kernels(dev, b: int, timed: bool) -> list:
     batch of ``b`` clouds of N points (hierarchies built by the CPU plain
     path), against its plain version and K1 on the same inputs, bit for bit
     on repeat; with ``timed``, CUDA-event times of K1p, its plain version, K1
-    and one torch.matmul of the GEMM part (full sites), and the bounds.
-    Returns the rows of the kernels line."""
+    and one torch.matmul of the GEMM part (full sites), and the bounds; per
+    site the valid and in-radius pair counts, and summed K1p / K1 over the
+    zoo's sites, MCClassS's, and the C = 1 stems alone. Returns the rows of
+    the kernels line."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
     from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
     from mccnn_tpu_torch.tools.dense_ab import ZOO_SITES
@@ -2709,7 +2717,7 @@ def check_planes_kernels(dev, b: int, timed: bool) -> list:
     lvs = {radii: levels(req, dev, radii) for radii in (RADII_3, RADII_2)}
     gen = torch.Generator().manual_seed(SEED + 30)
     rows = []
-    sums = {"zoo": [0.0, 0.0], "MCClassS": [0.0, 0.0]}  # K1p ms, K1 ms
+    sums = {"zoo": [0.0, 0.0], "MCClassS": [0.0, 0.0], "C = 1 stem": [0.0, 0.0]}  # K1p, K1 ms
     with torch.no_grad():
         for site, radii, i, o, radius, c, co in ZOO_SITES + MCCLASSS_SITES:
             radius = GLOBAL_RADIUS if radius is None else radius
@@ -2736,10 +2744,11 @@ def check_planes_kernels(dev, b: int, timed: bool) -> list:
                     f"K1p at {site}: {e_plain:.3e} of the largest output from its plain version, "
                     f"{e_k1:.3e} from K1 (limit {K1P_RTOL:g})")
             mode = "depthwise" if co is None else "full"
-            line = (f"K1p B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co}: rel_err plain="
-                    f"{e_plain:.3e} K1={e_k1:.3e} (max |out| {scale:.3e}) bitwise_repeatable=True")
+            valid, inr = pair_counts(smp, qmask, src, smask, radius)
+            line = (f"K1p B={b} {site} ({mode}) N={Ns} M={M} C={c} CO={co} pairs valid={valid} "
+                    f"in_radius={inr}: rel_err plain={e_plain:.3e} K1={e_k1:.3e} (max |out| "
+                    f"{scale:.3e}) bitwise_repeatable=True count_equals_K1=True")
             if timed:
-                valid, inr = pair_counts(smp, qmask, src, smask, radius)
                 ms = time_ms(lambda: dense_conv.dense_mc_conv_planes_cuda(*fargs))
                 pms = time_ms(lambda: dense_conv._forward_planes_reference(*fargs), iters=3)
                 k1ms = time_ms(lambda: dense_conv._forward_cuda(*fargs))
@@ -2751,8 +2760,10 @@ def check_planes_kernels(dev, b: int, timed: bool) -> list:
                 line += (f" K1p_ms={ms:.4f} plain_ms={pms:.4f} K1_ms={k1ms:.4f} "
                          f"bound_ms={bms:.6f} ({by}) matmul_ms={lms}")
                 rows.append((e_plain * scale, ms, pms, bms, by, lms))
-                group = sums["MCClassS" if site.startswith("MCClassS") else "zoo"]
-                group[0], group[1] = group[0] + ms, group[1] + k1ms
+                for key in ["MCClassS" if site.startswith("MCClassS") else "zoo"] + (
+                        ["C = 1 stem"] if c == 1 else []):
+                    sums[key][0] += ms
+                    sums[key][1] += k1ms
             print(line, flush=True)
     if timed:
         print("K1p against K1, summed: " + "; ".join(
@@ -2936,8 +2947,11 @@ def check_t1(dev) -> dict:
     """T1's variants at the tool's shapes against their plain versions, bit
     for bit on repeat; times, plain times, bounds, and the library calls:
     the tool's ``xla_equiv`` (torch.matmul) for mm_only and mm_big, one
-    ``torch.full`` of w2[0, 0] for noop."""
+    ``torch.full`` of w2[0, 0] for noop. Beside mm_big, the walked floor of
+    its (H+1) contractions at the bf16 tensor-core peak and its ratios to
+    ``xla_equiv`` and mm_only."""
     from mccnn_tpu_torch.ops.cuda import dense_probe
+    from mccnn_tpu_torch.tools import PEAK_BF16_FLOP_PER_S
     from mccnn_tpu_torch.tools import dense_breakdown as db
 
     pts, feats, w1, b1, w2, b2 = db.inputs(dev)
@@ -2958,16 +2972,21 @@ def check_t1(dev) -> dict:
             e = float((got - want).abs().max())
             require(scale > 0 and e <= T1_RTOL * scale,
                     f"T1 {v}: {e:.3e} of {scale:.3e} from its plain version")
-            ms = time_ms(lambda: dense_probe.dense_probe_cuda(v, *args),
-                         iters=2 if v == "mm_big" else 10)
+            ms = time_ms(lambda: dense_probe.dense_probe_cuda(v, *args), iters=10)
             pms = time_ms(lambda: dense_probe.dense_probe_reference(v, *args), iters=1)
             bms, by = t1_bound(v, inr)
             lib = lms if v in ("mm_only", "mm_big") else full_ms if v == "noop" else None
             rows[f"T1 {v}"] = (e, ms, pms, bms, by, lib)
-            print(f"T1 {v} B={db.B} N=M={db.N} C={db.C} r={db.RADIUS} in_radius={inr}: "
-                  f"max_abs_err={e:.3e} "
-                  f"max_abs_out={scale:.3e} bitwise_repeatable=True kernel_ms={ms:.4f} "
-                  f"plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) library_ms={lib}", flush=True)
+            line = (f"T1 {v} B={db.B} N=M={db.N} C={db.C} r={db.RADIUS} in_radius={inr}: "
+                    f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
+                    f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) "
+                    f"library_ms={lib}")
+            if v == "mm_big":
+                walked = db.t1_ops(v, db.B * db.M * db.N, inr, walked=True)
+                line += (f" walked_bf16_floor_ms={walked / PEAK_BF16_FLOP_PER_S * 1e3:.6f} "
+                         f"({walked} tensor-core operations) x_xla_equiv={ms / lms:.4f} "
+                         f"x_mm_only={ms / rows['T1 mm_only'][1]:.4f}")
+            print(line, flush=True)
     return rows
 
 
@@ -3359,7 +3378,9 @@ def main() -> int:
                   "mccnn_tpu_torch/csrc/tile_conv_bwd_probe.cu",
                   "mccnn_tpu/ops/pallas/tile_conv.py:718", [tile_results["K6 bwd_noop"]],
                   roofline_launches, SEG_B)]
-    roofline += [(f"T1 {v}", f"dense_probe_{v}", "mccnn_tpu_torch/csrc/dense_probe.cu",
+    roofline += [(f"T1 {v}", f"dense_probe_{v}",
+                  "mccnn_tpu_torch/csrc/dense_probe_mm_big.cu" if v == "mm_big"
+                  else "mccnn_tpu_torch/csrc/dense_probe.cu",
                   f"tools/exp_dense_breakdown.py:{line}", [t1_results[f"T1 {v}"]],
                   breakdown_launches, SERVE_B) for v, line in t1_lines.items()]
     roofline += [("K9a", "bucket_mc_conv_active", "mccnn_tpu_torch/csrc/bucket_conv.cu",

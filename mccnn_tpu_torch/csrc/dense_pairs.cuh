@@ -1,5 +1,5 @@
-// The in-radius pair lists of the dense MC conv's pair kernels, K1
-// (dense_conv.cu) and K2 (dense_conv_bwd.cu).
+// The in-radius pair lists of the dense MC conv's pair kernels, K1 and K1p
+// (dense_conv_pair.cuh) and K2 (dense_conv_bwd.cu).
 //
 // A block owns a few points of one cloud (K1: samples, K2: sources) and
 // sweeps the other side of the pair (K1: sources, K2: samples) in chunks
@@ -12,7 +12,8 @@
 // no valid point is skipped on its validity bits alone. Once an owner's list
 // for the round is complete, the warp forms the listed pairs' offsets and 8
 // activations a_h = relu(pre_h), one entry a lane: no lane waits on another
-// lane's hit, and dense lists keep every lane busy.
+// lane's hit, and dense lists keep every lane busy (K1p forms them on the
+// tensor cores instead, 16 entries an MMA).
 //
 // A list holds `cap` entries (cap >= 32). A warp stops an owner's sweep
 // before a group whose hits would not fit, and resumes there in the next
@@ -79,23 +80,52 @@ __device__ __forceinline__ bool in_radius(float4 q, const float4* opos, unsigned
   return d2 <= r2;
 }
 
+// How a round's complete list of owner s (owner point q, `len` entries at
+// idx, cloud indices, the staged chunk's first other at o0) gets its entries'
+// activations: the warp's lanes form each entry's offsets and 8 activations
+// a_h = relu(pre_h), one entry a lane, from the staged owner and chunk
+// (`mc_offset` / `mc_preact`, bit for bit as every other kernel forms them);
+// K2's lists (owner = source) keep the offsets too. K1p forms its entries
+// on the tensor cores instead (csrc/dense_conv_pair.cuh, `PlanesForm`).
+template <bool kOwnerIsSample>
+struct OffsetForm {
+  const float* w1;
+  const float* b1;
+  float radius;
+
+  __device__ __forceinline__ void operator()(int s, float4 q, const int* idx, int len, int o0,
+                                             const float4* opos, const Lists& L) const {
+    for (int e = threadIdx.x & 31; e < len; e += 32) {
+      const float4 p = opos[idx[e] - o0];
+      const float4 src = kOwnerIsSample ? p : q, smp = kOwnerIsSample ? q : p;
+      const float ox = mc_offset(src.x, smp.x, radius), oy = mc_offset(src.y, smp.y, radius),
+                  oz = mc_offset(src.z, smp.z, radius);
+      float a[kHidden];
+#pragma unroll
+      for (int h = 0; h < kHidden; ++h)
+        a[h] = fmaxf(mc_preact(ox, oy, oz, w1, b1, kHidden, h), 0.f);
+      float4* dst = reinterpret_cast<float4*>(L.act + (size_t)s * L.astride + 8 * e);
+      dst[0] = make_float4(a[0], a[1], a[2], a[3]);
+      dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+      if constexpr (!kOwnerIsSample) L.off[s * L.ostride + e] = make_float4(ox, oy, oz, 0.f);
+    }
+  }
+};
+
 // One round of the sweep over a staged chunk (`ngroups` groups of 32, the
 // chunk's first other at index o0 of its cloud): warp w takes owners w, w +
 // nwarps, ... . Owners are (x, y, z, |p|^2) with a validity flag; an invalid
 // owner lists nothing. kOwnerIsSample: K1's lists (owner = sample); else
 // K2's (owner = source, with the offsets). Two groups are tested at a time
 // (two independent d2 chains a lane) and their hits appended in order; once
-// an owner's list for the round is complete, the warp's lanes form its
-// entries' offsets and 8 activations a_h = relu(pre_h), one entry a lane,
-// from the staged owner and chunk (`mc_offset` / `mc_preact`, bit for bit as
-// every other kernel forms them). Returns true where an owner stopped before
-// the chunk's end.
-template <bool kOwnerIsSample>
+// an owner's list for the round is complete, `form` gives its entries their
+// activations (the whole warp takes part). Returns true where an owner
+// stopped before the chunk's end.
+template <bool kOwnerIsSample, class Form>
 __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_valid,
                                             int n_owner, const float4* opos,
-                                            const unsigned* ogrp, int ngroups, int o0,
-                                            const float* w1, const float* b1, float r2,
-                                            float radius, Lists L) {
+                                            const unsigned* ogrp, int ngroups, int o0, float r2,
+                                            Lists L, const Form& form) {
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const unsigned below = (1u << lane) - 1u;
   bool more = false;
@@ -128,20 +158,7 @@ __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_va
     }
     if (g > ngroups) g = ngroups;
     __syncwarp();  // the list's indices are visible to every lane
-    for (int e = lane; e < len; e += 32) {
-      const float4 p = opos[idx[e] - o0];
-      const float4 src = kOwnerIsSample ? p : q, smp = kOwnerIsSample ? q : p;
-      const float ox = mc_offset(src.x, smp.x, radius), oy = mc_offset(src.y, smp.y, radius),
-                  oz = mc_offset(src.z, smp.z, radius);
-      float a[kHidden];
-#pragma unroll
-      for (int h = 0; h < kHidden; ++h)
-        a[h] = fmaxf(mc_preact(ox, oy, oz, w1, b1, kHidden, h), 0.f);
-      float4* dst = reinterpret_cast<float4*>(L.act + (size_t)s * L.astride + 8 * e);
-      dst[0] = make_float4(a[0], a[1], a[2], a[3]);
-      dst[1] = make_float4(a[4], a[5], a[6], a[7]);
-      if constexpr (!kOwnerIsSample) L.off[s * L.ostride + e] = make_float4(ox, oy, oz, 0.f);
-    }
+    form(s, q, idx, len, o0, opos, L);
     if (lane == 0) {
       L.resume[s] = g;
       L.len[s] = len;
@@ -150,6 +167,17 @@ __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_va
     more |= g < ngroups;
   }
   return more;
+}
+
+// The round with every entry formed by `OffsetForm` (w1 (3, H) and b1 (H,)).
+template <bool kOwnerIsSample>
+__device__ __forceinline__ bool sweep_round(const float4* own, const int* own_valid,
+                                            int n_owner, const float4* opos,
+                                            const unsigned* ogrp, int ngroups, int o0,
+                                            const float* w1, const float* b1, float r2,
+                                            float radius, Lists L) {
+  return sweep_round<kOwnerIsSample>(own, own_valid, n_owner, opos, ogrp, ngroups, o0, r2, L,
+                                     OffsetForm<kOwnerIsSample>{w1, b1, radius});
 }
 
 // A kernel's block shape, chosen on the host. `owners` points a block; `hg`

@@ -20,8 +20,9 @@
 //                 mask, contracted and folded by w2 and b2;
 //   h1       (3): the first plane alone, contracted and scaled by w2[0];
 //   noop     (4): the loads alone; out = w2[0][0];
-//   mm_big   (5): mm_only with one block a cloud walking every sample tile,
-//                 as the TPU's one grid step a cloud (expected slow);
+//   mm_big   (5): mm_only's function as (H+1) bf16 tensor-core GEMMs tiled
+//                 over the whole card (csrc/dense_probe_mm_big.cu, which this
+//                 entry dispatches to);
 //   fwd_bf16 (6): replica with bf16 arithmetic: cw + b1 and sw rounded to
 //                 bf16, pre = bf16(bf16(cw - sw) + bf16(penalty)), a_h =
 //                 max(pre, 0), the mask plane in bf16.
@@ -37,6 +38,7 @@
 // What bounds it on the H100: as K1, the contraction's FMAs and shared-memory
 // reads on the CUDA cores (2 (H+1) C operations a pair for mm_only, replica
 // and fwd_bf16); noop is bound by its loads. Limits: H == 8, C <= 1024.
+// mm_big runs the same contraction as mm_only on the tensor cores instead.
 
 #include <cuda_bf16.h>
 
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int t = threadIdx.x; t < nj * TS; t += blockDim.x) {
           const int j = t / TS, s = t % TS;
           float* pl = plane + (size_t)j * P * TS + s;
-          if constexpr (V == kMmOnly || V == kMmBig) {
+          if constexpr (V == kMmOnly) {
             const float a = bf16_round(spos[4 * j]);
 #pragma unroll
             for (int p = 0; p < P; ++p) pl[p * TS] = a;
@@ -204,7 +206,7 @@ __global__ void __launch_bounds__(kThreads)
       const int s = q / C, c = q % C;
       if (s >= ms) continue;
       float o = 0.f;
-      if constexpr (V == kMmOnly || V == kMmBig) {
+      if constexpr (V == kMmOnly) {
 #pragma unroll
         for (int h = 0; h <= H; ++h) o = __fadd_rn(o, __fmul_rn(acc[k][h], w2[(h % H) * C + c]));
       } else if constexpr (V == kVpuOnly) {
@@ -238,13 +240,16 @@ int launch_variant(const float* pts, const __nv_bfloat16* fz, const float* w1, c
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_stiles = (N + TS - 1) / TS;
-  dim3 grid(V == kMmBig ? 1 : n_stiles, B);
+  dim3 grid(n_stiles, B);
   dense_probe_kernel<V, H><<<grid, kThreads, smem, stream>>>(pts, fz, w1, b1, w2, b2, N, C, TS,
                                                              r2, inv_r, out);
   MCCNN_LAUNCH_RETURN();
 }
 
 }  // namespace
+
+int dense_probe_mm_big_launch(const float* pts, const __nv_bfloat16* fz, const float* w2, int B,
+                              int N, int C, int H, float* out, cudaStream_t stream);
 
 // variant: 0 mm_only, 1 vpu_only, 2 replica, 3 h1, 4 noop, 5 mm_big, 6 fwd_bf16.
 // pts (B, N, 3) fp32, fz (B, N, C) bf16, w1 (8, H), b1 (H,), w2 (H, C), b2
@@ -268,7 +273,7 @@ extern "C" int dense_probe_launch(int variant, const void* pts, const void* fz, 
     case kReplica: return launch_variant<kReplica>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     case kH1: return launch_variant<kH1>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     case kNoop: return launch_variant<kNoop>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
-    case kMmBig: return launch_variant<kMmBig>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
+    case kMmBig: return dense_probe_mm_big_launch(p, f, a2, B, N, C, H, o, s);
     case kFwdBf16: return launch_variant<kFwdBf16>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -49,7 +49,7 @@ SIGNATURES = {
     "poisson_sweep_v3_launch": [P, P, P, P, P, P, I, I, I, F, P, P],
     "poisson_sweep_v4_launch": [P, P, P, P, I, I, I, F, P, P],
     "mcconv_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
-    "mcconv_planes_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P],
+    "mcconv_planes_pair_launch": [P, P, P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P],
     "mcconv_project_splits": [I, I, I],
     "mcconv_project_full_launch": [P, P, P, P, I, I, I, I, P, P, P],
     "mcconv_project_depthwise_launch": [P, P, P, P, I, I, I, P, P],

@@ -36,12 +36,13 @@ Their plain versions are ``dense_mc_conv_reference`` and
 
 K1p replaces ``_plane_fill_mxu`` (``:314``), which ``MCCNN_DENSE_PLANES=mxu``
 (``:357``) puts in place of the plane fill of the v2 forward
-``_fwd_kernel_b`` (``:409``): the pre-activation planes in the factored form
+``_fwd_kernel_b`` (``:409``): the pre-activations in the factored form
 ``pre_h(i, j) = (cw_h(j) - sw_h(i)) + b1_h`` (``cw = (p_j . W1) / r``, ``sw
-= (x_i . W1) / r``), formed on the tensor cores
-(``csrc/dense_conv_planes.cu``). It computes K1's function and keeps its G;
-the backward stays K2, as the reference's stays ``_bwd_kernel_b``. Its plain
-version is ``dense_mc_conv_planes_reference``.
+= (x_i . W1) / r``), formed on the tensor cores for the pairs of K1's
+in-radius lists (``csrc/dense_conv_planes.cu``, K1's pair kernel with that
+step changed). It computes K1's function and keeps its G; the backward stays
+K2, as the reference's stays ``_bwd_kernel_b``. Its plain version is
+``dense_mc_conv_planes_reference``.
 
 ``dense_mc_conv`` routes through ``DenseMCConvFunction`` on both devices:
 K1 / K2 for CUDA tensors, the plain versions for CPU tensors. With
@@ -265,13 +266,14 @@ def _forward_cuda(params, sample_pts, sample_mask, source_pts, source_mask, wf, 
         return out, cnt, G
     lib = _build.library()
     stream = _build.stream_of(sample_pts)
-    pair_launch = lib.mcconv_planes_pair_launch if planes else lib.mcconv_pair_launch
-    err = pair_launch(
-        _build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
-        _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
-        B, M, N, C, H, radius_sq(radius), float(radius), _build.ptr(G),
-        _build.ptr(cnt), stream,
-    )
+    args = (_build.ptr(sample_pts), _build.ptr(sample_mask), _build.ptr(source_pts),
+            _build.ptr(source_mask), _build.ptr(wf), _build.ptr(w1), _build.ptr(b1),
+            B, M, N, C, H, radius_sq(radius), float(radius), _build.ptr(G), _build.ptr(cnt))
+    if planes:  # K1p's scratch: three TF32 pieces of cw_h / -sw_h a point and h
+        pieces = torch.empty((B * (M + N) * 3 * H,), dtype=torch.int32, device=dev)
+        err = lib.mcconv_planes_pair_launch(*args, _build.ptr(pieces), stream)
+    else:
+        err = lib.mcconv_pair_launch(*args, stream)
     _build.check(err, "mcconv_planes_pair_kernel" if planes else "mcconv_pair_kernel")
     scale = _scale(cnt, sample_mask, mean_normalize).contiguous()
     if c_out is None:

@@ -10,9 +10,12 @@ C), ``b2`` (C,). ``VARIANTS`` are its seven kernel bodies: ``mm_only``
 (``:96``), ``vpu_only`` (``:110``), ``replica`` (``:131``), ``h1``
 (``:153``), ``noop`` (``:182``), ``mm_big`` (``:200``, run by ``call_big``,
 one grid step a cloud) and ``fwd_bf16`` (``:234``). One kernel template,
-``csrc/dense_probe.cu``, holds them all; ``dense_probe`` picks by device (CPU
-tensor -> the plain version, CUDA tensor -> the kernel) and each variant has
-its own launch counter. bf16 stays bf16 where a TPU body rounds to it.
+``csrc/dense_probe.cu``, holds six of them on K1's CUDA-core schedule;
+mm_big is its (H+1) contractions as bf16 tensor-core GEMM tiles over the
+whole card (``csrc/dense_probe_mm_big.cu``). ``dense_probe`` picks by device
+(CPU tensor -> the plain version, CUDA tensor -> the kernel) and each
+variant has its own launch counter. bf16 stays bf16 where a TPU body rounds
+to it.
 ``xla_equiv`` (``:214``), plain XLA outside any Pallas kernel in the tool,
 stays ``torch.matmul`` here: it is T1's library yardstick, not a kernel.
 

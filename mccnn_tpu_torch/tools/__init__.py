@@ -19,10 +19,12 @@ import subprocess
 import torch
 
 # The H100's published peaks (NVIDIA H100 SXM data sheet, 700 W, dense):
-# device memory bandwidth, fp32 outside the tensor cores, TF32 tensor cores.
+# device memory bandwidth, fp32 outside the tensor cores, TF32 and bf16
+# tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 
 def require_card(tool: str) -> torch.device:

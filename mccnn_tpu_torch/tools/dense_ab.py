@@ -1,8 +1,11 @@
 """K1 and K2 with this checkout's pair kernels against another checkout's, on
-the same inputs in one process on the card; with ``--v1``, K1v1 and K2v1.
+the same inputs in one process on the card; with ``--v1``, K1v1 and K2v1;
+with ``--planes``, K1p.
 
     python -m mccnn_tpu_torch.tools.dense_ab OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --v1 OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --planes OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --same OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
 ``ops/cuda/_build.py``, in a child process) and loaded beside this one's.
@@ -30,7 +33,18 @@ reduced by this checkout's reduction kernel) at the 14 dense sites of
 MCClass and MCClassH (``ZOO_SITES``, B = 32), and prints per site whether
 the counts and K1v1's ``out`` are bit-equal, the largest relative
 difference of ``out`` and of each K2v1 gradient, and both checkouts' times
-of each kernel (order other, this, this, other), then their sums.
+of each kernel (order other, this, this, other), then their sums. With
+``--planes`` it runs this checkout's K1p (``dense_conv``'s wrapper) against
+the other checkout's ``mcconv_planes_pair_launch`` (``OTHER_PLANES_SIGNATURES``:
+the all-pairs K1p, which takes no scratch) followed by this checkout's
+projection, at the zoo's 14 sites and MCClassS's 3 (B = 32), and prints per
+site whether the counts and G are bit-equal (G's largest relative
+difference where not), both checkouts' K1p times and this checkout's K1
+time, then their sums. With ``--same`` (for another checkout whose library
+has this checkout's entry points and arguments, K1p's aside) it runs this
+checkout's K1 / K2 and K1v1 / K2v1 wrappers once on each library, at the
+zoo's 14 sites, MCClassS's 3 and ShapeNet's 3 (B = 32), and prints per site
+whether every output is bit-equal.
 
 It refuses to run without a CUDA device.
 """
@@ -64,6 +78,7 @@ OTHER_V1_SIGNATURES = {
     "mcconv_v1_bwd_tiles": [I] * 4,
     "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
 }
+OTHER_PLANES_SIGNATURES = {"mcconv_planes_pair_launch": [P] * 7 + [I] * 5 + [F, F] + [P] * 3}
 # The other K2v1's partials: at most this many blocks, and floats in all.
 OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS = 264, 64 << 20
 
@@ -164,13 +179,18 @@ def site_inputs(site, gen, dev):
     return params, smp, qmask, src, smask, wf, dout
 
 
-def other_library(checkout: str, signatures: dict):
-    """Build the other checkout's kernel library there and load it, with the
-    argument types of ``signatures`` (name -> types)."""
+def other_library_path(checkout: str) -> str:
+    """Build the other checkout's kernel library there: its path."""
     code = "from mccnn_tpu_torch.ops.cuda import _build; print(_build.library().path)"
     out = subprocess.run([sys.executable, "-c", code], cwd=checkout, capture_output=True,
                          text=True, check=True)
-    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
+    return out.stdout.strip().splitlines()[-1]
+
+
+def other_library(checkout: str, signatures: dict):
+    """Build the other checkout's kernel library there and load it, with the
+    argument types of ``signatures`` (name -> types)."""
+    lib = ctypes.CDLL(other_library_path(checkout))
     for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
@@ -323,6 +343,25 @@ def k2(pair_lib, other, params, smp, qmask, src, smask, wf, radius, G, cnt, dout
     return (d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, c, co, w2, b2))
 
 
+def other_k1p(lib, params, smp, qmask, src, smask, wf, radius, co):
+    """The other checkout's K1p pair kernel, as its wrapper launched it, then
+    this checkout's projection: ``(out, cnt, G)``."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build
+
+    ptr = _build.ptr
+    b, m, _ = smp.shape
+    n, c = src.shape[1], wf.shape[-1]
+    G = torch.empty((b, m, H + 1, c), dtype=torch.float32, device=smp.device)
+    cnt = torch.empty((b, m), dtype=torch.float32, device=smp.device)
+    _build.check(lib.mcconv_planes_pair_launch(
+        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
+        b, m, n, c, H, radius_sq(radius), float(radius), ptr(G), ptr(cnt), _build.stream_of(smp)),
+        "other K1p")
+    return k1(None, False, params, smp, qmask, src, smask, wf, radius, co, part="project",
+              given=(cnt, G))
+
+
 def rel_diff(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
@@ -374,20 +413,101 @@ def main_v1(other, dev) -> int:
     return 0
 
 
+def main_planes(other, dev) -> int:
+    """K1p of this checkout against ``other``'s at the zoo's 14 sites and
+    MCClassS's 3."""
+    from mccnn_tpu_torch.ops.cuda import dense_conv
+
+    from . import best_ms
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    total = np.zeros(3)  # K1p other, this; K1 this
+    sites = zoo_sites(B, dev) + mcclass_s_sites(B, dev)
+    for site in sites:
+        name, _, _, radius, c, co = site
+        params, smp, qmask, src, smask, wf, _ = site_inputs(site, gen, dev)
+        fargs = (params, smp, qmask, src, smask, wf, radius, co)
+        with torch.no_grad():
+            o_out, o_cnt, o_G = other_k1p(other, *fargs)
+            n_out, n_cnt, n_G = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+            torch.cuda.synchronize()
+            fns = {"other": lambda: other_k1p(other, *fargs),
+                   "this": lambda: dense_conv.dense_mc_conv_planes_cuda(*fargs)}
+            times = {}
+            for who in ("other", "this", "this", "other"):
+                times[who] = min(times.get(who, float("inf")), best_ms(fns[who], iters=10))
+            k1_ms = best_ms(lambda: dense_conv._forward_cuda(*fargs, False), iters=10)
+        total += [times["other"], times["this"], k1_ms]
+        same = torch.equal(o_G, n_G)
+        print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
+              f"cnt_bit_equal={torch.equal(o_cnt, n_cnt)} G_bit_equal={same}"
+              + ("" if same else f" G_rel_diff={rel_diff(n_G, o_G):.3e}")
+              + f" out_bit_equal={torch.equal(o_out, n_out)}; K1p_ms other={times['other']:.4f} "
+              f"this={times['this']:.4f} K1_ms this={k1_ms:.4f}", flush=True)
+    print(f"over the {len(sites)} sites: K1p_ms other={total[0]:.4f} this={total[1]:.4f} "
+          f"K1_ms this={total[2]:.4f}", flush=True)
+    return 0
+
+
+def main_same(other_path: str, dev) -> int:
+    """K1 / K2 and K1v1 / K2v1 through this checkout's wrappers on this
+    library and on ``other_path``'s, bit for bit."""
+    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
+
+    libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
+    gen = torch.Generator().manual_seed(SEED + 40)
+    sites = zoo_sites(B, dev) + mcclass_s_sites(B, dev) + shapenet_sites(B, dev)
+    names = ("K1 out", "cnt", "G", "d_wf", "dw1", "db1", "dw2", "db2", "K1v1 out", "K1v1 cnt",
+             "v1 d_wf", "v1 dw1", "v1 db1", "v1 dw2", "v1 db2")
+    every = True
+    try:
+        for site in sites:
+            name, _, _, radius, c, co = site
+            params, smp, qmask, src, smask, wf, dout = site_inputs(site, gen, dev)
+            fargs = (params, smp, qmask, src, smask, wf, radius, co, False)
+            res = {}
+            with torch.no_grad():
+                for who, lib in libs.items():
+                    _build._LIBRARY = lib
+                    out, cnt, G = dense_conv._forward_cuda(*fargs)
+                    grads = dense_conv.dense_mc_conv_backward_cuda(
+                        params, smp, qmask, src, smask, wf, radius, G, cnt, dout, c_out=co)
+                    out1, cnt1 = dense_conv._forward_cuda_v1(*fargs)
+                    grads1 = dense_conv.dense_mc_conv_v1_backward_cuda(
+                        params, smp, qmask, src, smask, wf, radius, cnt1, dout, c_out=co)
+                    torch.cuda.synchronize()
+                    res[who] = (out, cnt, G, *grads, out1, cnt1, *grads1)
+            differ = [n for n, a, b in zip(names, res["this"], res["other"])
+                      if not torch.equal(a, b)]
+            every &= not differ
+            print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
+                  f"K1 / K2 / K1v1 / K2v1 outputs bit-equal: {not differ}"
+                  + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
+    finally:
+        _build._LIBRARY = libs["this"]
+    print(f"over the {len(sites)} sites: every output bit-equal: {every}", flush=True)
+    return 0 if every else 1
+
+
 def main(argv=None) -> int:
     from mccnn_tpu_torch.ops.cuda import _build
 
     from . import best_ms, card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
-    v1 = argv[:1] == ["--v1"]
-    argv = argv[1:] if v1 else argv
+    mode = argv[0] if argv[:1] in (["--v1"], ["--planes"], ["--same"]) else None
+    argv = argv[1:] if mode else argv
     if len(argv) != 1 or not os.path.isdir(argv[0]):
-        raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab [--v1] OTHER_CHECKOUT")
+        raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab "
+                         "[--v1 | --planes | --same] OTHER_CHECKOUT")
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
-    if v1:
+    if mode == "--v1":
         return main_v1(other_library(argv[0], OTHER_V1_SIGNATURES), dev)
+    if mode == "--planes":
+        return main_planes(other_library(argv[0], OTHER_PLANES_SIGNATURES), dev)
+    if mode == "--same":
+        return main_same(other_library_path(argv[0]), dev)
     this = _build.library()
     other = other_library(argv[0], {**OTHER_SIGNATURES, "mcconv_bwd_pair_blocks": OTHER_BLOCKS})
     gen = torch.Generator().manual_seed(SEED)

@@ -17,7 +17,9 @@ features, seed 0) it times, with CUDA events (warm, best of several calls):
 then the split of the forward it reads from them (loads = noop, planes =
 vpu_only - noop - one contraction's share, contraction = mm_only - noop) and
 two floors per variant on the H100, each the larger of its fp32 operations
-over 67 TFLOP/s and its bytes over 3.35 TB/s (NVIDIA H100 SXM data sheet):
+over 67 TFLOP/s and its bytes over 3.35 TB/s (NVIDIA H100 SXM data sheet;
+mm_big's walked work, which runs on the tensor cores, over their 989 TFLOP/s
+bf16 peak):
 the *function's* floor (``t1_ops``: d2 over every pair, planes and
 contractions over the in-radius pairs this run's points hold, one
 contraction where the planes are one plane; ``t1_bytes``: the inputs the
@@ -33,7 +35,8 @@ import sys
 import numpy as np
 import torch
 
-from . import PEAK_BYTES_PER_S, PEAK_FP32_FLOP_PER_S, best_ms, require_card
+from . import (PEAK_BF16_FLOP_PER_S, PEAK_BYTES_PER_S, PEAK_FP32_FLOP_PER_S, best_ms,
+               require_card)
 
 B, N, M, C, H = 8, 1024, 1024, 128, 8
 RADIUS = 0.2
@@ -80,8 +83,10 @@ def t1_bytes(variant: str) -> int:
 
 
 def t1_floor(variant: str, pairs: int, inr: int, walked: bool = False) -> float:
-    """The H100 floor (ms) of ``t1_ops`` and ``t1_bytes``."""
-    return max(t1_ops(variant, pairs, inr, walked) / PEAK_FP32_FLOP_PER_S,
+    """The H100 floor (ms) of ``t1_ops`` and ``t1_bytes``: fp32 operations,
+    but mm_big's walked contractions at the bf16 tensor-core peak."""
+    rate = PEAK_BF16_FLOP_PER_S if walked and variant == "mm_big" else PEAK_FP32_FLOP_PER_S
+    return max(t1_ops(variant, pairs, inr, walked) / rate,
                t1_bytes(variant) / PEAK_BYTES_PER_S) * 1e3
 
 
@@ -151,6 +156,9 @@ def run(names=ORDER, iters: int = 5, reps: int = 3) -> dict:
               f"({(vpu - noop - (mm - noop) / (H + 1)) / rep:.0%})")
         if "fwd" in times:
             print(f"K1 (fwd) {times['fwd']:.3f} ms against the replica {rep:.3f} ms")
+        if "mm_big" in times:
+            print(f"mm_big (tensor cores) {times['mm_big']:.3f} ms against mm_only (CUDA cores) "
+                  f"{mm:.3f} ms ({mm / times['mm_big']:.1f}x)")
         if "fwd_planes" in times and "fwd" in times:
             print(f"K1p (fwd_planes) {times['fwd_planes']:.3f} ms against K1 {times['fwd']:.3f} "
                   f"ms ({times['fwd_planes'] / times['fwd']:.2f}x)")

@@ -946,6 +946,46 @@ def test_planes_kernel_matches_plain_and_k1_and_repeats_bitwise(cuda, c_in, c_ou
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale)
 
 
+# (name, c_in, c_out, mean, geometry) of K1p's list cases, on _v1_inputs:
+# "overflow" puts every source in radius, so the lists overflow their cap
+# and resume in rounds; "masked" masks whole groups of 32 samples and
+# sources; "global" is the M = 1 site at C = 256, CO = 1024; "stem" the C =
+# 1 stem; "passes" C = 160, which takes three channel passes.
+PLANES_CASES = [("overflow", 4, 8, False, (1, 1000, 8, GLOBAL_R)),
+                ("overflow", 16, None, True, (1, 600, 600, GLOBAL_R)),
+                ("masked", 8, 4, False, (2, 300, 200, 0.3)),
+                ("global", 256, 1024, False, (3, 40, 1, GLOBAL_R)),
+                ("stem", 1, 128, False, (2, 256, 70, 0.3)),
+                ("passes", 160, None, False, (2, 300, 200, 0.3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c_in,c_out,mean,geometry", PLANES_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in PLANES_CASES])
+def test_planes_kernel_on_its_list_cases(cuda, name, c_in, c_out, mean, geometry):
+    """K1p where its in-radius lists, their rounds, skipped groups and
+    channel passes matter: against its plain version and K1 (K1P_RTOL), its
+    count equal to K1's, bit for bit on repeat; only K1p's counter moves."""
+    params, smp, qmask, src, smask, wf, _, radius = _v1_inputs(cuda, name, c_in, c_out, geometry)
+    fargs = (params, smp, qmask, src, smask, wf, radius, c_out, mean)
+    before = (dense_conv.launches, dense_conv.launches_planes)
+    out, cnt, G = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+    again, _, G2 = dense_conv.dense_mc_conv_planes_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert (dense_conv.launches, dense_conv.launches_planes) == (before[0], before[1] + 2)
+    want, wcnt, wG = dense_conv._forward_planes_reference(*fargs)
+    k1, k1cnt, _ = dense_conv._forward_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(G, G2)  # no atomics
+    assert torch.equal(cnt, wcnt) and torch.equal(cnt, k1cnt)
+    assert torch.isfinite(G).all()
+    assert torch.equal(G[~qmask], torch.zeros_like(G[~qmask]))
+    scale = float(want.abs().max())
+    torch.testing.assert_close(G, wG, rtol=1e-4, atol=1e-4 * float(wG.abs().max()))
+    for ref in (want, k1):
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale)
+
+
 @pytest.mark.cuda
 def test_planes_route_runs_k1p_forward_and_k2_backward(cuda, monkeypatch):
     monkeypatch.setattr(dense_conv, "_PLANES_MXU", True)
@@ -1048,6 +1088,23 @@ def test_dense_probe_kernels_match_plain_and_repeat_bitwise(cuda, variant):
     assert torch.equal(got, again)
     # the same planes (explicit roundings, the same bf16 casts); the products
     # with the bf16 features summed in fp32 in other orders
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C", [(1000, 40), (300, 1), (300, 24), (300, 1024)])
+def test_mm_big_kernel_at_edge_shapes(cuda, N, C):
+    """T1 mm_big's tensor-core GEMM tiles where N or C is not a multiple of
+    the tile (C = 1 and C = 24 take the plain loads, N = 1000 a ragged last
+    source step and sample tile): against its plain version within
+    T1_RTOL, bit for bit on repeat."""
+    args = (*_t1_inputs(cuda, N=N, C=C), 0.2)
+    got = dense_probe.dense_probe_cuda("mm_big", *args)
+    again = dense_probe.dense_probe_cuda("mm_big", *args)
+    want = dense_probe.dense_probe_reference("mm_big", *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # bf16 products are exact in fp32; the sums over sources in other orders
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 

@@ -166,9 +166,14 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    r=0.2): each against its plain version, bit for bit on repeat, with times,
    the bounds of each variant's function (planes and contractions over the
    in-radius pairs) and the library calls (``xla_equiv``'s torch.matmul,
-   noop's torch.full); mm_big (its H+1 contractions as bf16 tensor-core
-   GEMMs) also beside the walked floor of its contractions at the bf16 peak
-   and its ratios to ``xla_equiv`` and mm_only; then
+   noop's torch.full). noop, mm_only and mm_big (the staged schedule) also
+   with their device times (calls replayed from a CUDA graph), with the
+   wrapper's bf16 cast and of the kernel alone, beside the library calls'
+   device times: noop beside the bytes it stages, mm_only beside the walked
+   floor of its (H+1) fp32 contractions (its kernel may not take less) and
+   its ratio to ``xla_equiv``, mm_big (its H+1 contractions as bf16
+   tensor-core GEMMs) beside the walked floor of its contractions at the
+   bf16 peak and its ratios to ``xla_equiv`` and mm_only; then
    ``tools.dense_breakdown`` prints its table, every variant launched.
 30. K9a / K10a (the bucket conv and its backward over the first NBA
    occupied bricks, ``bucket_mc_conv(..., max_active_bricks=)``) at
@@ -2947,20 +2952,31 @@ def check_t1(dev) -> dict:
     """T1's variants at the tool's shapes against their plain versions, bit
     for bit on repeat; times, plain times, bounds, and the library calls:
     the tool's ``xla_equiv`` (torch.matmul) for mm_only and mm_big, one
-    ``torch.full`` of w2[0, 0] for noop. Beside mm_big, the walked floor of
-    its (H+1) contractions at the bf16 tensor-core peak and its ratios to
+    ``torch.full`` of w2[0, 0] for noop. noop, mm_only and mm_big (the staged
+    schedule) and the library calls also get their device time (calls
+    replayed from a CUDA graph: ``tools.device_ms``), the kernels' with the
+    wrapper's bf16 cast and alone; noop beside the bytes it stages, mm_only
+    beside the walked floor of its (H+1) fp32 contractions (its kernel alone
+    may not beat it) and ``xla_equiv``, mm_big beside the walked floor of
+    its contractions at the bf16 tensor-core peak and its ratios to
     ``xla_equiv`` and mm_only."""
     from mccnn_tpu_torch.ops.cuda import dense_probe
-    from mccnn_tpu_torch.tools import PEAK_BF16_FLOP_PER_S
+    from mccnn_tpu_torch.tools import PEAK_BF16_FLOP_PER_S, device_ms
     from mccnn_tpu_torch.tools import dense_breakdown as db
 
     pts, feats, w1, b1, w2, b2 = db.inputs(dev)
+    fzb = feats.to(torch.bfloat16)
     args = (pts, feats, w1, b1, w2, b2, db.RADIUS)
-    lms = time_ms(lambda: dense_probe.xla_equiv(pts, feats, w2), iters=5)
+    xla = lambda: dense_probe.xla_equiv(pts, feats, w2)  # noqa: E731
+    lms, lib_dev = time_ms(xla, iters=5), device_ms(xla)
     fill = float(w2[0, 0])
-    full_ms = time_ms(lambda: torch.full(tuple(feats.shape), fill, device=dev), iters=10)
+    full = lambda: torch.full(tuple(feats.shape), fill, device=dev)  # noqa: E731
+    full_ms, full_dev = time_ms(full, iters=10), device_ms(full, iters=10)
+    print(f"T1 library calls: xla_equiv call_ms={lms:.4f} device_ms={lib_dev:.4f}; torch.full "
+          f"call_ms={full_ms:.4f} device_ms={full_dev:.4f}", flush=True)
     inr = db.in_radius_pairs(pts)
-    rows = {}
+    pairs = db.B * db.M * db.N
+    rows, dev_ms = {}, {}
     with torch.no_grad():
         for v in dense_probe.VARIANTS:
             got = dense_probe.dense_probe_cuda(v, *args)
@@ -2981,25 +2997,50 @@ def check_t1(dev) -> dict:
                     f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
                     f"kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} ({by}) "
                     f"library_ms={lib}")
+            if v in ("noop", "mm_only", "mm_big"):
+                with_cast = device_ms(lambda: dense_probe.dense_probe_cuda(v, *args), iters=10)
+                dev_ms[v] = device_ms(lambda: dense_probe.dense_probe_cuda(v, pts, fzb, *args[2:]),
+                                      iters=10)
+                lib_d = full_dev if v == "noop" else lib_dev
+                line += (f" device_ms={with_cast:.4f} kernel_alone_device_ms={dev_ms[v]:.4f} "
+                         f"library_device_ms={lib_d:.4f}")
+            if v == "noop":
+                line += f" staged_bytes={dense_probe.staged_bytes(db.B, db.N, db.C, db.H)}"
+            if v == "mm_only":
+                floor = db.t1_floor(v, pairs, inr, walked=True)
+                line += (f" walked_fp32_floor_ms={floor:.6f} ({db.t1_ops(v, pairs, inr, True)} "
+                         f"fp32 operations) x_xla_equiv={dev_ms[v] / lib_dev:.4f} (device)")
+                require(dev_ms[v] >= floor, f"T1 mm_only's kernel took {dev_ms[v]:.4f} ms, under "
+                        f"the {floor:.4f} ms its walked fp32 contractions need: work was skipped")
             if v == "mm_big":
-                walked = db.t1_ops(v, db.B * db.M * db.N, inr, walked=True)
+                walked = db.t1_ops(v, pairs, inr, walked=True)
                 line += (f" walked_bf16_floor_ms={walked / PEAK_BF16_FLOP_PER_S * 1e3:.6f} "
                          f"({walked} tensor-core operations) x_xla_equiv={ms / lms:.4f} "
-                         f"x_mm_only={ms / rows['T1 mm_only'][1]:.4f}")
+                         f"x_mm_only={ms / rows['T1 mm_only'][1]:.4f} (call); "
+                         f"x_xla_equiv={dev_ms[v] / lib_dev:.4f} "
+                         f"x_mm_only={dev_ms[v] / dev_ms['mm_only']:.4f} (device)")
             print(line, flush=True)
     return rows
 
 
 def run_dense_breakdown() -> dict:
-    """``tools.dense_breakdown``'s table, every T1 variant launched in its run."""
+    """``tools.dense_breakdown``'s table, every T1 variant launched in its run.
+    The counts are read after its call times, before its device times (CUDA
+    graphs: a capture passes the wrappers' counters without launching, its
+    replays launch without passing them)."""
     from mccnn_tpu_torch.tools import dense_breakdown
+
+    counts = {}
+
+    def calls_timed():
+        torch.cuda.synchronize()
+        counts.update(read_counts())
 
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    dense_breakdown.run(iters=2, reps=2)
+    dense_breakdown.run(iters=2, reps=2, calls_timed=calls_timed)
     torch.cuda.synchronize()
-    counts = read_counts()
     print(f"tools.dense_breakdown: {time.perf_counter() - t0:.2f} s, launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     for kid in [k for k in counts if k.startswith("T1 ")] + ["K1", "K2", "K1p"]:
@@ -3378,9 +3419,10 @@ def main() -> int:
                   "mccnn_tpu_torch/csrc/tile_conv_bwd_probe.cu",
                   "mccnn_tpu/ops/pallas/tile_conv.py:718", [tile_results["K6 bwd_noop"]],
                   roofline_launches, SEG_B)]
+    t1_sources = {"mm_big": "dense_probe_mm_big.cu", "noop": "dense_probe_staged.cu",
+                  "mm_only": "dense_probe_staged.cu"}
     roofline += [(f"T1 {v}", f"dense_probe_{v}",
-                  "mccnn_tpu_torch/csrc/dense_probe_mm_big.cu" if v == "mm_big"
-                  else "mccnn_tpu_torch/csrc/dense_probe.cu",
+                  f"mccnn_tpu_torch/csrc/{t1_sources.get(v, 'dense_probe.cu')}",
                   f"tools/exp_dense_breakdown.py:{line}", [t1_results[f"T1 {v}"]],
                   breakdown_launches, SERVE_B) for v, line in t1_lines.items()]
     roofline += [("K9a", "bucket_mc_conv_active", "mccnn_tpu_torch/csrc/bucket_conv.cu",

@@ -20,25 +20,27 @@
 //                 mask, contracted and folded by w2 and b2;
 //   h1       (3): the first plane alone, contracted and scaled by w2[0];
 //   noop     (4): the loads alone; out = w2[0][0];
-//   mm_big   (5): mm_only's function as (H+1) bf16 tensor-core GEMMs tiled
-//                 over the whole card (csrc/dense_probe_mm_big.cu, which this
-//                 entry dispatches to);
+//   mm_big   (5): mm_only's function as (H+1) bf16 tensor-core GEMMs;
 //   fwd_bf16 (6): replica with bf16 arithmetic: cw + b1 and sw rounded to
 //                 bf16, pre = bf16(bf16(cw - sw) + bf16(penalty)), a_h =
 //                 max(pre, 0), the mask plane in bf16.
-// The design is K1's (csrc/dense_conv.cu): a block takes TS samples of a
-// cloud and walks the sources in tiles of 32, stages positions and fz in
-// shared memory, fills the variant's planes ([32][P][TS], fp32 holding the
-// bf16 values where the TPU body rounds to bf16; the running plane of
-// vpu_only is __nv_bfloat16), and each thread accumulates up to four (sample,
-// channel) outputs over every plane in fp32 registers, in source order. No
-// atomics: two calls are bit-identical. Every plane is stored in full, so
-// mm_only's H+1 contractions are H+1 contractions.
+// Two schedules. noop, mm_only and mm_big walk mm_big's staged schedule
+// (csrc/dense_probe_stage.cuh: 128-sample x 64-channel tiles over the whole
+// card, fz resident in shared memory), in csrc/dense_probe_staged.cu and
+// csrc/dense_probe_mm_big.cu, which this entry dispatches variants 0, 4 and
+// 5 to. The other four, in this file, keep K1's all-pairs schedule before PR 11's
+// lists: a block takes TS samples of a cloud and walks the sources in tiles
+// of 32, stages positions and fz in shared memory, fills the variant's
+// planes ([32][P][TS], fp32 holding the bf16 values where the TPU body
+// rounds to bf16; the running plane of vpu_only is __nv_bfloat16), and each
+// thread accumulates up to four (sample, channel) outputs over every plane
+// in fp32 registers, in source order. No atomics: two calls are
+// bit-identical.
 //
 // What bounds it on the H100: as K1, the contraction's FMAs and shared-memory
-// reads on the CUDA cores (2 (H+1) C operations a pair for mm_only, replica
-// and fwd_bf16); noop is bound by its loads. Limits: H == 8, C <= 1024.
-// mm_big runs the same contraction as mm_only on the tensor cores instead.
+// reads on the CUDA cores (2 (H+1) C operations a pair for replica and
+// fwd_bf16, 2 C for vpu_only and h1, beside their planes), and each block's
+// re-reading of the cloud's fz from L2. Limits: H == 8, C <= 1024.
 
 #include <cuda_bf16.h>
 
@@ -58,7 +60,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 template <int V, int H>
 __host__ __device__ constexpr int planes_of() {
-  return V == kNoop ? 0 : (V == kVpuOnly || V == kH1) ? 1 : H + 1;
+  return (V == kVpuOnly || V == kH1) ? 1 : H + 1;
 }
 
 template <int V, int H>
@@ -68,10 +70,9 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ w2, const float* __restrict__ b2, int N, int C,
                        int TS, float r2, float inv_r, float* __restrict__ out) {
   constexpr int P = planes_of<V, H>();
-  constexpr int PS = P > 0 ? P : 1;
   extern __shared__ float sm[];
   float* plane = sm;                       // [kTJ][P][TS]
-  float* sfeat = plane + kTJ * PS * TS;    // [kTJ][C]
+  float* sfeat = plane + kTJ * P * TS;     // [kTJ][C]
   float* spos = sfeat + kTJ * C;           // [kTJ][4]: x, y, z, |p|^2
   float* cw = spos + kTJ * 4;              // [kTJ][H]: (p . w1) / r
   float* qpos = cw + kTJ * H;              // [TS][4]
@@ -109,11 +110,11 @@ __global__ void __launch_bounds__(kThreads)
         sw[t * H + h] = __fmul_rn(__fadd_rn(base, __fmul_rn(sq, sw1[3 * H + h])), inv_r);
       }
     }
-    float acc[kPairsPerThread][PS];
+    float acc[kPairsPerThread][P];
 #pragma unroll
     for (int k = 0; k < kPairsPerThread; ++k)
 #pragma unroll
-      for (int p = 0; p < PS; ++p) acc[k][p] = 0.f;
+      for (int p = 0; p < P; ++p) acc[k][p] = 0.f;
 
     for (int j0 = 0; j0 < N; j0 += kTJ) {
       const int nj = min(kTJ, N - j0);
@@ -132,55 +133,45 @@ __global__ void __launch_bounds__(kThreads)
       for (int t = threadIdx.x; t < nj * C; t += blockDim.x)
         sfeat[t] = __bfloat162float(F[(size_t)j0 * C + t]);
       __syncthreads();
-      if constexpr (P > 0) {
-        for (int t = threadIdx.x; t < nj * TS; t += blockDim.x) {
-          const int j = t / TS, s = t % TS;
-          float* pl = plane + (size_t)j * P * TS + s;
-          if constexpr (V == kMmOnly) {
-            const float a = bf16_round(spos[4 * j]);
+      for (int t = threadIdx.x; t < nj * TS; t += blockDim.x) {
+        const int j = t / TS, s = t % TS;
+        float* pl = plane + (size_t)j * P * TS + s;
+        const float d2 = pair_d2_rn(qpos[4 * s], qpos[4 * s + 1], qpos[4 * s + 2], qpos[4 * s + 3],
+                                    spos[4 * j], spos[4 * j + 1], spos[4 * j + 2], spos[4 * j + 3]);
+        const bool in = d2 <= r2;
+        const float mask = in ? 1.f : 0.f;
+        if constexpr (V == kVpuOnly) {
+          __nv_bfloat16 run = __float2bfloat16_rn(0.f);
 #pragma unroll
-            for (int p = 0; p < P; ++p) pl[p * TS] = a;
-            continue;
-          } else {
-            const float d2 = pair_d2_rn(qpos[4 * s], qpos[4 * s + 1], qpos[4 * s + 2],
-                                        qpos[4 * s + 3], spos[4 * j], spos[4 * j + 1],
-                                        spos[4 * j + 2], spos[4 * j + 3]);
-            const bool in = d2 <= r2;
-            const float mask = in ? 1.f : 0.f;
-            if constexpr (V == kVpuOnly) {
-              __nv_bfloat16 run = __float2bfloat16_rn(0.f);
-#pragma unroll
-              for (int h = 0; h < H; ++h) {
-                const float pre = __fadd_rn(__fsub_rn(cw[j * H + h], sw[s * H + h]), sb1[h]);
-                const __nv_bfloat16 a = __float2bfloat16_rn(__fmul_rn(fmaxf(pre, 0.f), mask));
-                run = __float2bfloat16_rn(__fadd_rn(__bfloat162float(run), __bfloat162float(a)));
-              }
-              pl[0] = __bfloat162float(run);
-            } else if constexpr (V == kH1) {
-              const float pre = __fadd_rn(__fsub_rn(cw[j * H], sw[s * H]), sb1[0]);
-              pl[0] = bf16_round(__fmul_rn(fmaxf(pre, 0.f), mask));
-            } else if constexpr (V == kReplica) {
-#pragma unroll
-              for (int h = 0; h < H; ++h) {
-                const float pre = __fadd_rn(__fsub_rn(cw[j * H + h], sw[s * H + h]), sb1[h]);
-                pl[h * TS] = bf16_round(__fmul_rn(fmaxf(pre, 0.f), mask));
-              }
-              pl[H * TS] = mask;
-            } else if constexpr (V == kFwdBf16) {
-              const float pen = bf16_round(in ? 0.f : -1.0e9f);
-#pragma unroll
-              for (int h = 0; h < H; ++h) {
-                const float c = bf16_round(__fadd_rn(cw[j * H + h], sb1[h]));
-                const float q = bf16_round(sw[s * H + h]);
-                const float pre = bf16_round(__fadd_rn(bf16_round(__fsub_rn(c, q)), pen));
-                pl[h * TS] = fmaxf(pre, 0.f);
-              }
-              pl[H * TS] = mask;
-            }
+          for (int h = 0; h < H; ++h) {
+            const float pre = __fadd_rn(__fsub_rn(cw[j * H + h], sw[s * H + h]), sb1[h]);
+            const __nv_bfloat16 a = __float2bfloat16_rn(__fmul_rn(fmaxf(pre, 0.f), mask));
+            run = __float2bfloat16_rn(__fadd_rn(__bfloat162float(run), __bfloat162float(a)));
           }
+          pl[0] = __bfloat162float(run);
+        } else if constexpr (V == kH1) {
+          const float pre = __fadd_rn(__fsub_rn(cw[j * H], sw[s * H]), sb1[0]);
+          pl[0] = bf16_round(__fmul_rn(fmaxf(pre, 0.f), mask));
+        } else if constexpr (V == kReplica) {
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const float pre = __fadd_rn(__fsub_rn(cw[j * H + h], sw[s * H + h]), sb1[h]);
+            pl[h * TS] = bf16_round(__fmul_rn(fmaxf(pre, 0.f), mask));
+          }
+          pl[H * TS] = mask;
+        } else if constexpr (V == kFwdBf16) {
+          const float pen = bf16_round(in ? 0.f : -1.0e9f);
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            const float c = bf16_round(__fadd_rn(cw[j * H + h], sb1[h]));
+            const float q = bf16_round(sw[s * H + h]);
+            const float pre = bf16_round(__fadd_rn(bf16_round(__fsub_rn(c, q)), pen));
+            pl[h * TS] = fmaxf(pre, 0.f);
+          }
+          pl[H * TS] = mask;
         }
-        __syncthreads();
       }
+      __syncthreads();
 #pragma unroll
       for (int k = 0; k < kPairsPerThread; ++k) {
         const int q = threadIdx.x + k * blockDim.x;
@@ -188,13 +179,9 @@ __global__ void __launch_bounds__(kThreads)
           const int s = q / C, c = q % C;
           for (int j = 0; j < nj; ++j) {
             const float f = sfeat[j * C + c];
-            if constexpr (P == 0) {
-              acc[k][0] += f;  // noop: the staged features stay read
-            } else {
-              const float* pl = plane + (size_t)j * P * TS + s;
+            const float* pl = plane + (size_t)j * P * TS + s;
 #pragma unroll
-              for (int p = 0; p < P; ++p) acc[k][p] += pl[p * TS] * f;
-            }
+            for (int p = 0; p < P; ++p) acc[k][p] += pl[p * TS] * f;
           }
         }
       }
@@ -206,15 +193,10 @@ __global__ void __launch_bounds__(kThreads)
       const int s = q / C, c = q % C;
       if (s >= ms) continue;
       float o = 0.f;
-      if constexpr (V == kMmOnly) {
-#pragma unroll
-        for (int h = 0; h <= H; ++h) o = __fadd_rn(o, __fmul_rn(acc[k][h], w2[(h % H) * C + c]));
-      } else if constexpr (V == kVpuOnly) {
+      if constexpr (V == kVpuOnly) {
         o = acc[k][0];
       } else if constexpr (V == kH1) {
         o = __fmul_rn(acc[k][0], w2[c]);
-      } else if constexpr (V == kNoop) {
-        o = __fadd_rn(w2[0], 0.f * acc[k][0]);
       } else {
 #pragma unroll
         for (int h = 0; h < H; ++h) o = __fadd_rn(o, __fmul_rn(acc[k][h], w2[h * C + c]));
@@ -234,7 +216,7 @@ int launch_variant(const float* pts, const __nv_bfloat16* fz, const float* w1, c
   int TS = kMaxPairs / C;
   if (TS > 64) TS = 64;
   if (TS > N) TS = N;
-  const size_t smem = sizeof(float) * ((size_t)kTJ * (P > 0 ? P : 1) * TS + (size_t)kTJ * C +
+  const size_t smem = sizeof(float) * ((size_t)kTJ * P * TS + (size_t)kTJ * C +
                                        kTJ * 4 + kTJ * H + TS * 4 + TS * H + 4 * H + H);
   cudaError_t err = cudaFuncSetAttribute(dense_probe_kernel<V, H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -248,6 +230,10 @@ int launch_variant(const float* pts, const __nv_bfloat16* fz, const float* w1, c
 
 }  // namespace
 
+int dense_probe_noop_launch(const float* pts, const __nv_bfloat16* fz, const float* w2, int B,
+                            int N, int C, int H, float* out, cudaStream_t stream);
+int dense_probe_mm_only_launch(const float* pts, const __nv_bfloat16* fz, const float* w2, int B,
+                               int N, int C, int H, float* out, cudaStream_t stream);
 int dense_probe_mm_big_launch(const float* pts, const __nv_bfloat16* fz, const float* w2, int B,
                               int N, int C, int H, float* out, cudaStream_t stream);
 
@@ -268,11 +254,11 @@ extern "C" int dense_probe_launch(int variant, const void* pts, const void* fz, 
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kMmOnly: return launch_variant<kMmOnly>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
+    case kMmOnly: return dense_probe_mm_only_launch(p, f, a2, B, N, C, H, o, s);
     case kVpuOnly: return launch_variant<kVpuOnly>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     case kReplica: return launch_variant<kReplica>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     case kH1: return launch_variant<kH1>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
-    case kNoop: return launch_variant<kNoop>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
+    case kNoop: return dense_probe_noop_launch(p, f, a2, B, N, C, H, o, s);
     case kMmBig: return dense_probe_mm_big_launch(p, f, a2, B, N, C, H, o, s);
     case kFwdBf16: return launch_variant<kFwdBf16>(p, f, a1, c1, a2, c2, B, N, C, r2, inv_r, o, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -72,6 +72,7 @@ SIGNATURES = {
     "tile_conv_bwd_noop_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
     "tile_conv_bwd_packed_noop_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
     "dense_probe_launch": [I] + [P] * 6 + [I] * 4 + [F, F] + [P] * 2,
+    "dense_probe_staged_bytes": [I] * 4,
     "tile_kde_launch": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
@@ -90,7 +91,9 @@ class KernelLibrary:
         self.log = log
         self._lib = ctypes.CDLL(path)
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(self._lib, name)
+            fn = getattr(self._lib, name, None)
+            if fn is None:  # an older checkout's library (tools.dense_ab) lacks later entries
+                continue
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
 

@@ -9,11 +9,15 @@ fourth row of the tool's transposed sample tiles), ``b1`` (H,), ``w2`` (H,
 C), ``b2`` (C,). ``VARIANTS`` are its seven kernel bodies: ``mm_only``
 (``:96``), ``vpu_only`` (``:110``), ``replica`` (``:131``), ``h1``
 (``:153``), ``noop`` (``:182``), ``mm_big`` (``:200``, run by ``call_big``,
-one grid step a cloud) and ``fwd_bf16`` (``:234``). One kernel template,
-``csrc/dense_probe.cu``, holds six of them on K1's CUDA-core schedule;
-mm_big is its (H+1) contractions as bf16 tensor-core GEMM tiles over the
-whole card (``csrc/dense_probe_mm_big.cu``). ``dense_probe`` picks by device
-(CPU tensor -> the plain version, CUDA tensor -> the kernel) and each
+one grid step a cloud) and ``fwd_bf16`` (``:234``). Two schedules hold
+them. noop, mm_only and mm_big walk one staged schedule
+(``csrc/dense_probe_stage.cuh``: 128-sample x 64-channel tiles over the whole
+card, each block's fz resident in shared memory): noop is its loads alone
+and mm_only its (H+1) contractions in fp32 FMAs (``csrc/dense_probe_staged.cu``),
+mm_big the same contractions as bf16 tensor-core GEMM tiles
+(``csrc/dense_probe_mm_big.cu``). vpu_only, replica, h1 and fwd_bf16 keep
+K1's all-pairs schedule (``csrc/dense_probe.cu``). ``dense_probe`` picks by
+device (CPU tensor -> the plain version, CUDA tensor -> the kernel) and each
 variant has its own launch counter. bf16 stays bf16 where a TPU body rounds
 to it.
 ``xla_equiv`` (``:214``), plain XLA outside any Pallas kernel in the tool,
@@ -132,6 +136,17 @@ def dense_probe_cuda(variant: str, pts: torch.Tensor, feats: torch.Tensor, w1: t
     _build.check(err, f"dense_probe_kernel ({variant})")
     launches[variant] += 1
     return out
+
+
+def staged_bytes(B: int, N: int, C: int, H: int = HIDDEN) -> int:
+    """Bytes of fz and x that T1's staged schedule (noop, mm_only, mm_big)
+    copies from L2 into shared memory in one call at (B, N, C, H), as the
+    kernel library's ``dense_probe_staged_bytes`` counts them from the
+    schedule's tile and stages (``csrc/dense_probe_stage.cuh``)."""
+    n = _build.library().dense_probe_staged_bytes(B, N, C, H)
+    if n < 0:
+        raise OverflowError(f"dense_probe_staged_bytes: more than 2**31 bytes at {(B, N, C, H)}")
+    return n
 
 
 def dense_probe(variant: str, pts, feats, w1, b1, w2, b2, radius: float) -> torch.Tensor:

@@ -6,6 +6,7 @@ with ``--planes``, K1p.
     python -m mccnn_tpu_torch.tools.dense_ab --v1 OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --planes OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --same OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --t1 OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
 ``ops/cuda/_build.py``, in a child process) and loaded beside this one's.
@@ -44,7 +45,13 @@ time, then their sums. With ``--same`` (for another checkout whose library
 has this checkout's entry points and arguments, K1p's aside) it runs this
 checkout's K1 / K2 and K1v1 / K2v1 wrappers once on each library, at the
 zoo's 14 sites, MCClassS's 3 and ShapeNet's 3 (B = 32), and prints per site
-whether every output is bit-equal.
+whether every output is bit-equal. With ``--t1`` (for another checkout whose
+``dense_probe_launch`` has this checkout's arguments) it runs T1 noop,
+mm_only and mm_big through this checkout's wrapper on each library at
+``tools.dense_breakdown``'s inputs, the features given in bf16 (the kernels
+alone), and prints for each whether the outputs are bit-equal and both
+libraries' call and device times (``best_ms``, ``device_ms``; order other,
+this, this, other).
 
 It refuses to run without a CUDA device.
 """
@@ -489,17 +496,53 @@ def main_same(other_path: str, dev) -> int:
     return 0 if every else 1
 
 
+def main_t1(other_path: str, dev) -> int:
+    """T1 noop, mm_only and mm_big through this checkout's wrapper on this
+    library and on ``other_path``'s: bit-equal or not, and both times."""
+    from mccnn_tpu_torch.ops.cuda import _build, dense_probe
+
+    from . import best_ms, device_ms
+    from .dense_breakdown import RADIUS, inputs
+
+    libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
+    pts, feats, w1, b1, w2, b2 = inputs(dev)
+    args = (pts, feats.to(torch.bfloat16), w1, b1, w2, b2, RADIUS)
+    every = True
+    try:
+        for v in ("noop", "mm_only", "mm_big"):
+            fn = lambda v=v: dense_probe.dense_probe_cuda(v, *args)  # noqa: E731
+            outs, call, dms = {}, {}, {}
+            with torch.no_grad():
+                for who in ("other", "this", "this", "other"):
+                    _build._LIBRARY = libs[who]
+                    outs[who] = fn()
+                    torch.cuda.synchronize()
+                    call[who] = min(call.get(who, float("inf")), best_ms(fn, iters=10))
+                    dms[who] = min(dms.get(who, float("inf")), device_ms(fn, iters=10))
+            same = torch.equal(outs["this"], outs["other"])
+            every &= same
+            print(f"T1 {v}: bit_equal={same}"
+                  + ("" if same else f" rel_diff={rel_diff(outs['this'], outs['other']):.3e}")
+                  + f"; call_ms other={call['other']:.4f} this={call['this']:.4f}; device_ms "
+                  f"other={dms['other']:.4f} this={dms['this']:.4f} "
+                  f"(this / other {dms['this'] / dms['other']:.3f})", flush=True)
+    finally:
+        _build._LIBRARY = libs["this"]
+    print(f"T1 noop, mm_only, mm_big: every output bit-equal: {every}", flush=True)
+    return 0 if every else 1
+
+
 def main(argv=None) -> int:
     from mccnn_tpu_torch.ops.cuda import _build
 
     from . import best_ms, card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
-    mode = argv[0] if argv[:1] in (["--v1"], ["--planes"], ["--same"]) else None
+    mode = argv[0] if argv[:1] in (["--v1"], ["--planes"], ["--same"], ["--t1"]) else None
     argv = argv[1:] if mode else argv
     if len(argv) != 1 or not os.path.isdir(argv[0]):
         raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab "
-                         "[--v1 | --planes | --same] OTHER_CHECKOUT")
+                         "[--v1 | --planes | --same | --t1] OTHER_CHECKOUT")
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
     if mode == "--v1":
@@ -508,6 +551,8 @@ def main(argv=None) -> int:
         return main_planes(other_library(argv[0], OTHER_PLANES_SIGNATURES), dev)
     if mode == "--same":
         return main_same(other_library_path(argv[0]), dev)
+    if mode == "--t1":
+        return main_t1(other_library_path(argv[0]), dev)
     this = _build.library()
     other = other_library(argv[0], {**OTHER_SIGNATURES, "mcconv_bwd_pair_blocks": OTHER_BLOCKS})
     gen = torch.Generator().manual_seed(SEED)

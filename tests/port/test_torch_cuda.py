@@ -1092,20 +1092,37 @@ def test_dense_probe_kernels_match_plain_and_repeat_bitwise(cuda, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,C", [(1000, 40), (300, 1), (300, 24), (300, 1024)])
-def test_mm_big_kernel_at_edge_shapes(cuda, N, C):
-    """T1 mm_big's tensor-core GEMM tiles where N or C is not a multiple of
-    the tile (C = 1 and C = 24 take the plain loads, N = 1000 a ragged last
-    source step and sample tile): against its plain version within
-    T1_RTOL, bit for bit on repeat."""
+@pytest.mark.parametrize("variant", ["noop", "mm_only", "mm_big"])
+@pytest.mark.parametrize("N,C", [(1000, 40), (300, 1), (300, 24), (300, 1024), (1500, 40)])
+def test_mm_big_kernel_at_edge_shapes(cuda, variant, N, C):
+    """T1's staged-schedule kernels (noop, mm_only on the CUDA cores, mm_big's
+    tensor-core GEMM tiles) where N or C is not a multiple of the tile (C = 1
+    and C = 24 take the plain loads, N = 1000 a ragged last source step and
+    sample tile, N = 1500 the ring of stages past 1024 sources): against the
+    plain version within T1_RTOL, bit for bit on repeat, two launches
+    counted."""
     args = (*_t1_inputs(cuda, N=N, C=C), 0.2)
-    got = dense_probe.dense_probe_cuda("mm_big", *args)
-    again = dense_probe.dense_probe_cuda("mm_big", *args)
-    want = dense_probe.dense_probe_reference("mm_big", *args)
+    before = dense_probe.launches[variant]
+    got = dense_probe.dense_probe_cuda(variant, *args)
+    again = dense_probe.dense_probe_cuda(variant, *args)
+    want = dense_probe.dense_probe_reference(variant, *args)
     torch.cuda.synchronize()
+    assert dense_probe.launches[variant] == before + 2
     assert torch.equal(got, again)
     # bf16 products are exact in fp32; the sums over sources in other orders
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_staged_bytes_of_the_t1_schedule(cuda):
+    """The bytes T1's staged schedule copies a call, as the library counts
+    them: 128 x 64 output tiles, each copying its 128-source steps (a 128 x
+    64 bf16 fz tile and 128 x values) once where they are resident (N <=
+    1024), (H+1) times in the ring past it."""
+    step = 128 * 64 * 2 + 128 * 4
+    assert dense_probe.staged_bytes(8, 1024, 128) == 8 * 8 * 2 * 8 * step  # the tool's shape
+    assert dense_probe.staged_bytes(8, 1500, 128) == 8 * 12 * 2 * 9 * 12 * step
+    assert dense_probe.staged_bytes(2, 300, 24) == 2 * 3 * 1 * 3 * step
 
 
 def test_roofline_wrappers_refuse_cpu_tensors():

@@ -55,7 +55,8 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    repeats bit for bit; times, bounds and plain times are printed.
    K6 (the tile MC-conv backward) at the same four sites of the batch,
    with a seeded dout: d_wf and every parameter gradient against the plain
-   version, bitwise repetition, times and bounds. Then the tile switches'
+   version, bitwise repetition, call and device times, candidate and
+   in-radius pairs, bounds. Then the tile switches'
    kernels at the same sites: K5p and K6p (packed minor records) bit for bit
    against K5 and K6 and against their plain versions, K6v1 (the per-h
    backward) within 1e-5 of each gradient's largest value of its plain
@@ -66,8 +67,9 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
 9. MCSeg (ScanNet defaults: grow 64, radii 0.05 / 0.15 / 0.4, seeded weights
    and BN statistics) on the card against the CPU plain path at B=2 x 8192
    (B=8 would keep the CPU for minutes), and the card's B=8 block hierarchy
-   against the CPU's; then a block batch's and a whole scene's forward under
-   torch.profiler (device time, busy share, the top kernels). One MCSeg train
+   against the CPU's; then a block batch's and a whole scene's forward and a
+   B=8 train step under torch.profiler (device time, busy share, the top
+   kernels). One MCSeg train
    step (dropout 0) on the card against the same step on the CPU plain path
    at B=2 x 8192, with the same weights and BN statistics and the card's
    BN-ReLU decisions (the flips are counted): the loss, every gradient, the
@@ -92,14 +94,16 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    overflow of each side (nonzero drops points, the reference's semantics)
    and the candidate and in-radius pair counts; K9 (bucket MC conv) and K10
    (its backward, with a seeded dout) at the four sites against their plain
-   versions, bitwise repetition, times and bounds.
+   versions, bitwise repetition, times (K10's call and device times) and
+   bounds.
 13. MCSeg(tile_pairs=None) served through ``serve.Predictor``: the card
    against the CPU plain path at B=2 (identical hierarchies), then the
    latency of B=8 block batches, with K9 launched and no tile kernel, and a
    profiled B=8 forward (device time, busy share, top kernels).
 14. One MCSeg bucket train step at B=2 x 8192 against the CPU plain path (the
    gate of 9), then timed train steps at B=8 x 8192 through
-   ``make_train_step`` with K9 and K10 launched.
+   ``make_train_step`` with K9 and K10 launched, and one under
+   torch.profiler.
 15. ``tasks.modelnet.main --synthetic --points 4096`` at B=32: three steps and
    one evaluation, with MCClassS's conv_0_1 on K9 and K10.
 16. K1v1 and K2v1 (the per-h dense conv and its backward) at the 14 dense
@@ -1184,8 +1188,11 @@ def check_tile_conv(dev, hier, tile_pairs) -> tuple:
 
 
 def check_tile_backward(dev, hier, tile_pairs) -> tuple:
-    """K6 at the four tile sites of the block batch's MCSeg, with a seeded dout."""
+    """K6 at the four tile sites of the block batch's MCSeg, with a seeded dout:
+    each site's call and device times (``tools.device_ms``), its candidate
+    and in-radius pairs."""
     from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+    from mccnn_tpu_torch.tools import device_ms
 
     gen = torch.Generator().manual_seed(SEED + 11)
     names = ("d_wf", "dw1", "db1", "dw2", "db2")
@@ -1224,15 +1231,20 @@ def check_tile_backward(dev, hier, tile_pairs) -> tuple:
                         f"K6 {gname} disagrees with its plain version at {name}")
             k_ms = time_ms(lambda: tile_conv.tile_conv_backward_sorted_cuda(*args, c_out=co),
                            iters=5)
+            d_ms = device_ms(lambda: tile_conv.tile_conv_backward_sorted_cuda(*args, c_out=co),
+                             iters=3)
             p_ms = time_ms(lambda: tile_conv.tile_conv_backward_sorted_reference(*args, c_out=co),
                            iters=1)
             pairs = inr_pairs(smp, qmask, src, smask, radius)
             b_ms, by = tile_bwd_bound(smp, qmask, src, smask, c, co, pairs)
             steps = int((lay.steps_b.j_ids != lay.steps_b.n_minor).sum())
+            # a candidate minor pairs its Tm samples with the source tile's T
+            cand = steps * lay.steps_b.Tm * tile_conv.DEFAULT_TILE
             print(f"K6 B={b} {name} N={N} M={M} C={c} CO={co}: Tm={lay.steps.Tm} S={lay.S} "
-                  f"candidate_minors={steps} in_radius_pairs={pairs} max_abs_err (err/scale) "
-                  f"{', '.join(parts)}; bitwise_repeatable=True kernel_ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})", flush=True)
+                  f"candidate_minors={steps} candidate_pairs={cand} in_radius_pairs={pairs} "
+                  f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
+                  f"kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={b_ms:.6f} ({by})", flush=True)
             err, ms, pms, bms = max(err, e_site), ms + k_ms, pms + p_ms, bms + b_ms
     return (err, ms, pms, bms, by, None)
 
@@ -1535,15 +1547,18 @@ def gated_train_step(what: str, model, dev, batch: dict, loss_fn, zero_grad,
     return card, cpu, launches
 
 
-def profile_forward(forward, what: str, reps: int = 3) -> float:
+def profile_forward(forward, what: str, reps: int = 3, train: bool = False) -> float:
     """``reps`` eval forwards (``forward()``) under torch.profiler, after one
     warm-up: wall and device time a forward, the device's busy share, the
     device events a forward and the kernels that take the most device time.
+    With ``train``, ``forward()`` is a train step, run with autograd on.
     Returns the busy share."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with contextlib.nullcontext() if train else torch.inference_mode():
         forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1582,6 +1597,27 @@ def profile_mcseg(dev) -> None:
     model.tile_steps = auto_tile_steps(model, wpts, wmask)
     profile_forward(lambda: model(wpts, wmask, with_overflow=True),
                     f"whole scene N={SEG_CAP} (valid {int(wmask.sum())})")
+
+
+def profile_mcseg_train(dev) -> None:
+    """Where an MCSeg train step on the tile path spends its time (B=8 x
+    8192, the capacity sized for the batch, as the trainer's first step)."""
+    from mccnn_tpu_torch.models import MCSeg
+    from mccnn_tpu_torch.tasks.common import maybe_auto_tile_pairs
+    from mccnn_tpu_torch.train import (batch_to_device, init_state, make_optimizer,
+                                       make_train_step, segmentation_loss)
+
+    blocks = scene_batch(SEED + 16, SEG_B)
+    batch = {k: blocks[k] for k in ("points", "mask", "labels")}
+    model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev)
+    maybe_auto_tile_pairs(model, batch, dev)
+    opt = make_optimizer(model.parameters())
+    init_state(model, opt, SEED)
+    step = make_train_step(model, opt, lambda out, b: (
+        segmentation_loss(out, b["labels"], b["mask"]), {}))
+    on_dev = batch_to_device(batch, dev)
+    profile_forward(lambda: step(on_dev), f"tile train step B={SEG_B} N={SEG_N}", train=True)
 
 
 def run_scannet(whole: bool) -> dict:
@@ -1756,19 +1792,25 @@ def bucket_hierarchy(dev):
     return lv, cache
 
 
-def bucket_site_stats(lv, cache, site) -> None:
-    """Print a bucket site's grids (R, caps, slots), the overflow of each side
-    per cloud, and its candidate and in-radius pair counts."""
+def window_pairs(gs, gp) -> int:
+    """The candidate pairs of a bucket site: each kept sample with every kept
+    source of the 27 cells around its cell."""
     from mccnn_tpu_torch.ops.cuda.mcconv_kernel import _OFFSETS, kept_points
 
-    name, i, o, radius, _, _ = site
-    gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
     Rp, b = gs.padded_res, gs.slot_of_point.shape[0]
     cell = (gs.slot_of_point // gs.cap).long()
     off = _OFFSETS.to(cell.device)
     near = cell.clamp_max(Rp**3 - 1)[..., None] + (off[:, 0] * Rp + off[:, 1]) * Rp + off[:, 2]
     win = torch.gather(gp.cell_count, 1, near.clamp(0, Rp**3 - 1).reshape(b, -1))
-    cand = int((win.reshape(near.shape).sum(-1) * kept_points(gs)).sum())
+    return int((win.reshape(near.shape).sum(-1) * kept_points(gs)).sum())
+
+
+def bucket_site_stats(lv, cache, site) -> None:
+    """Print a bucket site's grids (R, caps, slots), the overflow of each side
+    per cloud, and its candidate and in-radius pair counts."""
+    name, i, o, radius, _, _ = site
+    gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
+    b, cand = gs.slot_of_point.shape[0], window_pairs(gs, gp)
     (src, smask), (smp, qmask) = lv[i], lv[o]
     print(f"bucket site {name} B={b} r={radius}: R={gs.res} cap sample/source={gs.cap}/{gp.cap} "
           f"slots a cloud sample/source={gs.n_slots}/{gp.n_slots} overflow per cloud "
@@ -1884,8 +1926,10 @@ def check_bucket_conv(dev, sites) -> tuple:
 
 def check_bucket_backward(dev, sites) -> tuple:
     """K10 at each ``(levels, cache, site)`` of ``check_bucket_conv``, with a
-    seeded dout."""
+    seeded dout: each site's call and device times (``tools.device_ms``), its
+    candidate (window) and in-radius pairs."""
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+    from mccnn_tpu_torch.tools import device_ms
 
     gen = torch.Generator().manual_seed(SEED + 14)
     names = ("d_wf", "dw1", "db1", "dw2", "db2")
@@ -1917,14 +1961,16 @@ def check_bucket_backward(dev, sites) -> tuple:
                         f"K10 {gname} disagrees with its plain version at {name}: "
                         f"{e:.3e} of {scale:.3e}")
             k_ms = time_ms(lambda: mk.bucket_conv_backward_cuda(*args, c_out=co), iters=5)
+            d_ms = device_ms(lambda: mk.bucket_conv_backward_cuda(*args, c_out=co), iters=3)
             p_ms = time_ms(lambda: mk.bucket_conv_backward_reference(*args, c_out=co), iters=1)
             pairs = int(cnt.sum())
             vq, vp = int(mk.kept_points(gs).sum()), int(mk.kept_points(gp).sum())
             b_ms, by = bucket_bwd_bound(b * M, b * N, c, co, pairs, vq, vp)
             bounds.append((b_ms, by))
-            print(f"K10 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
-                  f"max_abs_err (err/scale) {', '.join(parts)}; bitwise_repeatable=True "
-                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
+            print(f"K10 B={b} {name} N={N} M={M} C={c} CO={co}: candidate_pairs="
+                  f"{window_pairs(gs, gp)} in_radius_pairs={pairs} max_abs_err (err/scale) "
+                  f"{', '.join(parts)}; bitwise_repeatable=True kernel_ms={k_ms:.4f} "
+                  f"device_ms={d_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
                   flush=True)
             err, ms, pms, bms = max(err, e_site), ms + k_ms, pms + p_ms, bms + b_ms
     return (err, ms, pms, bms, max(bounds)[1], None)
@@ -2027,6 +2073,8 @@ def train_mcseg_bucket(dev) -> dict:
     print(f"MCSeg bucket train steps (make_train_step, B={SEG_B} N={SEG_N} grow={SEG_GROW}): "
           f"losses={[round(x, 5) for x in losses]} step_ms={[round(x, 3) for x in times]} "
           f"warm_step_ms={float(np.mean(times[1:])):.3f} launches={launches}", flush=True)
+    profile_forward(lambda: step(batches[0]), f"bucket train step B={SEG_B} N={SEG_N}",
+                    train=True)
     require(all(np.isfinite(losses)), "the MCSeg bucket train step's loss is not finite")
     for name in ("K1", "K2", "K3", "K4", "K9", "K10"):
         require(launches[name] > 0, f"{name} was not launched in MCSeg bucket training")
@@ -3283,6 +3331,7 @@ def main() -> int:
     tile_results = check_tile_kernels(dev)
     check_mcseg(dev)
     profile_mcseg(dev)
+    profile_mcseg_train(dev)
     check_mcseg_train_step(dev)
     seg_launches = {"scannet_blocks": run_scannet(whole=False),
                     "scannet_whole": run_scannet(whole=True),

@@ -1,25 +1,33 @@
-// The in-radius pair lists of the dense MC conv's pair kernels, K1 and K1p
-// (dense_conv_pair.cuh) and K2 (dense_conv_bwd.cu).
+// The in-radius pair lists of the MC conv's pair kernels: K1 and K1p
+// (dense_conv_pair.cuh), K2 (dense_conv_bwd.cu), K1v1 (dense_conv_v1.cuh), and
+// K6 / K10, the tile and bucket backwards (list_bwd.cuh).
 //
-// A block owns a few points of one cloud (K1: samples, K2: sources) and
-// sweeps the other side of the pair (K1: sources, K2: samples) in chunks
-// staged in shared memory. The sweep tests every pair with the exact d2 of
-// `pair_d2_rn` and the two masks, nothing more. A warp takes one owner at a
-// time and 32 others at a time: `__ballot_sync` marks the in-radius others
-// and a prefix `__popc` gives each hit its slot in the owner's list. So a
-// list holds the owner's in-radius others in increasing index, and only
-// those pairs ever cost more than a distance test. A group of 32 others with
-// no valid point is skipped on its validity bits alone. Once an owner's list
-// for the round is complete, the warp forms the listed pairs' offsets and 8
-// activations a_h = relu(pre_h), one entry a lane: no lane waits on another
-// lane's hit, and dense lists keep every lane busy (K1p forms them on the
-// tensor cores instead, 16 entries an MMA).
+// A block owns a few points of one cloud (K1: samples, K2, K6, K10: sources)
+// and sweeps the other side of the pair in chunks staged in shared memory:
+// the dense kernels a range of the cloud (`stage_others`), K6 a source tile's
+// run of sample minors and K10 a cell's 27-cell window (`stage_gather`, which
+// also keeps each staged other's row). The sweep tests every pair with the
+// exact d2 of `pair_d2_rn` and the two masks, nothing more. A warp takes one
+// owner at a time and 32 others at a time: `__ballot_sync` marks the
+// in-radius others and a prefix `__popc` gives each hit its slot in the
+// owner's list. So a list holds the owner's in-radius others in staging
+// order, and only those pairs ever cost more than a distance test. A group of
+// 32 others with no valid point is skipped on its validity bits alone. Once
+// an owner's list for the round is complete, the warp forms the listed pairs'
+// offsets and 8 activations a_h = relu(pre_h), one entry a lane: no lane
+// waits on another lane's hit, and dense lists keep every lane busy (K1p
+// forms them on the tensor cores instead, 16 entries an MMA).
 //
 // A list holds `cap` entries (cap >= 32). A warp stops an owner's sweep
 // before a group whose hits would not fit, and resumes there in the next
 // round: a round is one sweep of every owner, a barrier, the kernel's
-// contraction over the lists, a barrier. The contraction keeps its sums in registers across rounds, so
-// every output still adds its terms in increasing index, whatever `cap` is.
+// contraction over the lists, a barrier. The contraction keeps its sums in
+// registers across rounds, so every output still adds its terms in
+// increasing index, whatever `cap` is.
+// The dense kernels start every chunk's lists empty (`sweep_round`: an entry
+// is the other's index in its cloud); K6 and K10 append a chunk's hits to
+// the lists of the chunks before it until one fills (`sweep_append`: an entry
+// is the other's row, so a list outlives its chunk's staging).
 
 #pragma once
 
@@ -34,24 +42,44 @@ constexpr int kMaxOwners = 32;    // owners per block
 constexpr int kFillBlocks = 264;  // two blocks per SM of an H100: below it, split channels
 constexpr unsigned kFull = 0xffffffffu;
 
-// The others [o0, o0 + n) of cloud b (N of them a cloud) into opos as (x, y,
-// z, |p|^2), and one validity word per group of 32 into ogrp. blockDim is a
-// multiple of 32, so each warp's lanes fall in one group.
-__device__ __forceinline__ void stage_others(const float* __restrict__ pts,
-                                             const uint8_t* __restrict__ mask, int b, int N,
-                                             int o0, int n, float4* opos, unsigned* ogrp) {
+// Stages n others into opos as (x, y, z, |p|^2), and one validity word per
+// group of 32 into ogrp: fetch(t, &x, &y, &z) gives other t's position and
+// returns whether it is valid. blockDim is a multiple of 32, so each warp's
+// lanes fall in one group.
+template <class Fetch>
+__device__ __forceinline__ void stage_gather(int n, float4* opos, unsigned* ogrp,
+                                             const Fetch& fetch) {
   const int npad = (n + 31) & ~31;
   for (int t = threadIdx.x; t < npad; t += blockDim.x) {
     bool v = false;
     if (t < n) {
-      const size_t k = (size_t)b * N + o0 + t;
-      const float x = pts[3 * k], y = pts[3 * k + 1], z = pts[3 * k + 2];
+      float x, y, z;
+      v = fetch(t, &x, &y, &z);
       opos[t] = make_float4(x, y, z, sq_norm_rn(x, y, z));
-      v = mask[k] != 0;
     }
     const unsigned bal = __ballot_sync(kFull, v);
     if ((threadIdx.x & 31) == 0) ogrp[t >> 5] = bal;
   }
+}
+
+// The others [o0, o0 + n) of cloud b (N of them a cloud).
+struct RangeFetch {
+  const float* pts;
+  const uint8_t* mask;
+  size_t k0;
+  __device__ __forceinline__ bool operator()(int t, float* x, float* y, float* z) const {
+    const size_t k = k0 + t;
+    *x = pts[3 * k];
+    *y = pts[3 * k + 1];
+    *z = pts[3 * k + 2];
+    return mask[k] != 0;
+  }
+};
+
+__device__ __forceinline__ void stage_others(const float* __restrict__ pts,
+                                             const uint8_t* __restrict__ mask, int b, int N,
+                                             int o0, int n, float4* opos, unsigned* ogrp) {
+  stage_gather(n, opos, ogrp, RangeFetch{pts, mask, (size_t)b * N + o0});
 }
 
 // The pair lists of one block. Entry e of owner s: the other's index in its
@@ -112,13 +140,51 @@ struct OffsetForm {
   }
 };
 
+// Owner q's sweep of the groups [g, ngroups) of a staged chunk (the chunk's
+// first other at o0), appending its in-radius others' o0 + staged index to
+// idx from entry *len. Two groups are tested at a time (two independent d2
+// chains a lane) and their hits appended in order. It stops before a group
+// whose hits would pass cap and returns the group to resume at (ngroups when
+// the chunk is done). The whole warp takes part.
+template <bool kOwnerIsSample>
+__device__ __forceinline__ int sweep_groups(float4 q, const float4* opos, const unsigned* ogrp,
+                                            int g, int ngroups, int o0, float r2, int* idx,
+                                            int cap, int* len_io) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int len = *len_io;
+  while (g < ngroups) {
+    const unsigned vm0 = ogrp[g], vm1 = g + 1 < ngroups ? ogrp[g + 1] : 0u;
+    if ((vm0 | vm1) == 0u) {  // two groups of padding: no valid other
+      g += 2;
+      continue;
+    }
+    const int t0 = (g << 5) + lane, t1 = t0 + 32;
+    const bool in0 = in_radius<kOwnerIsSample>(q, opos, vm0, t0, lane, r2);
+    const bool in1 = in_radius<kOwnerIsSample>(q, opos, vm1, t1, lane, r2);
+    const unsigned bal0 = __ballot_sync(kFull, in0), bal1 = __ballot_sync(kFull, in1);
+    const int n0 = __popc(bal0), n1 = __popc(bal1);
+    if (len + n0 > cap) break;  // resumes at group g next round
+    if (in0) idx[len + __popc(bal0 & below)] = o0 + t0;
+    len += n0;
+    if (len + n1 > cap) {  // resumes at group g + 1
+      ++g;
+      break;
+    }
+    if (in1) idx[len + __popc(bal1 & below)] = o0 + t1;
+    len += n1;
+    g += 2;
+  }
+  *len_io = len;
+  return g > ngroups ? ngroups : g;
+}
+
 // One round of the sweep over a staged chunk (`ngroups` groups of 32, the
 // chunk's first other at index o0 of its cloud): warp w takes owners w, w +
 // nwarps, ... . Owners are (x, y, z, |p|^2) with a validity flag; an invalid
 // owner lists nothing. kOwnerIsSample: K1's lists (owner = sample); else
-// K2's (owner = source, with the offsets). Two groups are tested at a time
-// (two independent d2 chains a lane) and their hits appended in order; once
-// an owner's list for the round is complete, `form` gives its entries their
+// K2's (owner = source, with the offsets). Every owner's list starts empty;
+// once it is complete for the round, `form` gives its entries their
 // activations (the whole warp takes part). Returns true where an owner
 // stopped before the chunk's end.
 template <bool kOwnerIsSample, class Form>
@@ -127,36 +193,13 @@ __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_va
                                             const unsigned* ogrp, int ngroups, int o0, float r2,
                                             Lists L, const Form& form) {
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
   bool more = false;
   for (int s = threadIdx.x >> 5; s < n_owner; s += nw) {
     const float4 q = own[s];
     int* idx = L.idx + s * L.istride;
-    int g = own_valid[s] ? L.resume[s] : ngroups;
     int len = 0;
-    while (g < ngroups) {
-      const unsigned vm0 = ogrp[g], vm1 = g + 1 < ngroups ? ogrp[g + 1] : 0u;
-      if ((vm0 | vm1) == 0u) {  // two groups of padding: no valid other
-        g += 2;
-        continue;
-      }
-      const int t0 = (g << 5) + lane, t1 = t0 + 32;
-      const bool in0 = in_radius<kOwnerIsSample>(q, opos, vm0, t0, lane, r2);
-      const bool in1 = in_radius<kOwnerIsSample>(q, opos, vm1, t1, lane, r2);
-      const unsigned bal0 = __ballot_sync(kFull, in0), bal1 = __ballot_sync(kFull, in1);
-      const int n0 = __popc(bal0), n1 = __popc(bal1);
-      if (len + n0 > L.cap) break;  // resumes at group g next round
-      if (in0) idx[len + __popc(bal0 & below)] = o0 + t0;
-      len += n0;
-      if (len + n1 > L.cap) {  // resumes at group g + 1
-        ++g;
-        break;
-      }
-      if (in1) idx[len + __popc(bal1 & below)] = o0 + t1;
-      len += n1;
-      g += 2;
-    }
-    if (g > ngroups) g = ngroups;
+    const int g = sweep_groups<kOwnerIsSample>(q, opos, ogrp, own_valid[s] ? L.resume[s] : ngroups,
+                                               ngroups, o0, r2, idx, L.cap, &len);
     __syncwarp();  // the list's indices are visible to every lane
     form(s, q, idx, len, o0, opos, L);
     if (lane == 0) {
@@ -168,6 +211,73 @@ __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_va
   }
   return more;
 }
+
+// One round of K6's or K10's sweep (owner = source) over a chunk staged by
+// `stage_gather`, whose others' rows are at orow: each owner's hits are
+// appended to its list after the L.len[s] entries of the chunks before, and
+// `form` gives entries [start, len) their activations and offsets and turns
+// each staged index into its row. Returns true where an owner stopped before
+// the chunk's end: its list is full.
+template <class Form>
+__device__ __forceinline__ bool sweep_append(const float4* own, const int* own_valid,
+                                             int n_owner, const float4* opos,
+                                             const unsigned* ogrp, int ngroups, float r2,
+                                             Lists L, const Form& form) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  bool more = false;
+  for (int s = threadIdx.x >> 5; s < n_owner; s += nw) {
+    const float4 q = own[s];
+    int* idx = L.idx + s * L.istride;
+    const int start = L.len[s];
+    int len = start;
+    const int g = sweep_groups<false>(q, opos, ogrp, own_valid[s] ? L.resume[s] : ngroups,
+                                      ngroups, 0, r2, idx, L.cap, &len);
+    __syncwarp();  // the list's indices are visible to every lane
+    form(s, q, idx, start, len, opos, L);
+    __syncwarp();  // every lane has read L.len[s]
+    if (lane == 0) {
+      L.resume[s] = g;
+      L.len[s] = len;
+      L.count[s] += len - start;
+    }
+    more |= g < ngroups;
+  }
+  return more;
+}
+
+// `sweep_append`'s entries of K6 and K10 (owner = source q): offsets (source
+// minus sample) / r, the 8 activations and the sample's row, one entry a lane.
+struct RowForm {
+  const float* w1;
+  const float* b1;
+  const int* orow;
+  float radius;
+
+  __device__ __forceinline__ void operator()(int s, float4 q, int* idx, int start, int len,
+                                             const float4* opos, const Lists& L) const {
+    for (int e = start + (threadIdx.x & 31); e < len; e += 32) {
+      const int t = idx[e];
+      const float4 p = opos[t];
+      const float ox = mc_offset(q.x, p.x, radius), oy = mc_offset(q.y, p.y, radius),
+                  oz = mc_offset(q.z, p.z, radius);
+      float a[kHidden];
+#pragma unroll
+      for (int h = 0; h < kHidden; ++h)
+        a[h] = fmaxf(mc_preact(ox, oy, oz, w1, b1, kHidden, h), 0.f);
+      float4* dst = reinterpret_cast<float4*>(L.act + (size_t)s * L.astride + 8 * e);
+      dst[0] = make_float4(a[0], a[1], a[2], a[3]);
+      dst[1] = make_float4(a[4], a[5], a[6], a[7]);
+      L.off[s * L.ostride + e] = make_float4(ox, oy, oz, 0.f);
+      idx[e] = orow[t];
+    }
+  }
+};
+
+// The bwd_noop probe's entries: none formed (the lists only count).
+struct CountForm {
+  __device__ __forceinline__ void operator()(int, float4, int*, int, int, const float4*,
+                                             const Lists&) const {}
+};
 
 // The round with every entry formed by `OffsetForm` (w1 (3, H) and b1 (H,)).
 template <bool kOwnerIsSample>

@@ -11,8 +11,8 @@
 // payload into f32 rows). The wrapper (ops/cuda/tile_conv.py
 // pack_minor_records) builds the records; the kernels stage the values K5 and
 // K6 stage from them and sum in the same order, so K5p and K6p are bit-equal
-// to K5 and K6. What bounds them on the H100 is what bounds K5 and K6: the
-// pair arithmetic.
+// to K5 and K6. What bounds them on the H100 is what bounds K5 and K6
+// (tile_conv.cuh, tile_conv_bwd.cuh).
 
 #include "tile_conv.cuh"
 #include "tile_conv_bwd.cuh"
@@ -40,9 +40,9 @@ extern "C" int tile_conv_bwd_packed_launch(const void* rec, const void* src, con
                                            const void* wf, const void* dg, const void* j_ids,
                                            const void* run, const void* w1, const void* b1,
                                            const void* w2, const void* b2, int B, int NS,
-                                           int NP, int C, int KU, int CB, int H, int S, int G,
+                                           int NP, int C, int KU, int H, int S, int G,
                                            int n_tiles, int sentinel, int Tm, float r2,
-                                           float radius, int depthwise, void* out,
+                                           float radius, int depthwise, void* out, void* xs,
                                            void* w1part, void* w2part, void* stream) {
   const k6::TileBwdArgs a{
       nullptr, nullptr, nullptr, static_cast<const float*>(rec),
@@ -50,8 +50,8 @@ extern "C" int tile_conv_bwd_packed_launch(const void* rec, const void* src, con
       static_cast<const float*>(wf), static_cast<const float*>(dg),
       static_cast<const int*>(j_ids), static_cast<const int*>(run),
       static_cast<const float*>(w1), static_cast<const float*>(b1),
-      static_cast<const float*>(w2), static_cast<const float*>(b2), NS, NP, C, KU, CB, S, G,
+      static_cast<const float*>(w2), static_cast<const float*>(b2), NS, NP, C, KU, S, G,
       n_tiles, sentinel, r2, radius, depthwise, static_cast<float*>(out),
-      static_cast<float*>(w1part), static_cast<float*>(w2part)};
+      static_cast<float*>(xs), static_cast<float*>(w1part), static_cast<float*>(w2part)};
   return k6::tile_bwd_dispatch<true>(a, B, H, Tm, static_cast<cudaStream_t>(stream));
 }

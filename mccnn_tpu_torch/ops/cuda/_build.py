@@ -64,21 +64,22 @@ SIGNATURES = {
     "mcconv_v1_g_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
     "tile_conv_launch": [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
     "tile_conv_packed_launch": [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
-    "tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
-    "tile_conv_bwd_packed_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_bwd_blocks": [I] * 5,
+    "tile_conv_bwd_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 5,
+    "tile_conv_bwd_packed_launch": [P] * 11 + [I] * 11 + [F, F, I] + [P] * 5,
     "tile_conv_bwd_v1_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
     "tile_conv_probe_launch": [I] + [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
     "tile_conv_packed_probe_launch": [I] + [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
-    "tile_conv_bwd_noop_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
-    "tile_conv_bwd_packed_noop_launch": [P] * 11 + [I] * 12 + [F, F, I] + [P] * 4,
+    "tile_conv_bwd_noop_launch": [P] * 13 + [I] * 11 + [F, F, I] + [P] * 5,
+    "tile_conv_bwd_packed_noop_launch": [P] * 11 + [I] * 11 + [F, F, I] + [P] * 5,
     "dense_probe_launch": [I] + [P] * 6 + [I] * 4 + [F, F] + [P] * 2,
     "dense_probe_staged_bytes": [I] * 4,
     "tile_kde_launch": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
-    "bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4,
+    "bucket_conv_bwd_launch": [P] * 13 + [I] * 10 + [F, F, I] + [P] * 5,
     "bucket_conv_active_launch": [P] * 12 + [I] * 10 + [F, F, I, I] + [P] * 3,
-    "bucket_conv_bwd_active_launch": [P] * 14 + [I] * 14 + [F, F, I] + [P] * 4,
+    "bucket_conv_bwd_active_launch": [P] * 14 + [I] * 12 + [F, F, I] + [P] * 5,
 }
 
 

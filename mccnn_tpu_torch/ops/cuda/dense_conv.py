@@ -72,6 +72,7 @@ from . import _build
 MAX_C = 1024  # the pair kernels hold C in 256 threads of 4 channels
 HIDDEN = 8  # the pair kernels' accumulators are unrolled for H = 8
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100 for the split-K dW2 GEMM
+_REDUCE_SPLIT = 256  # rows of the second pass of a two-pass partial-sum reduction
 
 # The reference's variant switch (mccnn_tpu/ops/pallas/dense_conv.py:735-736):
 # read once here, consulted at every call.
@@ -535,6 +536,35 @@ def wcat_grad(A: torch.Tensor, t: torch.Tensor, R: int, MA: int, CO: int, *,
                                            stream)
         _build.check(err, "mcconv_bwd_reduce_kernel (dW2)")
     return out
+
+
+def ordered_sum(part: torch.Tensor, lib, stream, what: str) -> torch.Tensor:
+    """Sum ``part (Z, L)`` over its rows in a fixed order with K2's reduction
+    kernel: in one pass, or for many rows in two (rows ``z1 * 256 + z2``
+    over z1, then over z2), which keeps every thread's serial sum short.
+    ``part`` is zero-padded to a multiple of 256 rows by its allocator
+    (``partials``)."""
+    Z, L = part.shape
+    if Z <= 4 * _REDUCE_SPLIT:
+        out = torch.empty((L,), dtype=torch.float32, device=part.device)
+        _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z, L, _build.ptr(out),
+                                                  stream), what)
+        return out
+    mid = torch.empty((_REDUCE_SPLIT * L,), dtype=torch.float32, device=part.device)
+    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z // _REDUCE_SPLIT,
+                                              _REDUCE_SPLIT * L, _build.ptr(mid), stream), what)
+    out = torch.empty((L,), dtype=torch.float32, device=part.device)
+    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(mid), _REDUCE_SPLIT, L,
+                                              _build.ptr(out), stream), what)
+    return out
+
+
+def partials(Z: int, L: int, dev) -> torch.Tensor:
+    """Zeroed (Z', L) partial sums, Z' = Z rounded up to a multiple of 256
+    when there are many: a block of an empty cell writes none of its rows."""
+    if Z > 4 * _REDUCE_SPLIT:
+        Z = -(-Z // _REDUCE_SPLIT) * _REDUCE_SPLIT
+    return torch.zeros((Z, L), dtype=torch.float32, device=dev)
 
 
 def _split_wcat(dwcat, H, C, c_out, w2, b2):

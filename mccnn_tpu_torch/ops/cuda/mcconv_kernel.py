@@ -11,9 +11,12 @@ the 27 cells around the sample's cell with ``d2 <= r2`` contributes. A point
 dropped by a cell's overflow is in no sum, a dropped sample gets 0, and so
 does every masked sample.
 
-The kernels (``csrc/bucket_conv.cu``, ``csrc/bucket_conv_bwd.cu``) give one
-block to each (cloud, cell, channel slice): K9 to the sample cells, K10 to
-the source cells, and a block over an empty cell exits at once. They read
+The kernels (``csrc/bucket_conv.cu``, ``csrc/bucket_conv_bwd.cu``) give K9
+a block for each (cloud, sample cell, channel slice) and K10 a block for each
+32 kept sources of a (cloud, source cell), over all their channels; a block
+over an empty cell exits at once. K10 runs K6's body (``csrc/list_bwd.cuh``):
+one d2 test a window pair into each source's list of in-radius samples, then
+the contraction over the lists. They read
 positions from the layouts (slot order) and features, outputs and the
 cotangent in point order through ``point_of_slot``: every output row has one
 writer, and no (B, slots, C) tensor exists. K9 forms ``G[i,h,c] = sum_j
@@ -56,7 +59,7 @@ from ...core.buckets import BucketGrid
 from ...core.grid import radius_sq, row_d2
 from ...core.mcconv import MCConvParams
 from . import _build, dense_conv
-from .tile_conv import _wr
+from .tile_conv import source_grads
 
 # Launches of K9, K10, K9a and K10a since the last reset (see density_kernel.py).
 launches = 0
@@ -67,9 +70,7 @@ backward_launches_active = 0
 _OFFSETS = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                          for dz in (-1, 0, 1)])
 _PAIR_BUDGET = 2**25  # elements of the largest per-chunk tensor of the plain versions
-BLOCK_ROWS = 128  # a kernel block takes at most this many slots of its cell
-BWD_CHANNELS = 16  # K10's channel slice (csrc/bucket_conv_bwd.cu kMaxCB)
-_REDUCE_SPLIT = 256  # rows of the second pass of a two-pass partial-sum reduction
+BWD_OWNERS = 32  # kept slots of a cell a K10 block owns (csrc/bucket_conv_bwd.cu kOwners)
 BRICK_SLOTS = 128  # a brick holds at least this many slots where R allows (the TPU's lane width)
 
 
@@ -470,43 +471,17 @@ def bucket_conv_active_cuda(params: MCConvParams, sample_grid: BucketGrid,
     return out
 
 
-def _ordered_sum(part: torch.Tensor, lib, stream, what: str) -> torch.Tensor:
-    """Sum ``part (Z, L)`` over its rows in a fixed order with K2's reduction
-    kernel: in one pass, or for many rows in two (rows ``z1 * 256 + z2``
-    over z1, then over z2), which keeps every thread's serial sum short.
-    ``part`` is zero-padded to a multiple of 256 rows by its allocator
-    (``_partials``)."""
-    Z, L = part.shape
-    if Z <= 4 * _REDUCE_SPLIT:
-        out = torch.empty((L,), dtype=torch.float32, device=part.device)
-        _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z, L, _build.ptr(out),
-                                                  stream), what)
-        return out
-    mid = torch.empty((_REDUCE_SPLIT * L,), dtype=torch.float32, device=part.device)
-    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(part), Z // _REDUCE_SPLIT,
-                                              _REDUCE_SPLIT * L, _build.ptr(mid), stream), what)
-    out = torch.empty((L,), dtype=torch.float32, device=part.device)
-    _build.check(lib.mcconv_bwd_reduce_launch(_build.ptr(mid), _REDUCE_SPLIT, L,
-                                              _build.ptr(out), stream), what)
-    return out
-
-
-def _partials(Z: int, L: int, dev) -> torch.Tensor:
-    """Zeroed (Z', L) partial sums, Z' = Z rounded up to a multiple of 256
-    when there are many: a block of an empty cell writes none of its rows."""
-    if Z > 4 * _REDUCE_SPLIT:
-        Z = -(-Z // _REDUCE_SPLIT) * _REDUCE_SPLIT
-    return torch.zeros((Z, L), dtype=torch.float32, device=dev)
-
-
 def _conv_backward_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid,
                         source_grid: BucketGrid, wf: torch.Tensor, cnt: torch.Tensor,
-                        dout: torch.Tensor, c_out, mean_normalize, active: ActiveBricks | None):
+                        dout: torch.Tensor, c_out, mean_normalize, active: ActiveBricks | None,
+                        parts: bool = False):
     """Launch K10 over every source cell, or K10a over the cells of the
     bricks ``active.src`` lists (with K2's GEMMs around it for the full
     conv, and K2's reduction for the partial sums). K10a's partials sit
     where K10 puts them, one row block per source cell, and the rest stay
-    0: the reduction sums them in the same order."""
+    0: the reduction sums them in the same order. With ``parts``, the
+    kernel's own outputs ``(out, w1part, w2part)``, as K6's wrapper gives
+    them."""
     wf = wf.contiguous()
     kept = (kept_points(sample_grid) if active is None
             else visited_points(sample_grid, active.smp, active.bz))
@@ -525,24 +500,25 @@ def _conv_backward_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid
     stream = _build.stream_of(wf)
     depthwise = c_out is None
     R, cap_p = source_grid.res, source_grid.cap
-    chunk_rows = min(cap_p, BLOCK_ROWS)
-    n_chunks = -(-cap_p // chunk_rows)
-    CB = min(max(C, CO), BWD_CHANNELS)
-    n_cb = -(-max(C, CO) // CB)
+    n_chunks = -(-cap_p // BWD_OWNERS)
     n_blocks = R**3 * n_chunks
-    w1part = _partials(B * n_blocks * n_cb, 4 * H, dev)
+    w1part = dense_conv.partials(B * n_blocks, 4 * H, dev)
     if depthwise:
         dG, out, w2part = t, torch.zeros((B, N, C), dtype=torch.float32, device=dev), \
-            _partials(B * n_blocks, H1 * C, dev)
+            dense_conv.partials(B * n_blocks, H1 * C, dev)
+        # X between the contractions of a block of several passes
+        xs = torch.empty((B, N, H1, C), dtype=torch.float32, device=dev)
     else:
         dG = torch.empty((B, M, H1, C), dtype=torch.float32, device=dev)
         dense_conv.dg_full(t, w2, b2, B * M, CO, H * C, H1 * C, dG,
                            f"mcconv_bwd_dg_full_kernel ({what} dG)")
         out, w2part = torch.zeros((B, N, H1, CO), dtype=torch.float32, device=dev), w1part
+        xs = None
     args = [*(_build.ptr(x) for x in (*smp, *src, wf, t, dG, w1, b1, w2, b2)),
-            B, M, N, C, CO, H, R, sample_grid.cap, cap_p, chunk_rows, n_chunks, CB]
+            B, M, N, C, CO, H, R, sample_grid.cap, cap_p, n_chunks]
     tail = [radius_sq(source_grid.radius), float(source_grid.radius), int(depthwise),
-            _build.ptr(out), _build.ptr(w1part), _build.ptr(w2part), stream]
+            _build.ptr(out), None if xs is None else _build.ptr(xs), _build.ptr(w1part),
+            _build.ptr(w2part), stream]
     if active is None:
         err = lib.bucket_conv_bwd_launch(*args, *tail)
     else:
@@ -550,21 +526,9 @@ def _conv_backward_cuda(what: str, params: MCConvParams, sample_grid: BucketGrid
         args.insert(13, _build.ptr(ids))
         err = lib.bucket_conv_bwd_active_launch(*args, active.src.nba, active.bz, *tail)
     _build.check(err, what)
-    w1b1 = _ordered_sum(w1part, lib, stream, f"mcconv_bwd_reduce_kernel ({what} dW1, db1)")
-    w1b1 = w1b1.reshape(4, H)
-    if depthwise:
-        d_wf = out
-        dwcat = _ordered_sum(w2part, lib, stream, f"mcconv_bwd_reduce_kernel ({what} dW2, db2)")
-        dwcat = dwcat.reshape(H1, C)
-    else:
-        # d_wf = X . Wr^T and [dW2; db2] = wf^T X: K2's two GEMMs, as K6
-        rows, K = B * N, H1 * CO
-        wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
-        d_wf = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-        dense_conv.dg_full(out, wr, wr, rows, K, C, C, d_wf,
-                           f"mcconv_bwd_dg_full_kernel ({what} d_wf)")
-        dwcat = dense_conv.wcat_grad(wf, out, rows, C, K).reshape(C, H1, CO).transpose(0, 1)
-    return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
+    if parts:
+        return out, w1part, w2part
+    return source_grads(MCConvParams(w1, b1, w2, b2), wf, out, w1part, w2part, c_out, what)
 
 
 def bucket_conv_backward_cuda(params: MCConvParams, sample_grid: BucketGrid,

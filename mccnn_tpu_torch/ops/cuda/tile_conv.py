@@ -100,7 +100,7 @@ DEFAULT_COVER_CHUNK = 8
 MORTON_BITS = 8  # 256 curve cells per axis
 _BIG_I32 = 2**30
 STEP_CHUNK = 8  # steps per pass of the plain versions
-TILE_BWD_CHANNELS = 16  # K6's channel block (csrc/tile_conv_bwd.cu kMaxCB)
+TILE_BWD_CHANNELS = 16  # K6v1's channel block (csrc/tile_conv_bwd_v1.cu kMaxCB)
 BUILT_MINORS = (8, 16, 32, 64, 128)  # the minor sizes K5-K8 are compiled for
 # K6v1's dW2 partials (one per source tile) stay within this many floats: 256 MiB.
 _V1_PARTIAL_FLOATS = 64 << 20
@@ -843,9 +843,11 @@ def _backward_inputs(name, params, lay, wf, cnt, dout, c_out, mean_normalize):
 
 
 def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_out,
-               mean_normalize, packed: bool, noop: bool = False):
+               mean_normalize, packed: bool, noop: bool = False, parts: bool = False):
     """K6 or, with ``packed``, K6p on the sorted layout; with ``noop``, its
-    bwd_noop probe."""
+    bwd_noop probe. With ``parts``, the kernel's own outputs ``(out, w1part,
+    w2part)`` (``out`` is X at the full site, d_wf at the depthwise ones)
+    before the partial sums are reduced."""
     name = ("tile_conv_backward (K6p" if packed else "tile_conv_backward (K6") + (
         " bwd_noop)" if noop else ")")
     (w1, b1, w2, b2), wf, t, st = _backward_inputs(name, params, lay, wf, cnt, dout, c_out,
@@ -855,28 +857,30 @@ def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_o
     H = w1.shape[1]
     H1 = H + 1
     CO = C if c_out is None else c_out
-    T = DEFAULT_TILE
-    ntp = NP // T
-    CB = min(max(C, CO), TILE_BWD_CHANNELS)
-    nb = -(-max(C, CO) // CB)
+    ntp = NP // DEFAULT_TILE
     dev = wf.device
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     lib = _build.library()
     stream = _build.stream_of(wf)
     depthwise = c_out is None
-    w1part = empty(B * ntp * nb, 4, H)
+    n_w1, n_w2, passes = (lib.tile_conv_bwd_blocks(B, ntp, C, CO, what) for what in range(3))
+    w1part = dense_conv.partials(n_w1, 4 * H, dev)
+    xs = None
     if depthwise:
-        dG, out, w2part = t, empty(B, NP, C), empty(B * ntp, H1, C)
+        dG, out, w2part = t, empty(B, NP, C), dense_conv.partials(n_w2, H1 * C, dev)
+        if passes > 1:  # X between a block's contractions
+            xs = empty(B, NP, H1, C)
     else:
         dG, out, w2part = empty(B, NS, H1, C), empty(B, NP, H1, CO), w1part
         dense_conv.dg_full(t, w2, b2, B * NS, CO, H * C, H1 * C, dG,
                            f"mcconv_bwd_dg_full_kernel ({name} dG)")
     head = (_build.ptr(lay.src), _build.ptr(lay.src_valid), _build.ptr(wf))
     rest = (_build.ptr(dG), _build.ptr(st.j_ids), _build.ptr(st.run), _build.ptr(w1),
-            _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, CB, H,
+            _build.ptr(b1), _build.ptr(w2), _build.ptr(b2), B, NS, NP, C, CO, H,
             st.j_ids.shape[2], st.j_ids.shape[1], ntp, st.n_minor, st.Tm, radius_sq(radius),
-            float(radius), int(depthwise), _build.ptr(out), _build.ptr(w1part),
-            _build.ptr(w2part), stream)
+            float(radius), int(depthwise), _build.ptr(out),
+            None if xs is None else _build.ptr(xs), _build.ptr(w1part), _build.ptr(w2part),
+            stream)
     if packed:
         rec = pack_minor_records(lay.smp, lay.smp_valid, t, st.Tm, st.n_minor)
         launch = lib.tile_conv_bwd_packed_noop_launch if noop else lib.tile_conv_bwd_packed_launch
@@ -886,23 +890,37 @@ def _launch_k6(params: MCConvParams, lay: ConvLayout, wf, radius, cnt, dout, c_o
         err = launch(_build.ptr(lay.smp), _build.ptr(lay.smp_valid), *head, _build.ptr(t), *rest)
     _build.check(err, ("tile_conv_bwd_packed_kernel" if packed else "tile_conv_bwd_kernel")
                  + (" (bwd_noop probe)" if noop else ""))
-    w1b1 = empty(4, H)
-    err = lib.mcconv_bwd_reduce_launch(_build.ptr(w1part), B * ntp * nb, 4 * H,
-                                       _build.ptr(w1b1), stream)
-    _build.check(err, f"mcconv_bwd_reduce_kernel ({name} dW1, db1)")
-    if depthwise:
-        d_wf, dwcat = out, empty(H1, C)
-        err = lib.mcconv_bwd_reduce_launch(_build.ptr(w2part), B * ntp, H1 * C,
-                                           _build.ptr(dwcat), stream)
-        _build.check(err, f"mcconv_bwd_reduce_kernel ({name} dW2, db2)")
+    if parts:
+        return out, w1part, w2part
+    return source_grads(MCConvParams(w1, b1, w2, b2), wf, out, w1part, w2part, c_out, name)
+
+
+def source_grads(params: MCConvParams, wf, out, w1part, w2part, c_out, name: str):
+    """The gradients ``(d_wf, dw1, db1, dw2, db2)`` from what K6 or K10
+    wrote: its partial sums of [dW1; db1] and ([dW2; db2], depthwise) summed
+    in row order by K2's reduction kernel; ``out`` is d_wf at a depthwise
+    site, and at the full site X, from which K2's two GEMMs form d_wf = X .
+    Wr^T and [dW2; db2] = wf^T X."""
+    w1, b1, w2, b2 = params
+    B, NP, C = wf.shape
+    H = w1.shape[1]
+    H1 = H + 1
+    lib = _build.library()
+    stream = _build.stream_of(wf)
+    w1b1 = dense_conv.ordered_sum(w1part, lib, stream,
+                                  f"mcconv_bwd_reduce_kernel ({name} dW1, db1)").reshape(4, H)
+    if c_out is None:
+        d_wf = out
+        dwcat = dense_conv.ordered_sum(w2part, lib, stream,
+                                       f"mcconv_bwd_reduce_kernel ({name} dW2, db2)")
+        dwcat = dwcat.reshape(H1, C)
     else:
-        # d_wf = X . Wr^T and [dW2; db2] = wf^T X: K2's two GEMMs
-        R, K = B * NP, H1 * CO
-        wr = _wr(MCConvParams(w1, b1, w2, b2), C, CO).contiguous()
-        d_wf = empty(B, NP, C)
+        R, K = B * NP, H1 * c_out
+        wr = _wr(params, C, c_out).contiguous()
+        d_wf = torch.empty((B, NP, C), dtype=torch.float32, device=wf.device)
         dense_conv.dg_full(out, wr, wr, R, K, C, C, d_wf,
                            f"mcconv_bwd_dg_full_kernel ({name} d_wf)")
-        dwcat = dense_conv.wcat_grad(wf, out, R, C, K).reshape(C, H1, CO).transpose(0, 1)
+        dwcat = dense_conv.wcat_grad(wf, out, R, C, K).reshape(C, H1, c_out).transpose(0, 1)
     return d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, C, c_out, w2, b2)
 
 

@@ -7,6 +7,8 @@ with ``--planes``, K1p.
     python -m mccnn_tpu_torch.tools.dense_ab --planes OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --same OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --t1 OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --tile-bwd OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --bucket-bwd OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
 ``ops/cuda/_build.py``, in a child process) and loaded beside this one's.
@@ -42,8 +44,8 @@ projection, at the zoo's 14 sites and MCClassS's 3 (B = 32), and prints per
 site whether the counts and G are bit-equal (G's largest relative
 difference where not), both checkouts' K1p times and this checkout's K1
 time, then their sums. With ``--same`` (for another checkout whose library
-has this checkout's entry points and arguments, K1p's aside) it runs this
-checkout's K1 / K2 and K1v1 / K2v1 wrappers once on each library, at the
+has this checkout's dense entry points and arguments) it runs this
+checkout's K1 / K2, K1v1 / K2v1 and K1p wrappers on each library, at the
 zoo's 14 sites, MCClassS's 3 and ShapeNet's 3 (B = 32), and prints per site
 whether every output is bit-equal. With ``--t1`` (for another checkout whose
 ``dense_probe_launch`` has this checkout's arguments) it runs T1 noop,
@@ -52,6 +54,24 @@ mm_only and mm_big through this checkout's wrapper on each library at
 alone), and prints for each whether the outputs are bit-equal and both
 libraries' call and device times (``best_ms``, ``device_ms``; order other,
 this, this, other).
+
+With ``--tile-bwd`` it runs K6 and with ``--bucket-bwd`` K10, the tile and
+bucket MC-conv backwards, on both libraries at ``chip_smoke.py``'s sites:
+ScanNet's MCSeg on a block batch of 8 x 8192 points at its four tile sites
+(stem, enc_0_1, dec_2_1, dec_1_0: ``SEG_SITES``) with a tile capacity, and
+without one at the same four bucket sites and MCClassS's conv_0_1 at B = 32
+x 4096 (``MODELNET_SITE``). The other checkout's ``tile_conv_bwd_launch`` /
+``bucket_conv_bwd_launch`` are called with their own arguments and partial
+sums (``OTHER_TILE_SIGNATURES``, ``OTHER_BUCKET_SIGNATURES``: the kernels of
+a 16-channel block grid, K10 over chunks of up to 128 slots of a cell, as
+their wrappers sized them), this checkout's through its wrappers; both
+kernels' partials are reduced, and the full site's X projected, by this
+checkout's reduction kernel and GEMMs (``tile_conv.source_grads``). Per site
+it prints whether the kernel's own output is bit-equal (X at the full site,
+d_f~ at the depthwise ones), the largest relative difference of each
+parameter gradient, and both libraries' device times (``device_ms``, order
+other, this, this, other) of the kernel (with its dG GEMM at the full site
+and its zeroed partials) and of the whole backward, then their sums.
 
 It refuses to run without a CUDA device.
 """
@@ -86,10 +106,23 @@ OTHER_V1_SIGNATURES = {
     "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
 }
 OTHER_PLANES_SIGNATURES = {"mcconv_planes_pair_launch": [P] * 7 + [I] * 5 + [F, F] + [P] * 3}
+# The other K6 / K10: one block per (cloud, source tile or cell chunk, block
+# of OTHER_CB channels), K10's chunks of up to OTHER_SLOTS slots of a cell.
+OTHER_TILE_SIGNATURES = {"tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4}
+OTHER_BUCKET_SIGNATURES = {"bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4}
+OTHER_CB, OTHER_SLOTS = 16, 128
 # The other K2v1's partials: at most this many blocks, and floats in all.
 OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS = 264, 64 << 20
 
 RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
+# ScanNet's MCSeg at the CLI's defaults on a block batch (as chip_smoke.py):
+# its four big conv sites (name, in level, out level, radius, C, CO), each
+# the tile conv's with a tile capacity and the bucket conv's without one; and
+# MCClassS's conv_0_1 at 4096 points, the bucket site of tasks.modelnet.
+SEG_B, SEG_N, SEG_CLASSES, SEG_RADII, SEG_NEIGHBOR_K = 8, 8192, 8, (0.05, 0.15, 0.4), 32
+SEG_SITES = [("stem", 0, 0, 0.05, 1, 64), ("enc_0_1", 0, 1, 0.1, 64, None),
+             ("dec_2_1", 2, 1, 0.3, 384, None), ("dec_1_0", 1, 0, 0.1, 256, None)]
+MODELNET_SITE = ("MCClassS conv_0_1 at 4096", 0, 1, 0.2, 1, 128)
 # Every dense conv site of the classification zoo at its published widths
 # (mccnn_tpu/models/mcclass.py, mcclass_h.py), N = 1024: MCClass (grow 64) on
 # the hierarchy 0.1 / 0.2 / 0.4, MCClassH (grow 128) on path A's 0.1 / 0.4 and
@@ -457,15 +490,20 @@ def main_planes(other, dev) -> int:
 
 
 def main_same(other_path: str, dev) -> int:
-    """K1 / K2 and K1v1 / K2v1 through this checkout's wrappers on this
-    library and on ``other_path``'s, bit for bit."""
+    """K1 / K2, K1v1 / K2v1 and K1p through this checkout's wrappers on this
+    library and on ``other_path``'s, bit for bit, and each pair's device
+    time summed over the sites on both libraries."""
     from mccnn_tpu_torch.ops.cuda import _build, dense_conv
 
+    from . import device_ms
+
     libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
+    kinds = ("K1 + K2", "K1v1 + K2v1", "K1p")
+    total = {(k, who): 0.0 for k in kinds for who in libs}
     gen = torch.Generator().manual_seed(SEED + 40)
     sites = zoo_sites(B, dev) + mcclass_s_sites(B, dev) + shapenet_sites(B, dev)
     names = ("K1 out", "cnt", "G", "d_wf", "dw1", "db1", "dw2", "db2", "K1v1 out", "K1v1 cnt",
-             "v1 d_wf", "v1 dw1", "v1 db1", "v1 dw2", "v1 db2")
+             "v1 d_wf", "v1 dw1", "v1 db1", "v1 dw2", "v1 db2", "K1p out", "K1p cnt", "K1p G")
     every = True
     try:
         for site in sites:
@@ -482,17 +520,43 @@ def main_same(other_path: str, dev) -> int:
                     out1, cnt1 = dense_conv._forward_cuda_v1(*fargs)
                     grads1 = dense_conv.dense_mc_conv_v1_backward_cuda(
                         params, smp, qmask, src, smask, wf, radius, cnt1, dout, c_out=co)
+                    planes = dense_conv.dense_mc_conv_planes_cuda(*fargs[:-1])
                     torch.cuda.synchronize()
-                    res[who] = (out, cnt, G, *grads, out1, cnt1, *grads1)
+                    res[who] = (out, cnt, G, *grads, out1, cnt1, *grads1, *planes)
+                bargs = (params, smp, qmask, src, smask, wf, radius)
+
+                def k1_k2():
+                    _, cnt, G = dense_conv._forward_cuda(*fargs)
+                    return dense_conv.dense_mc_conv_backward_cuda(*bargs, G, cnt, dout, c_out=co)
+
+                def k1v1_k2v1():
+                    _, cnt = dense_conv._forward_cuda_v1(*fargs)
+                    return dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, cnt, dout, c_out=co)
+
+                runs = {"K1 + K2": k1_k2, "K1v1 + K2v1": k1v1_k2v1,
+                        "K1p": lambda: dense_conv.dense_mc_conv_planes_cuda(*fargs[:-1])}
+                times = {}
+                for who in ("other", "this", "this", "other"):
+                    _build._LIBRARY = libs[who]
+                    for kind, fn in runs.items():
+                        ms = device_ms(fn, iters=3)
+                        times[kind, who] = min(times.get((kind, who), float("inf")), ms)
+            for key, ms in times.items():
+                total[key] += ms
             differ = [n for n, a, b in zip(names, res["this"], res["other"])
                       if not torch.equal(a, b)]
             every &= not differ
             print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
-                  f"K1 / K2 / K1v1 / K2v1 outputs bit-equal: {not differ}"
-                  + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
+                  f"K1 / K2 / K1v1 / K2v1 / K1p outputs bit-equal: {not differ}"
+                  + (f" (differ: {', '.join(differ)})" if differ else "") + "; device_ms "
+                  + ", ".join(f"{k} other={times[k, 'other']:.4f} this={times[k, 'this']:.4f}"
+                              for k in kinds), flush=True)
     finally:
         _build._LIBRARY = libs["this"]
-    print(f"over the {len(sites)} sites: every output bit-equal: {every}", flush=True)
+    print(f"over the {len(sites)} sites: every output bit-equal: {every}; device_ms "
+          + ", ".join(f"{k} other={total[k, 'other']:.4f} this={total[k, 'this']:.4f} "
+                      f"(this / other {total[k, 'this'] / total[k, 'other']:.4f})"
+                      for k in kinds), flush=True)
     return 0 if every else 1
 
 
@@ -532,17 +596,219 @@ def main_t1(other_path: str, dev) -> int:
     return 0 if every else 1
 
 
+def _scene_batch(seed: int):
+    from mccnn_tpu_torch.tasks.scannet import SyntheticSceneSource
+
+    batch = next(SyntheticSceneSource(4, SEG_CLASSES, seed).batches(
+        SEG_B, SEG_N, np.random.default_rng(seed)))
+    return torch.from_numpy(batch["points"]), torch.from_numpy(batch["mask"])
+
+
+def _seg_inputs(gen, src, smask, c, co, radius, dev):
+    from mccnn_tpu_torch.ops.cuda import density_kernel
+
+    params = init_params(gen, c, co, dev)
+    b, n = src.shape[:2]
+    feats = (torch.ones((b, n, 1)) if c == 1 else torch.randn((b, n, c), generator=gen)).to(dev)
+    pdf = density_kernel.kde_density_reference(src, smask, radius)
+    return params, feats, pdf
+
+
+def init_params(gen, c, co, dev):
+    from mccnn_tpu_torch.core.mcconv import init_mcconv_params
+
+    params = init_mcconv_params(gen, c, co, device=dev)
+    return params._replace(b1=0.1 * torch.randn(params.b1.shape, generator=gen).to(dev),
+                           b2=0.1 * torch.randn(params.b2.shape, generator=gen).to(dev))
+
+
+def tile_bwd_sites(dev) -> list:
+    """``(name, run(lib), C, CO)`` at the four tile sites; ``run(None)`` is
+    this checkout's K6, ``run(lib)`` the other library's."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+
+    pts, mask = (x.to(dev) for x in _scene_batch(SEED + 5))
+    tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+    with torch.no_grad():
+        hier = build_hierarchy(pts, mask, SEG_RADII, tile_pairs=tile_pairs)
+    lv = [(h.points, h.mask) for h in hier.levels]
+    gen = torch.Generator().manual_seed(SEED + 11)
+    sites = []
+    for name, i, o, radius, c, co in SEG_SITES:
+        (src, smask), (smp, qmask) = lv[i], lv[o]
+        params, feats, pdf = _seg_inputs(gen, src, smask, c, co, radius, dev)
+        lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, backward=True,
+                                    max_pairs=tile_pairs if 0 in (i, o) else 1 << 30)
+        wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
+        with torch.no_grad():
+            _, cnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, c_out=co)
+        dout = torch.randn((smp.shape[0], lay.smp.shape[1], co or c), generator=gen).to(dev)
+        args = (params, lay, wf, radius, cnt, dout, co)
+        sites.append((name, lambda lib, a=args: (other_k6(lib, *a) if lib is not None else
+                                                 tile_conv._launch_k6(*a, False, False,
+                                                                      parts=True)),
+                      params, wf, c, co))
+    return sites
+
+
+def other_k6(lib, params, lay, wf, radius, cnt, dout, co):
+    """The other checkout's K6 as its wrapper launched it: ``(out, w1part,
+    w2part)``, its dG GEMM at the full site by this checkout's kernel."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build, dense_conv, tile_conv
+
+    ptr = _build.ptr
+    t = tile_conv._cotangent(lay, cnt, dout, False).contiguous()
+    st = lay.steps_b
+    B, NS, _ = lay.smp.shape
+    NP, C = wf.shape[1:]
+    CO = co or C
+    H1 = H + 1
+    ntp = NP // tile_conv.DEFAULT_TILE
+    CB = min(max(C, CO), OTHER_CB)
+    nb = -(-max(C, CO) // CB)
+    dev = wf.device
+    w1part = dense_conv.partials(B * ntp * nb, 4 * H, dev)
+    if co is None:
+        dG, out, w2part = t, torch.empty((B, NP, C), device=dev), dense_conv.partials(
+            B * ntp, H1 * C, dev)
+    else:
+        dG, out, w2part = torch.empty((B, NS, H1, C), device=dev), torch.empty(
+            (B, NP, H1, CO), device=dev), w1part
+        dense_conv.dg_full(t, params.w2, params.b2, B * NS, CO, H * C, H1 * C, dG, "other dG")
+    _build.check(lib.tile_conv_bwd_launch(
+        ptr(lay.smp), ptr(lay.smp_valid), ptr(lay.src), ptr(lay.src_valid), ptr(wf), ptr(t),
+        ptr(dG), ptr(st.j_ids), ptr(st.run), *(ptr(x) for x in params), B, NS, NP, C, CO, CB, H,
+        st.j_ids.shape[2], st.j_ids.shape[1], ntp, st.n_minor, st.Tm, radius_sq(radius),
+        float(radius), int(co is None), ptr(out), ptr(w1part), ptr(w2part),
+        _build.stream_of(wf)), "other K6")
+    return out, w1part, w2part
+
+
+def bucket_bwd_sites(dev) -> list:
+    """As ``tile_bwd_sites`` for K10: the four bucket sites and MCClassS's
+    conv_0_1 at 4096 points."""
+    from mccnn_tpu_torch.api.builder import SpatialCache
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.data.datasets import _normalize_np
+    from mccnn_tpu_torch.data.synthetic import classification_batch
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    pts, mask = (x.to(dev) for x in _scene_batch(SEED + 12))
+    cloud, _ = classification_batch(np.random.default_rng(SEED + 17), B, 4096)
+    cloud = torch.from_numpy(np.stack([_normalize_np(x) for x in cloud])).to(dev)
+    with torch.inference_mode():
+        seg = SpatialCache(build_hierarchy(pts, mask, SEG_RADII, neighbor_k=SEG_NEIGHBOR_K))
+        cls = SpatialCache(build_hierarchy(cloud, torch.ones(cloud.shape[:2], dtype=torch.bool,
+                                                             device=dev), RADII_2,
+                                           global_level=True))
+    gen = torch.Generator().manual_seed(SEED + 14)
+    sites = []
+    for cache, (name, i, o, radius, c, co) in [(seg, s) for s in SEG_SITES] + [(cls,
+                                                                                MODELNET_SITE)]:
+        hier = cache.hierarchy
+        src, smask = hier.levels[i].points, hier.levels[i].mask
+        gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
+        params, feats, pdf = _seg_inputs(gen, src, smask, c, co, radius, dev)
+        wf = torch.where(mk.kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
+        with torch.no_grad():
+            _, cnt = mk.bucket_conv_cuda(params, gs, gp, wf, c_out=co)
+        M = hier.levels[o].points.shape[1]
+        dout = torch.randn((src.shape[0], M, co or c), generator=gen).to(dev)
+        args = (params, gs, gp, wf, cnt, dout, co)
+        sites.append((name, lambda lib, a=args: (
+            other_k10(lib, *a) if lib is not None else
+            mk._conv_backward_cuda("K10", *a, False, None, parts=True)), params, wf, c, co))
+    return sites
+
+
+def other_k10(lib, params, gs, gp, wf, cnt, dout, co):
+    """The other checkout's K10 as its wrapper launched it: ``(out, w1part,
+    w2part)``."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    ptr = _build.ptr
+    t = (dout * dense_conv._scale(cnt, mk.kept_points(gs), False)[..., None]).contiguous()
+    (w1, b1, w2, b2), smp, src = mk._kernel_inputs("other K10", params, gs, gp, wf, t)
+    B, M = gs.slot_of_point.shape
+    N, C = wf.shape[1:]
+    CO = co or C
+    H1 = H + 1
+    rows = min(gp.cap, OTHER_SLOTS)
+    chunks = -(-gp.cap // rows)
+    CB = min(max(C, CO), OTHER_CB)
+    n_cb = -(-max(C, CO) // CB)
+    blocks = B * gp.res**3 * chunks
+    dev = wf.device
+    w1part = dense_conv.partials(blocks * n_cb, 4 * H, dev)
+    if co is None:
+        dG, out, w2part = t, torch.zeros((B, N, C), device=dev), dense_conv.partials(
+            blocks, H1 * C, dev)
+    else:
+        dG, out, w2part = torch.empty((B, M, H1, C), device=dev), torch.zeros(
+            (B, N, H1, CO), device=dev), w1part
+        dense_conv.dg_full(t, w2, b2, B * M, CO, H * C, H1 * C, dG, "other dG")
+    _build.check(lib.bucket_conv_bwd_launch(
+        *(ptr(x) for x in (*smp, *src, wf, t, dG, w1, b1, w2, b2)), B, M, N, C, CO, H, gp.res,
+        gs.cap, gp.cap, rows, chunks, CB, radius_sq(gp.radius), float(gp.radius),
+        int(co is None), ptr(out), ptr(w1part), ptr(w2part), _build.stream_of(wf)), "other K10")
+    return out, w1part, w2part
+
+
+def main_source_bwd(kid: str, other, sites) -> int:
+    """K6 or K10 (``kid``) on this library and ``other`` at ``sites``."""
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+
+    from . import device_ms
+
+    every = True
+    total = np.zeros(4)  # kernel other, this; whole backward other, this
+    for name, run, params, wf, c, co in sites:
+        libs = {"other": other, "this": None}
+        grads = lambda parts: tile_conv.source_grads(params, wf, *parts, co, kid)  # noqa: E731
+        with torch.no_grad():
+            parts = {who: run(lib) for who, lib in libs.items()}
+            res = {who: grads(p) for who, p in parts.items()}
+            torch.cuda.synchronize()
+            times = {}
+            for who in ("other", "this", "this", "other"):
+                fns = (lambda lib=libs[who]: run(lib),
+                       lambda lib=libs[who]: grads(run(lib)))
+                for k, fn in enumerate(fns):
+                    ms = device_ms(fn, iters=3)
+                    times[who, k] = min(times.get((who, k), float("inf")), ms)
+        same = torch.equal(parts["this"][0], parts["other"][0])
+        every &= same
+        diffs = ", ".join(f"{g} {rel_diff(a, r):.3e}" for g, a, r in
+                          zip(("dw1", "db1", "dw2", "db2"), res["this"][1:], res["other"][1:]))
+        total += [times["other", 0], times["this", 0], times["other", 1], times["this", 1]]
+        print(f"{kid} {name} C={c} CO={co}: {'X' if co else 'd_f~'}_bit_equal={same}"
+              + ("" if same else
+                 f" rel_diff={rel_diff(parts['this'][0], parts['other'][0]):.3e}")
+              + f"; rel_diff {diffs}; kernel device_ms other={times['other', 0]:.4f} "
+              f"this={times['this', 0]:.4f}; backward device_ms other={times['other', 1]:.4f} "
+              f"this={times['this', 1]:.4f}", flush=True)
+    print(f"{kid} over the {len(sites)} sites: kernel device_ms other={total[0]:.4f} "
+          f"this={total[1]:.4f}; backward device_ms other={total[2]:.4f} this={total[3]:.4f}; "
+          f"every kernel output bit-equal: {every}", flush=True)
+    return 0 if every else 1
+
+
 def main(argv=None) -> int:
     from mccnn_tpu_torch.ops.cuda import _build
 
     from . import best_ms, card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
-    mode = argv[0] if argv[:1] in (["--v1"], ["--planes"], ["--same"], ["--t1"]) else None
+    modes = ("--v1", "--planes", "--same", "--t1", "--tile-bwd", "--bucket-bwd")
+    mode = argv[0] if argv[:1] and argv[0] in modes else None
     argv = argv[1:] if mode else argv
     if len(argv) != 1 or not os.path.isdir(argv[0]):
         raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab "
-                         "[--v1 | --planes | --same | --t1] OTHER_CHECKOUT")
+                         f"[{' | '.join(modes)}] OTHER_CHECKOUT")
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
     if mode == "--v1":
@@ -553,6 +819,12 @@ def main(argv=None) -> int:
         return main_same(other_library_path(argv[0]), dev)
     if mode == "--t1":
         return main_t1(other_library_path(argv[0]), dev)
+    if mode == "--tile-bwd":
+        return main_source_bwd("K6", other_library(argv[0], OTHER_TILE_SIGNATURES),
+                               tile_bwd_sites(dev))
+    if mode == "--bucket-bwd":
+        return main_source_bwd("K10", other_library(argv[0], OTHER_BUCKET_SIGNATURES),
+                               bucket_bwd_sites(dev))
     this = _build.library()
     other = other_library(argv[0], {**OTHER_SIGNATURES, "mcconv_bwd_pair_blocks": OTHER_BLOCKS})
     gen = torch.Generator().manual_seed(SEED)

@@ -15,7 +15,8 @@ of several calls), K5 and K6 and their probes (``MCCNN_TILE_PROBE``'s values,
 - ``noop``: the loads, d2 and the count;
 - ``planes``: + the H pre-activation planes, no contraction;
 - ``mm``: + the contraction with d2 for every plane, no plane arithmetic;
-- ``bwd_noop``: K6's loads, d2 and radius test.
+- ``bwd_noop``: K6's staging and its d2 sweep into in-radius lists, which
+  only count.
 
 The kernels run on a layout built once (the TPU tool's chain-difference
 timing answered the TPU's dispatch overhead; the card's events time the

@@ -494,13 +494,14 @@ def test_unported_sites_raise():
 # ------------------------------------------------------------ the bucket kernels
 
 
-def _bucket_inputs(device, c_in, c_out, cap_p=32, cap_s=16, scale=1.0):
-    """Two clouds of 300 sources and 90 samples (a masked tail in each) in
-    layouts at r = 0.25 (R = 4); ``cap_p = 8`` overflows source cells.
-    ``scale`` < 1 crowds the sources into a few cells and takes them as the
-    samples too, so that a cell of more than 128 slots spans several kernel
-    blocks on both sides."""
-    src, smask = cloud(2, N=300, device=device)
+def _bucket_inputs(device, c_in, c_out, cap_p=32, cap_s=16, scale=1.0, n_src=300):
+    """Two clouds of ``n_src`` sources and 90 samples (a masked tail in each)
+    in layouts at r = 0.25 (R = 4); ``cap_p = 8`` overflows source cells of
+    300 sources, and 48 sources leave 1-3 in each occupied cell. ``scale`` <
+    1 crowds the sources into a few cells and takes them as the samples too,
+    so that a cell of more than 128 slots spans several kernel blocks on both
+    sides."""
+    src, smask = cloud(2, N=n_src, device=device)
     smp, qmask = cloud(3, N=90, masked=5, device=device)
     if scale < 1:
         src = src * scale
@@ -510,26 +511,34 @@ def _bucket_inputs(device, c_in, c_out, cap_p=32, cap_s=16, scale=1.0):
     g = torch.Generator().manual_seed(4)
     params = init_mcconv_params(g, c_in, c_out, device=device)
     params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device))
-    feats = torch.randn((2, 300, c_in), generator=g).to(device)
-    pdf = (torch.rand((2, 300), generator=g) + 0.5).to(device)
+    feats = torch.randn((2, n_src, c_in), generator=g).to(device)
+    pdf = (torch.rand((2, n_src), generator=g) + 0.5).to(device)
     wf = torch.where(mcconv_kernel.kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
     dout = torch.randn((2, smp.shape[1], c_in if c_out is None else c_out), generator=g)
     dout = dout.to(device)
     return params, gs, gp, wf, dout
 
 
-BUCKET_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale
-    (1, 16, False, 32, 16, 1.0), (8, None, True, 32, 16, 1.0), (8, None, False, 8, 16, 1.0),
-    (40, 3, True, 8, 16, 1.0), (4, None, False, 136, 136, 0.3), (2, 5, True, 136, 136, 0.3)]
+BUCKET_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale, n_src
+    (1, 16, False, 32, 16, 1.0, 300), (8, None, True, 32, 16, 1.0, 300),
+    (8, None, False, 8, 16, 1.0, 300), (40, 3, True, 8, 16, 1.0, 300),
+    (4, None, False, 136, 136, 0.3, 300), (2, 5, True, 136, 136, 0.3, 300),
+    # K10 blocks over all channels: passes of 4 * 256 / owners channels (the
+    # crowded cells' lists fill and take several rounds, X kept between them),
+    # the full site 1 -> 64, and 1-3 kept sources a cell
+    (256, None, False, 32, 16, 1.0, 300), (384, None, True, 136, 136, 0.3, 300),
+    (1, 64, False, 32, 16, 1.0, 300), (64, None, False, 8, 16, 1.0, 48)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", BUCKET_CASES)
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale,n_src", BUCKET_CASES)
 def test_bucket_conv_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean, cap_p,
-                                                              cap_s, scale):
-    params, gs, gp, wf, _ = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+                                                              cap_s, scale, n_src):
+    params, gs, gp, wf, _ = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale, n_src)
     # the small cap drops sources, and so do the crowded cells
-    assert (int(gp.overflow.max()) > 0) == (cap_p == 8 or scale < 1)
+    assert (int(gp.overflow.max()) > 0) == ((cap_p == 8 and n_src == 300) or scale < 1)
+    if n_src < 300:  # 1-3 kept sources a cell
+        assert int(gp.cell_count.max()) == 3
     if scale < 1:  # cells of more than 128 kept points: several blocks a cell
         assert int(gp.cell_count.max()) > 128 and int(gs.cell_count.max()) > 128
     kw = dict(c_out=c_out, mean_normalize=mean)
@@ -545,10 +554,10 @@ def test_bucket_conv_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", BUCKET_CASES)
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale,n_src", BUCKET_CASES)
 def test_bucket_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean,
-                                                                       cap_p, cap_s, scale):
-    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+                                                                       cap_p, cap_s, scale, n_src):
+    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale, n_src)
     kw = dict(c_out=c_out, mean_normalize=mean)
     _, cnt = mcconv_kernel.bucket_conv_reference(params, gs, gp, wf, **kw)
     args = (params, gs, gp, wf, cnt, dout)
@@ -566,9 +575,12 @@ def test_bucket_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_i
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()), msg=name)
 
 
-ACTIVE_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale
-    (8, None, False, 32, 16, 1.0), (8, None, True, 8, 16, 1.0), (40, 3, True, 32, 16, 1.0),
-    (1, 16, False, 8, 16, 1.0), (4, None, True, 136, 136, 0.3), (2, 5, False, 136, 136, 0.3)]
+ACTIVE_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale, n_src
+    (8, None, False, 32, 16, 1.0, 300), (8, None, True, 8, 16, 1.0, 300),
+    (40, 3, True, 32, 16, 1.0, 300), (1, 16, False, 8, 16, 1.0, 300),
+    (4, None, True, 136, 136, 0.3, 300), (2, 5, False, 136, 136, 0.3, 300),
+    (256, None, False, 136, 136, 0.3, 300), (1, 64, True, 32, 16, 1.0, 300),
+    (64, None, False, 8, 16, 1.0, 48)]
 
 
 def _bricks(gs, gp, nba):
@@ -578,13 +590,13 @@ def _bricks(gs, gp, nba):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale", ACTIVE_CASES)
+@pytest.mark.parametrize("c_in,c_out,mean,cap_p,cap_s,scale,n_src", ACTIVE_CASES)
 def test_bucket_active_kernels_match_plain_and_k9_k10(cuda, c_in, c_out, mean, cap_p, cap_s,
-                                                      scale):
+                                                      scale, n_src):
     """K9a / K10a at an NBA that visits every occupied brick: bit for bit K9
     / K10 and bit for bit on repeat; at an NBA that drops bricks: their plain
     versions, with exact zeros at the dropped samples and sources."""
-    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale)
+    params, gs, gp, wf, dout = _bucket_inputs(cuda, c_in, c_out, cap_p, cap_s, scale, n_src)
     kw = dict(c_out=c_out, mean_normalize=mean)
     mk = mcconv_kernel
     bz = mk.pick_bz(gs.res, min(cap_s, cap_p))
@@ -693,21 +705,36 @@ def test_tile_conv_and_dense_conv_agree_through_the_public_functions(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 
+# K6's cases: c_in, c_out, mean, max_steps (a short budget drops steps: X
+# follows the backward list), radius, minor. C = 256 and 384 take several
+# passes of 64 channels and split the channels over blocks; at r = 0.4 a
+# source meets about 75 samples, so its list fills and takes several rounds
+# (with several passes, X is kept between them: in xs depthwise, in X full)
+TILE_BWD_CASES = [(8, None, False, None, 0.2, "32"), (1, 16, False, None, 0.2, "32"),
+                  (40, None, True, None, 0.2, "32"), (8, None, False, 2, 0.2, "32"),
+                  (3, 5, True, 2, 0.2, "32"), (256, None, False, None, 0.2, "32"),
+                  (384, None, True, None, 0.2, "32"), (1, 64, False, None, 0.2, "32"),
+                  (8, None, False, None, 0.4, "32"), (256, None, True, None, 0.4, "32"),
+                  (1, 256, False, None, 0.4, "32"), (64, None, False, None, 0.2, "8"),
+                  (1, 64, True, None, 0.4, "128"), (256, None, False, 2, 0.4, "8")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean,max_steps", [(8, None, False, None), (1, 16, False, None),
-                                                      (40, None, True, None), (8, None, False, 2),
-                                                      (3, 5, True, 2)])
-def test_tile_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean,
-                                                                     max_steps):
+@pytest.mark.parametrize("c_in,c_out,mean,max_steps,radius,minor", TILE_BWD_CASES)
+def test_tile_conv_backward_kernel_matches_plain_and_repeats_bitwise(cuda, monkeypatch, c_in,
+                                                                     c_out, mean, max_steps,
+                                                                     radius, minor):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
     params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, c_in, c_out)
-    lay = tile_conv.conv_layout(smp, qmask, src, smask, 0.2, max_pairs=1 << 30,
+    lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=1 << 30,
                                 max_steps=max_steps, backward=True)
+    assert lay.steps_b.Tm == int(minor)
     wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
     kw = dict(c_out=c_out, mean_normalize=mean)
-    out, cnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2, **kw)
+    out, cnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, radius, **kw)
     g = torch.Generator().manual_seed(10)
     dout = torch.randn(out.shape, generator=g).to(cuda)
-    args = (params, lay, wf, 0.2, cnt, dout)
+    args = (params, lay, wf, radius, cnt, dout)
     before = tile_conv.backward_launches
     got = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
     again = tile_conv.tile_conv_backward_sorted_cuda(*args, **kw)
@@ -806,7 +833,9 @@ def _tile_variant_case(device, c_in, c_out, mean, max_steps=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_out,mean,minor", [(1, 16, False, "32"), (8, None, True, "32"),
-                                                   (40, None, False, "8"), (3, 5, True, "64")])
+                                                   (40, None, False, "8"), (3, 5, True, "64"),
+                                                   (256, None, False, "8"), (1, 64, True, "128"),
+                                                   (384, None, True, "32")])
 def test_packed_tile_kernels_are_bit_equal_to_k5_and_k6(cuda, monkeypatch, c_in, c_out, mean,
                                                         minor):
     monkeypatch.setattr(tile_conv, "_MINOR", minor)
@@ -1031,7 +1060,8 @@ def test_tile_probe_kernels_match_plain_and_repeat_bitwise(cuda, monkeypatch, pr
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_out,mean,minor", [(8, None, False, "32"), (1, 16, False, "64"),
-                                                   (3, 5, True, "8")])
+                                                   (3, 5, True, "8"), (256, None, True, "128"),
+                                                   (1, 64, False, "32")])
 def test_tile_bwd_noop_kernels_give_zero_gradients(cuda, monkeypatch, c_in, c_out, mean, minor):
     monkeypatch.setattr(tile_conv, "_MINOR", minor)
     params, lay, wf, cnt, dout = _tile_variant_case(cuda, c_in, c_out, mean)

@@ -1142,8 +1142,11 @@ def tile_bwd_bound(smp, qmask, src, smask, c, co, pairs) -> tuple[float, str]:
 
 
 def check_tile_conv(dev, hier, tile_pairs) -> tuple:
-    """K5 at the four tile sites of the block batch's MCSeg."""
+    """K5 at the four tile sites of the block batch's MCSeg: each site's call
+    and device times (``tools.device_ms``), its valid candidate and
+    in-radius pairs and the most in-radius sources of a sample."""
     from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+    from mccnn_tpu_torch.tools import device_ms
 
     gen = torch.Generator().manual_seed(SEED + 7)
     err = ms = pms = bms = 0.0
@@ -1173,16 +1176,19 @@ def check_tile_conv(dev, hier, tile_pairs) -> tuple:
             require(int(lay.overflow.max()) == 0, f"K5 overflowed at {name}")
             k_ms = time_ms(lambda: tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw),
                            iters=10)
+            d_ms = device_ms(lambda: tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius,
+                                                                     **kw), iters=3)
             p_ms = time_ms(lambda: tile_conv.tile_conv_sorted_reference(params, lay, wf, radius,
                                                                         **kw), iters=1)
             pairs = inr_pairs(smp, qmask, src, smask, radius)
             b_ms, by = tile_fwd_bound(smp, qmask, src, c, co, pairs)
             steps = int((lay.steps.j_ids != lay.steps.n_minor).sum())
             print(f"K5 B={b} {name} N={N} M={M} C={c} CO={co}: Tm={lay.steps.Tm} S={lay.S} "
-                  f"candidate_minors={steps} "
-                  f"in_radius_pairs={pairs} max_abs_err={e:.3e} max_abs_out={scale:.3e} "
-                  f"bitwise_repeatable=True kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                  f"bound_ms={b_ms:.6f} ({by})", flush=True)
+                  f"candidate_minors={steps} candidate_pairs={step_pairs(lay)} "
+                  f"in_radius_pairs={pairs} max_in_radius_a_sample={int(wcnt.max())} "
+                  f"max_abs_err={e:.3e} max_abs_out={scale:.3e} "
+                  f"bitwise_repeatable=True kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})", flush=True)
             err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
     return (err, ms, pms, bms, by, None)
 
@@ -1889,8 +1895,11 @@ def bucket_bwd_bound(M: int, N: int, c: int, co, pairs: int, vq: int,
 
 def check_bucket_conv(dev, sites) -> tuple:
     """K9 at each ``(levels, cache, site)``: the four bucket sites of the block
-    batch's capacity-free MCSeg and MCClassS's conv_0_1 at 4096 points."""
+    batch's capacity-free MCSeg and MCClassS's conv_0_1 at 4096 points; each
+    site's call and device times (``tools.device_ms``), its candidate (window)
+    and in-radius pairs and the most in-radius sources of a sample."""
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+    from mccnn_tpu_torch.tools import device_ms
 
     gen = torch.Generator().manual_seed(SEED + 13)
     err = ms = pms = bms = 0.0
@@ -1912,14 +1921,16 @@ def check_bucket_conv(dev, sites) -> tuple:
             require(e <= BUCKET_RTOL * scale, f"K9 disagrees with its plain version at {name}: "
                     f"{e:.3e} of {scale:.3e}")
             k_ms = time_ms(lambda: mk.bucket_conv_cuda(params, gs, gp, wf, **kw), iters=10)
+            d_ms = device_ms(lambda: mk.bucket_conv_cuda(params, gs, gp, wf, **kw), iters=3)
             p_ms = time_ms(lambda: mk.bucket_conv_reference(params, gs, gp, wf, **kw), iters=1)
             pairs = int(wcnt.sum())
             b_ms, by = bucket_fwd_bound(b * M, b * N, c, co, pairs, int(mk.kept_points(gs).sum()))
             bounds.append((b_ms, by))
-            print(f"K9 B={b} {name} N={N} M={M} C={c} CO={co}: in_radius_pairs={pairs} "
-                  f"max_abs_err={e:.3e} max_abs_out={scale:.3e} bitwise_repeatable=True "
-                  f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})",
-                  flush=True)
+            print(f"K9 B={b} {name} N={N} M={M} C={c} CO={co}: candidate_pairs="
+                  f"{window_pairs(gs, gp)} in_radius_pairs={pairs} max_in_radius_a_sample="
+                  f"{int(wcnt.max())} max_abs_err={e:.3e} max_abs_out={scale:.3e} "
+                  f"bitwise_repeatable=True kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({by})", flush=True)
             err, ms, pms, bms = max(err, e), ms + k_ms, pms + p_ms, bms + b_ms
     return (err, ms, pms, bms, max(bounds)[1], None)
 

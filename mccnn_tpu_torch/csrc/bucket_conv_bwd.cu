@@ -59,43 +59,6 @@ namespace {
 
 constexpr int kOwners = list_bwd::kMaxOwners;  // kept sources a block
 
-// A cell's 27-cell window of kept samples, staged a chunk at a time in
-// window order.
-struct WindowWalk {
-  const float* smp_pos;
-  const int* smp_pts;
-  const float* u;
-  const int* wcell;
-  const int* wstart;
-  size_t slot0;  // the cloud's first sample slot
-  size_t row0;   // the cloud's first t row
-  int KU, capS, j0, total;
-
-  __device__ int stage(const list_bwd::Smem& S) {
-    __syncthreads();  // the previous chunk is consumed
-    const int n = min(list_bwd::kChunk, total - j0);
-    if (n <= 0) return 0;
-    const WindowWalk& w = *this;
-    int* orow = S.orow;
-    dense_pairs::stage_gather(n, S.opos, S.ogrp, [&](int t, float* x, float* y, float* z) {
-      const size_t slot = w.slot0 + bucket_window_slot(w.wcell, w.wstart, w.j0 + t, w.capS);
-      *x = w.smp_pos[3 * slot];
-      *y = w.smp_pos[3 * slot + 1];
-      *z = w.smp_pos[3 * slot + 2];
-      orow[t] = w.smp_pts[slot];
-      return true;
-    });
-    j0 += n;
-    __syncthreads();
-    return n;
-  }
-
-  // t's row of sample point q
-  __device__ __forceinline__ const float* trow(int q) const {
-    return u + (row0 + q) * (size_t)KU;
-  }
-};
-
 template <bool kDepthwise, bool kActive>
 __global__ void __launch_bounds__(list_bwd::kThreads, 2)
     bucket_conv_bwd_kernel(const float* __restrict__ smp_pos, const int* __restrict__ smp_pts,
@@ -132,8 +95,8 @@ __global__ void __launch_bounds__(list_bwd::kThreads, 2)
   int* wcell = reinterpret_cast<int*>(S.extra);  // [27]
   int* wstart = wcell + 27;                      // [28]
   const int total = bucket_window_prefix(smp_cnt + b * cells, pid, Rp, wcell, wstart);
-  WindowWalk walk{smp_pos, smp_pts, u, wcell, wstart,
-                  b * (cells * capS + 1), (size_t)b * a.rows, a.KU, capS, 0, total};
+  dense_pairs::WindowWalk walk{smp_pos, smp_pts, u, wcell, wstart,
+                               b * (cells * capS + 1), (size_t)b * a.rows, a.KU, capS, 0, total};
   const int wide = a.C > a.KU ? a.C : a.KU;
   const int runs = (wide + dense_pairs::kCpt - 1) / dense_pairs::kCpt;
   const int tps = min(runs, list_bwd::kThreads / np);

@@ -48,25 +48,6 @@ __device__ __forceinline__ float mc_w1_proj(float x, float y, float z, const flo
       radius);
 }
 
-// One a_h column of a pair (sample q, source p): a_h = relu(pre_h) for h < H
-// and a_H = 1 where d2 <= r2, all 0 otherwise, at pl[h * stride]. The bucket
-// kernels (K9, K10) fill their planes with it; asq / psq are |q|^2 / |p|^2.
-template <int H>
-__device__ __forceinline__ void mc_ah_column(float* pl, int stride, float qx, float qy,
-                                             float qz, float qsq, float px, float py, float pz,
-                                             float psq, const float* w1, const float* b1,
-                                             float r2, float radius) {
-  const bool in = pair_d2_rn(qx, qy, qz, qsq, px, py, pz, psq) <= r2;
-  const float ox = mc_offset(px, qx, radius), oy = mc_offset(py, qy, radius),
-              oz = mc_offset(pz, qz, radius);
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const float pre = mc_preact(ox, oy, oz, w1, b1, H, h);
-    pl[h * stride] = in ? fmaxf(pre, 0.f) : 0.f;
-  }
-  pl[H * stride] = in ? 1.f : 0.f;
-}
-
 // Cell-bucket layouts (mccnn_tpu_torch/core/buckets.py): (R+2)^3 padded cells,
 // z fastest, `cap` slots a cell, the kept points of a cell in its first
 // count[cell] slots. A bucket kernel's block takes real cell `cell` (of R^3);

@@ -1,12 +1,13 @@
 // The in-radius pair lists of the MC conv's pair kernels: K1 and K1p
-// (dense_conv_pair.cuh), K2 (dense_conv_bwd.cu), K1v1 (dense_conv_v1.cuh), and
-// K6 / K10, the tile and bucket backwards (list_bwd.cuh).
+// (dense_conv_pair.cuh), K2 (dense_conv_bwd.cu), K1v1 (dense_conv_v1.cuh),
+// K5 / K9, the tile and bucket forwards (list_fwd.cuh), and K6 / K10, their
+// backwards (list_bwd.cuh).
 //
-// A block owns a few points of one cloud (K1: samples, K2, K6, K10: sources)
-// and sweeps the other side of the pair in chunks staged in shared memory:
-// the dense kernels a range of the cloud (`stage_others`), K6 a source tile's
-// run of sample minors and K10 a cell's 27-cell window (`stage_gather`, which
-// also keeps each staged other's row). The sweep tests every pair with the
+// A block owns a few points of one cloud (K1, K5, K9: samples; K2, K6, K10:
+// sources) and sweeps the other side of the pair in chunks staged in shared
+// memory: the dense kernels a range of the cloud (`stage_others`), K5 / K6 a
+// tile's run of minors and K9 / K10 a cell's 27-cell window (`stage_gather`,
+// which also keeps each staged other's row). The sweep tests every pair with the
 // exact d2 of `pair_d2_rn` and the two masks, nothing more. A warp takes one
 // owner at a time and 32 others at a time: `__ballot_sync` marks the
 // in-radius others and a prefix `__popc` gives each hit its slot in the
@@ -25,9 +26,9 @@
 // registers across rounds, so every output still adds its terms in
 // increasing index, whatever `cap` is.
 // The dense kernels start every chunk's lists empty (`sweep_round`: an entry
-// is the other's index in its cloud); K6 and K10 append a chunk's hits to
-// the lists of the chunks before it until one fills (`sweep_append`: an entry
-// is the other's row, so a list outlives its chunk's staging).
+// is the other's index in its cloud); K5, K6, K9 and K10 append a chunk's
+// hits to the lists of the chunks before it until one fills (`sweep_append`:
+// an entry is the other's row, so a list outlives its chunk's staging).
 
 #pragma once
 
@@ -81,6 +82,82 @@ __device__ __forceinline__ void stage_others(const float* __restrict__ pts,
                                              int o0, int n, float4* opos, unsigned* ogrp) {
   stage_gather(n, opos, ogrp, RangeFetch{pts, mask, (size_t)b * N + o0});
 }
+
+// The next chunk of a tile walk (K5 over a sample tile's source minors, K6
+// over a source tile's sample minors): the real minors of steps *k.. of
+// cloud b's list j_ids (B, G, S), in order, into mids, at most mcap of them
+// (a step's real minors come first; `sentinel` marks none). A step may span
+// two chunks: *gpos counts its minors taken so far, *nreal < 0 means it is
+// not read yet. Returns how many it took; the caller syncs before reading
+// mids. Every thread of the block calls it.
+__device__ __forceinline__ int step_minors(const int* __restrict__ j_ids, int b, int G, int S,
+                                           int sentinel, int k1, int mcap, int* stepm,
+                                           int* mids, int* k, int* gpos, int* nreal) {
+  const int tid = threadIdx.x;
+  int nm = 0;
+  while (nm < mcap && *k < k1) {
+    if (*nreal < 0) {
+      __syncthreads();  // stepm's readers are done
+      int m = sentinel;
+      if (tid < G) {
+        m = j_ids[((size_t)b * G + tid) * S + *k];
+        stepm[tid] = m;
+      }
+      *nreal = __syncthreads_count(tid < G && m != sentinel);
+      *gpos = 0;
+    }
+    const int take = min(*nreal - *gpos, mcap - nm);
+    for (int i = tid; i < take; i += blockDim.x) mids[nm + i] = stepm[*gpos + i];
+    nm += take;
+    *gpos += take;
+    if (*gpos >= *nreal) {
+      ++*k;
+      *nreal = -1;
+    }
+  }
+  return nm;
+}
+
+// A cell's 27-cell window of kept points (K9: sources, K10: samples), staged
+// a chunk at a time in window order (9 z-runs of 3 cells, slot order), each
+// with its point index as its row; `row(q)` points at the payload's row of
+// point q (f~ for K9, t for K10).
+struct WindowWalk {
+  const float* pos;      // the window side's slot positions
+  const int* pts;        // its point_of_slot
+  const float* payload;  // (B, rows, width) by point
+  const int* wcell;
+  const int* wstart;
+  size_t slot0;  // the cloud's first slot
+  size_t row0;   // the cloud's first payload row
+  int width, cap, j0, total;
+
+  __device__ void reset() { j0 = 0; }
+
+  template <class Smem>
+  __device__ int stage(const Smem& S) {
+    __syncthreads();  // the previous chunk is consumed
+    const int n = min(kChunk, total - j0);
+    if (n <= 0) return 0;
+    const WindowWalk& w = *this;
+    int* orow = S.orow;
+    stage_gather(n, S.opos, S.ogrp, [&](int t, float* x, float* y, float* z) {
+      const size_t slot = w.slot0 + bucket_window_slot(w.wcell, w.wstart, w.j0 + t, w.cap);
+      *x = w.pos[3 * slot];
+      *y = w.pos[3 * slot + 1];
+      *z = w.pos[3 * slot + 2];
+      orow[t] = w.pts[slot];
+      return true;
+    });
+    j0 += n;
+    __syncthreads();
+    return n;
+  }
+
+  __device__ __forceinline__ const float* row(int q) const {
+    return payload + (row0 + q) * (size_t)width;
+  }
+};
 
 // The pair lists of one block. Entry e of owner s: the other's index in its
 // cloud at idx[s * istride + e], a_0..a_7 at act[s * astride + 8 e], and
@@ -212,12 +289,14 @@ __device__ __forceinline__ bool sweep_round(const float4* own, const int* own_va
   return more;
 }
 
-// One round of K6's or K10's sweep (owner = source) over a chunk staged by
+// One round of the sweep of K5, K6, K9 or K10 over a chunk staged by
 // `stage_gather`, whose others' rows are at orow: each owner's hits are
 // appended to its list after the L.len[s] entries of the chunks before, and
-// `form` gives entries [start, len) their activations and offsets and turns
-// each staged index into its row. Returns true where an owner stopped before
-// the chunk's end: its list is full.
+// `form` gives entries [start, len) their activations (and K6 / K10's
+// offsets) and turns each staged index into its row. The owner may be either
+// side of the pair: `pair_d2_rn` is symmetric bit for bit (its sums and
+// products commute). Returns true where an owner stopped before the chunk's
+// end: its list is full.
 template <class Form>
 __device__ __forceinline__ bool sweep_append(const float4* own, const int* own_valid,
                                              int n_owner, const float4* opos,
@@ -273,7 +352,7 @@ struct RowForm {
   }
 };
 
-// The bwd_noop probe's entries: none formed (the lists only count).
+// The noop and bwd_noop probes' entries: none formed (the lists only count).
 struct CountForm {
   __device__ __forceinline__ void operator()(int, float4, int*, int, int, const float4*,
                                              const Lists&) const {}

@@ -156,7 +156,7 @@ __device__ __forceinline__ Lists lists_of(const Smem& S, int n, int cap) {
 // a list, `tps` threads an owner, `passes` passes of 4 * tps channels over
 // the channels [cbeg, cend) of max(C, KU). The walk stages the candidates:
 // `walk.stage(S)` returns how many it staged into S.opos / S.ogrp / S.orow (0
-// when done), and `walk.trow(q)` points at t's row of sample row q. The dW1 /
+// when done), and `walk.row(q)` points at t's row of sample row q. The dW1 /
 // db1 partial goes to row w1row of a.w1part, the [dW2; db2] partial
 // (depthwise) to row w2row of a.w2part. Every thread of the block calls it.
 template <bool kDepthwise, bool kNoop, class Walk>
@@ -263,7 +263,7 @@ __device__ __forceinline__ void owner_backward(const Args& a, Walk& walk, const 
             const float4 a1 = *reinterpret_cast<const float4*>(la + 8 * e + 4);
             const float av[H] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
             const int q = li[e];
-            const float* tr = walk.trow(q) + cb;
+            const float* tr = walk.row(q) + cb;
             float tv[kCpt];
 #pragma unroll
             for (int k = 0; k < kCpt; ++k) tv[k] = cb + k * tps < xe ? __ldg(tr + k * tps) : 0.f;

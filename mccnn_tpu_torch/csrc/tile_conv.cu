@@ -19,7 +19,7 @@ extern "C" int tile_conv_launch(const void* smp, const void* svalid, const void*
       static_cast<const float*>(wf), nullptr, static_cast<const int*>(j_ids),
       static_cast<const int*>(run), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), NS, NP, C, 0, S, G, n_tiles, sentinel, r2, radius, mean,
+      static_cast<const float*>(b2), NS, NP, C, S, G, n_tiles, sentinel, r2, radius, mean,
       depthwise, static_cast<float*>(out), static_cast<float*>(cnt)};
   return k5::tile_conv_dispatch<false>(a, B, H, Tm, static_cast<cudaStream_t>(stream));
 }

@@ -104,29 +104,9 @@ struct TileWalk {
   int* mids;   // [kMaxMinors] the chunk's minors
 
   __device__ int stage(const list_bwd::Smem& S) {
-    const int tid = threadIdx.x;
     __syncthreads();  // the previous chunk is consumed
-    int nm = 0;
-    while (nm < mcap && k < k1) {
-      if (nreal < 0) {
-        __syncthreads();  // stepm's readers are done
-        int m = a->sentinel;
-        if (tid < a->G) {
-          m = a->j_ids[((size_t)b * a->G + tid) * a->S + k];
-          stepm[tid] = m;
-        }
-        nreal = __syncthreads_count(tid < a->G && m != a->sentinel);
-        gpos = 0;
-      }
-      const int take = min(nreal - gpos, mcap - nm);
-      for (int i = tid; i < take; i += blockDim.x) mids[nm + i] = stepm[gpos + i];
-      nm += take;
-      gpos += take;
-      if (gpos >= nreal) {
-        ++k;
-        nreal = -1;
-      }
-    }
+    const int nm = dense_pairs::step_minors(a->j_ids, b, a->G, a->S, a->sentinel, k1, mcap,
+                                            stepm, mids, &k, &gpos, &nreal);
     __syncthreads();  // the chunk's minors are visible
     const int n = nm << shift, rmask = (1 << shift) - 1;
     const TileBwdArgs& A = *a;
@@ -156,7 +136,7 @@ struct TileWalk {
   }
 
   // t's row of sample row q
-  __device__ __forceinline__ const float* trow(int q) const {
+  __device__ __forceinline__ const float* row(int q) const {
     if constexpr (kPacked) {
       const int tm = 1 << shift;
       return a->rec + ((size_t)b * a->sentinel + (q >> shift)) * ((size_t)tm * (4 + a->KU)) +

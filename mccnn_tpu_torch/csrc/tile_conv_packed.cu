@@ -29,7 +29,7 @@ extern "C" int tile_conv_packed_launch(const void* smp, const void* svalid, cons
       nullptr, static_cast<const float*>(rec), static_cast<const int*>(j_ids),
       static_cast<const int*>(run), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), NS, 0, C, 0, S, G, n_tiles, sentinel, r2, radius, mean,
+      static_cast<const float*>(b2), NS, 0, C, S, G, n_tiles, sentinel, r2, radius, mean,
       depthwise, static_cast<float*>(out), static_cast<float*>(cnt)};
   return k5::tile_conv_dispatch<true>(a, B, H, Tm, static_cast<cudaStream_t>(stream));
 }

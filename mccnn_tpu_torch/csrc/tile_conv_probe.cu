@@ -25,7 +25,7 @@ extern "C" int tile_conv_probe_launch(int probe, const void* smp, const void* sv
       static_cast<const float*>(wf), nullptr, static_cast<const int*>(j_ids),
       static_cast<const int*>(run), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), NS, NP, C, 0, S, G, n_tiles, sentinel, r2, radius, mean,
+      static_cast<const float*>(b2), NS, NP, C, S, G, n_tiles, sentinel, r2, radius, mean,
       depthwise, static_cast<float*>(out), static_cast<float*>(cnt)};
   return k5::tile_conv_probe_dispatch<false>(a, B, H, Tm, probe,
                                              static_cast<cudaStream_t>(stream));

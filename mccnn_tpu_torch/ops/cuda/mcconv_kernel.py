@@ -12,11 +12,12 @@ dropped by a cell's overflow is in no sum, a dropped sample gets 0, and so
 does every masked sample.
 
 The kernels (``csrc/bucket_conv.cu``, ``csrc/bucket_conv_bwd.cu``) give K9
-a block for each (cloud, sample cell, channel slice) and K10 a block for each
-32 kept sources of a (cloud, source cell), over all their channels; a block
-over an empty cell exits at once. K10 runs K6's body (``csrc/list_bwd.cuh``):
-one d2 test a window pair into each source's list of in-radius samples, then
-the contraction over the lists. They read
+a block for each 32 kept samples of a (cloud, sample cell) and K10 a block for
+each 32 kept sources of a (cloud, source cell), over all their channels; a
+block over an empty cell exits at once. K9 runs K5's body
+(``csrc/list_fwd.cuh``) and K10 K6's (``csrc/list_bwd.cuh``): one d2 test a
+window pair into each owner's list of in-radius points, then the contraction
+over the lists. They read
 positions from the layouts (slot order) and features, outputs and the
 cotangent in point order through ``point_of_slot``: every output row has one
 writer, and no (B, slots, C) tensor exists. K9 forms ``G[i,h,c] = sum_j

@@ -26,10 +26,14 @@ in the reference, not of the forward.
 The kernels (``csrc/tile_conv.cuh`` for K5 and K5p, ``csrc/tile_conv_bwd.cuh``
 for K6 and K6p, ``csrc/tile_conv_bwd_v1.cu`` for K6v1, ``csrc/tile_sweep.cu``
 for K7 and K8, each templated on the minor size) give one block to each
-(cloud, major tile), K5 and K6 also to each channel block, and walk that
-tile's contiguous run of steps (``run[b, t]`` to ``run[b, t + 1]``, built with
-``searchsorted``): every output row has one writer and the sums run in step
-order, so two calls are bit-identical. Each kernel has a plain PyTorch
+(cloud, major tile), K6v1 also to each channel block, and K5 and K6 one to
+each group of 16 or 32 of the tile's points (and, where the groups would not
+fill the card, to each slice of the channels); every block walks its tile's
+contiguous run of steps (``run[b, t]`` to ``run[b, t + 1]``, built with
+``searchsorted``). K5 and K6 sweep the run once into in-radius pair lists
+and contract those over all their channels (``csrc/list_fwd.cuh``,
+``csrc/list_bwd.cuh``). Every output row has one writer and the sums run in
+step order, so two calls are bit-identical. Each kernel has a plain PyTorch
 version that walks the same step list, so it drops exactly what the kernel
 drops when the budget is short. The public functions (``tile_mc_conv``,
 ``tile_kde``, ``TileCoverSweep.counts``) pick by device: CPU tensor -> plain

@@ -1,77 +1,46 @@
-"""K1 and K2 with this checkout's pair kernels against another checkout's, on
-the same inputs in one process on the card; with ``--v1``, K1v1 and K2v1;
-with ``--planes``, K1p.
+"""Kernels of this checkout against another checkout's, on the same inputs
+in one process on the card.
 
-    python -m mccnn_tpu_torch.tools.dense_ab OTHER_CHECKOUT
-    python -m mccnn_tpu_torch.tools.dense_ab --v1 OTHER_CHECKOUT
-    python -m mccnn_tpu_torch.tools.dense_ab --planes OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --tile-fwd OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --bucket-fwd OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --same OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --t1 OTHER_CHECKOUT
-    python -m mccnn_tpu_torch.tools.dense_ab --tile-bwd OTHER_CHECKOUT
-    python -m mccnn_tpu_torch.tools.dense_ab --bucket-bwd OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
-``ops/cuda/_build.py``, in a child process) and loaded beside this one's.
-K1 and K2 are composed of one library's pair kernel, projection and dG GEMM
-(``OTHER_SIGNATURES``: the other's take no split partials, and its K2 reads
-a depthwise dG that an elementwise kernel formed) and this checkout's dW2
-GEMM and reductions, whose code both share. The other's K2
-partial count comes from ``mcconv_bwd_pair_blocks(N, M, C)`` a cloud
-(``OTHER_BLOCKS``), this checkout's from ``(B, N, M, C)`` for the batch.
+``ops/cuda/_build.py``, in a child process) and loaded beside this one's,
+with this checkout's argument types (``_build.SIGNATURES``). A mode runs only
+the entry points whose arguments it names: ``--tile-fwd`` and
+``--bucket-fwd`` declare the ABI of K5 / K5p and K9 / K9a (``FWD_ABI``, the
+arguments since their ports) and refuse to run where this checkout's
+``_build.SIGNATURES`` differ from it; ``--same`` and ``--t1`` are for a
+checkout whose library has this checkout's entry points and arguments.
 
-At MCClassS's three sites (B = 32 clouds of 1024 points, grow 128) and
-ShapeNet's three 1024 -> 1024 sites (B = 32, grow 64, the
-``tasks.shapenet --synthetic`` data) it prints, per site: whether G, the
-counts and d_f~ are bit-equal between the two, the largest difference of
-dW1 / db1 (their partial sums are taken in another order), and the time of
-each K1 and K2, of each pair kernel alone (CUDA events, warm, best of
-several runs, taken in the order other, this, this, other) and of each
-one's GEMM parts, K1's projection and K2's dG / dW2 GEMMs. The outputs
-differ where this checkout splits a GEMM's reduction (``out_rel_diff``).
-With ``--v1`` it runs this checkout's K1v1 / K2v1 (``dense_conv``'s
-wrappers) against the other checkout's ``mcconv_v1_fwd_launch`` /
-``mcconv_v1_bwd_launch`` (``OTHER_V1_SIGNATURES``: the single-launch K2v1
-with per-block [dW2; db2] partials, sized as its wrapper sized them and
-reduced by this checkout's reduction kernel) at the 14 dense sites of
-MCClass and MCClassH (``ZOO_SITES``, B = 32), and prints per site whether
-the counts and K1v1's ``out`` are bit-equal, the largest relative
-difference of ``out`` and of each K2v1 gradient, and both checkouts' times
-of each kernel (order other, this, this, other), then their sums. With
-``--planes`` it runs this checkout's K1p (``dense_conv``'s wrapper) against
-the other checkout's ``mcconv_planes_pair_launch`` (``OTHER_PLANES_SIGNATURES``:
-the all-pairs K1p, which takes no scratch) followed by this checkout's
-projection, at the zoo's 14 sites and MCClassS's 3 (B = 32), and prints per
-site whether the counts and G are bit-equal (G's largest relative
-difference where not), both checkouts' K1p times and this checkout's K1
-time, then their sums. With ``--same`` (for another checkout whose library
-has this checkout's dense entry points and arguments) it runs this
-checkout's K1 / K2, K1v1 / K2v1 and K1p wrappers on each library, at the
-zoo's 14 sites, MCClassS's 3 and ShapeNet's 3 (B = 32), and prints per site
-whether every output is bit-equal. With ``--t1`` (for another checkout whose
-``dense_probe_launch`` has this checkout's arguments) it runs T1 noop,
-mm_only and mm_big through this checkout's wrapper on each library at
+With ``--tile-fwd`` it runs K5 and K5p (``tile_conv_launch`` /
+``tile_conv_packed_launch``, the kernels alone on preallocated outputs,
+K5p on records packed beforehand) on both libraries at ``chip_smoke.py``'s
+tile sites: ScanNet's MCSeg on a block batch of 8 x 8192 points at its four
+big conv sites (stem, enc_0_1, dec_2_1, dec_1_0: ``SEG_SITES``) with a tile
+capacity. Per site it prints whether ``out`` (depthwise) or G (the full
+stem) and the counts are bit-equal between the libraries, whether K5p equals
+K5 on each, both libraries' device times (``device_ms``, order other, this,
+this, other) and the sum over the sites. With ``--bucket-fwd`` it runs K9
+(``bucket_conv_launch``) and K9a (``bucket_conv_active_launch`` at NBA =
+the occupied bricks, lossless) the same way at the four sites without a
+tile capacity, MCClassS's conv_0_1 at B = 32 x 4096 (``MODELNET_SITE``) and
+``tools.bucket_32k``'s 32k scene (cap 64, NBA 784): per site whether ``out``
+/ G and the counts are bit-equal, whether K9a equals K9, and both times.
+
+With ``--same`` it runs this checkout's wrappers of K1 / K2, K1v1 / K2v1 and
+K1p at the zoo's 14 dense sites, MCClassS's 3 and ShapeNet's 3 (B = 32), of
+K5, K5p and K6 at the four tile sites and of K9, K10 and K9a / K10a (at a
+lossless NBA) at the five bucket sites on each library, and prints per site
+whether every output is bit-equal, with each kind's device time summed over
+its sites on both libraries. With ``--t1`` it runs T1 noop, mm_only and
+mm_big through this checkout's wrapper on each library at
 ``tools.dense_breakdown``'s inputs, the features given in bf16 (the kernels
 alone), and prints for each whether the outputs are bit-equal and both
 libraries' call and device times (``best_ms``, ``device_ms``; order other,
 this, this, other).
-
-With ``--tile-bwd`` it runs K6 and with ``--bucket-bwd`` K10, the tile and
-bucket MC-conv backwards, on both libraries at ``chip_smoke.py``'s sites:
-ScanNet's MCSeg on a block batch of 8 x 8192 points at its four tile sites
-(stem, enc_0_1, dec_2_1, dec_1_0: ``SEG_SITES``) with a tile capacity, and
-without one at the same four bucket sites and MCClassS's conv_0_1 at B = 32
-x 4096 (``MODELNET_SITE``). The other checkout's ``tile_conv_bwd_launch`` /
-``bucket_conv_bwd_launch`` are called with their own arguments and partial
-sums (``OTHER_TILE_SIGNATURES``, ``OTHER_BUCKET_SIGNATURES``: the kernels of
-a 16-channel block grid, K10 over chunks of up to 128 slots of a cell, as
-their wrappers sized them), this checkout's through its wrappers; both
-kernels' partials are reduced, and the full site's X projected, by this
-checkout's reduction kernel and GEMMs (``tile_conv.source_grads``). Per site
-it prints whether the kernel's own output is bit-equal (X at the full site,
-d_f~ at the depthwise ones), the largest relative difference of each
-parameter gradient, and both libraries' device times (``device_ms``, order
-other, this, this, other) of the kernel (with its dG GEMM at the full site
-and its zeroed partials) and of the whole backward, then their sums.
 
 It refuses to run without a CUDA device.
 """
@@ -92,27 +61,15 @@ B = 32
 SHAPENET_RADII, SHAPENET_PARTS, SHAPENET_CATS = (0.025, 0.1, 0.4), 4, 16
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OTHER_SIGNATURES = {
-    "mcconv_pair_launch": [P] * 7 + [I] * 5 + [F, F] + [P] * 3,
-    "mcconv_bwd_pair_launch": [P] * 8 + [I] * 5 + [F, F] + [P] * 3,
-    "mcconv_project_full_launch": [P] * 4 + [I] * 4 + [P] * 2,
-    "mcconv_bwd_dg_full_launch": [P] * 3 + [I] * 4 + [P] * 2,
-    "mcconv_bwd_dg_depthwise_launch": [P] * 3 + [I] * 3 + [P] * 2,
+# The arguments of the tile and bucket forwards' entry points, unchanged since
+# each was first built: a checkout with these takes `--tile-fwd` / `--bucket-fwd`.
+FWD_ABI = {
+    "tile_conv_launch": [P] * 11 + [I] * 10 + [F, F, I, I] + [P] * 3,
+    "tile_conv_packed_launch": [P] * 9 + [I] * 9 + [F, F, I, I] + [P] * 3,
+    "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
+    "bucket_conv_active_launch": [P] * 12 + [I] * 10 + [F, F, I, I] + [P] * 3,
 }
-OTHER_BLOCKS = [I, I, I]  # mcconv_bwd_pair_blocks(N, M, C): partial rows a cloud
-OTHER_V1_SIGNATURES = {
-    "mcconv_v1_fwd_launch": [P] * 9 + [I] * 7 + [F, F] + [P] * 3,
-    "mcconv_v1_bwd_tiles": [I] * 4,
-    "mcconv_v1_bwd_launch": [P] * 11 + [I] * 7 + [F, F, I] + [P] * 4,
-}
-OTHER_PLANES_SIGNATURES = {"mcconv_planes_pair_launch": [P] * 7 + [I] * 5 + [F, F] + [P] * 3}
-# The other K6 / K10: one block per (cloud, source tile or cell chunk, block
-# of OTHER_CB channels), K10's chunks of up to OTHER_SLOTS slots of a cell.
-OTHER_TILE_SIGNATURES = {"tile_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4}
-OTHER_BUCKET_SIGNATURES = {"bucket_conv_bwd_launch": [P] * 13 + [I] * 12 + [F, F, I] + [P] * 4}
-OTHER_CB, OTHER_SLOTS = 16, 128
-# The other K2v1's partials: at most this many blocks, and floats in all.
-OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS = 264, 64 << 20
+ACTIVE_CAP, ACTIVE_NBA = 64, 784  # tools.bucket_32k's scene: every occupied brick
 
 RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
 # ScanNet's MCSeg at the CLI's defaults on a block batch (as chip_smoke.py):
@@ -227,272 +184,15 @@ def other_library_path(checkout: str) -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def other_library(checkout: str, signatures: dict):
-    """Build the other checkout's kernel library there and load it, with the
-    argument types of ``signatures`` (name -> types)."""
-    lib = ctypes.CDLL(other_library_path(checkout))
-    for name, argtypes in signatures.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
-def other_k1v1(lib, params, smp, qmask, src, smask, wf, radius, co, mean=False):
-    """The other checkout's K1v1, as its wrapper launched it: ``(out, cnt)``."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build
-
-    ptr = _build.ptr
-    b, m, _ = smp.shape
-    n, c = src.shape[1], wf.shape[-1]
-    out = torch.zeros((b, m, c if co is None else co), dtype=torch.float32, device=smp.device)
-    cnt = torch.zeros((b, m), dtype=torch.float32, device=smp.device)
-    _build.check(lib.mcconv_v1_fwd_launch(
-        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
-        ptr(params.w2), ptr(params.b2), b, m, n, c, co or 0, H, int(mean), radius_sq(radius),
-        float(radius), ptr(out), ptr(cnt), _build.stream_of(smp)), "other K1v1")
-    return out, cnt
-
-
-def other_k2v1(lib, params, smp, qmask, src, smask, wf, radius, cnt, dout, co, mean=False):
-    """The other checkout's K2v1, as its wrapper launched it (per-block
-    [dW2; db2] partials), its partials summed by this checkout's reduction
-    kernel: ``(d_wf, dw1, db1, dw2, db2)``."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
-
-    ptr, this = _build.ptr, _build.library()
-    b, m, _ = smp.shape
-    n, c = src.shape[1], wf.shape[-1]
-    dev, stream = smp.device, _build.stream_of(smp)
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-    L = (H + 1) * c * (1 if co is None else co)
-    d_wf, w1b1 = zeros(b, n, c), zeros(4, H)
-    dwcat = zeros(H + 1, c) if co is None else zeros(L)
-    tiles = lib.mcconv_v1_bwd_tiles(n, m, c, co or 0)
-    blocks = max(1, min(b * tiles, OTHER_V1_BLOCKS, OTHER_V1_PARTIAL_FLOATS // L))
-    part_w, part_p = zeros(blocks, L), zeros(blocks, 4 * H)
-    _build.check(lib.mcconv_v1_bwd_launch(
-        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
-        ptr(params.w2), ptr(params.b2), ptr(cnt), ptr(dout), b, m, n, c, co or 0, H, int(mean),
-        radius_sq(radius), float(radius), blocks, ptr(d_wf), ptr(part_w), ptr(part_p), stream),
-        "other K2v1")
-    for part, out in ((part_w, dwcat), (part_p, w1b1)):
-        _build.check(this.mcconv_bwd_reduce_launch(ptr(part), blocks, part.shape[1], ptr(out),
-                                                   stream), "reduce")
-    return (d_wf, w1b1[:3], w1b1[3],
-            *dense_conv._split_wcat(dwcat, H, c, co, params.w2, params.b2))
-
-
-def k1(pair_lib, other, params, smp, qmask, src, smask, wf, radius, co, part=None,
-       given=None):
-    """K1 with ``pair_lib``'s pair kernel and projection (the other
-    checkout's where ``other``): ``(out, cnt, G)``, as
-    ``dense_conv._forward_cuda``; ``part="pair"`` runs
-    the pair kernel alone, ``part="project"`` the projection alone (of the
-    ``given`` (cnt, G))."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
-
-    lib, ptr = _build.library(), _build.ptr
-    b, m, _ = smp.shape
-    n, c = src.shape[1], wf.shape[-1]
-    if part == "project":
-        cnt, G = given
-    else:
-        G = torch.empty((b, m, H + 1, c), dtype=torch.float32, device=smp.device)
-        cnt = torch.empty((b, m), dtype=torch.float32, device=smp.device)
-    out = torch.empty((b, m, c if co is None else co), dtype=torch.float32, device=smp.device)
-    stream = _build.stream_of(smp)
-    if part != "project":
-        _build.check(pair_lib.mcconv_pair_launch(
-            ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1),
-            ptr(params.b1), b, m, n, c, H, radius_sq(radius), float(radius), ptr(G), ptr(cnt),
-            stream), "pair")
-        if part == "pair":
-            return out, cnt, G
-    scale = dense_conv._scale(cnt, qmask, False).contiguous()
-    if co is None:
-        err = lib.mcconv_project_depthwise_launch(ptr(G), ptr(params.w2), ptr(params.b2),
-                                                  ptr(scale), b * m, H, c, ptr(out), stream)
-        _build.check(err, "projection")
-    elif other:
-        _build.check(pair_lib.mcconv_project_full_launch(
-            ptr(G), ptr(params.w2), ptr(params.b2), ptr(scale), b * m, (H + 1) * c, H * c, co,
-            ptr(out), stream), "projection")
-    else:
-        dense_conv.project_full(G, params.w2, params.b2, scale, b * m, (H + 1) * c, H * c, co,
-                                out, "projection")
-    return out, cnt, G
-
-
-def k2(pair_lib, other, params, smp, qmask, src, smask, wf, radius, G, cnt, dout, co,
-       part=None, given=None):
-    """K2 with ``pair_lib``'s pair kernel and dG GEMM (the other
-    checkout's where ``other``; this checkout's forms a depthwise dG inside
-    its pair kernel) and this checkout's dW2 GEMM and reductions: ``(d_wf,
-    dw1, db1, dw2, db2)``, as ``dense_conv.dense_mc_conv_backward_cuda``;
-    ``part="gemm"`` runs the dG and dW2 GEMMs alone, ``part="pair"`` the pair
-    kernel and its reduction alone (on the ``given`` dG, or t)."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
-
-    lib, ptr = _build.library(), _build.ptr
-    b, m, _ = smp.shape
-    n, c = src.shape[1], wf.shape[-1]
-    R, H1 = b * m, H + 1
-    dev = smp.device
-    t = (dout * dense_conv._scale(cnt, qmask, False)[..., None]).contiguous()
-    w2, b2 = params.w2, params.b2
-    stream = _build.stream_of(smp)
-    depthwise = co is None and not other  # this checkout's K2 reads t at depthwise sites
-    if part == "pair":
-        dG = t if depthwise else given
-        dwcat = torch.zeros((H1, c) if co is None else (H1 * c * co,), device=dev)
-    else:
-        dG = t if depthwise else torch.empty((b, m, H1, c), dtype=torch.float32, device=dev)
-        if co is None:
-            if other:
-                _build.check(pair_lib.mcconv_bwd_dg_depthwise_launch(
-                    ptr(t), ptr(w2), ptr(b2), R, H, c, ptr(dG), stream), "dG")
-            dwcat = dense_conv.wcat_grad(G, t, R, H1, c, depthwise=True)
-        else:
-            if other:
-                _build.check(pair_lib.mcconv_bwd_dg_full_launch(
-                    ptr(t), ptr(w2), ptr(b2), R, co, H * c, H1 * c, ptr(dG), stream), "dG")
-            else:
-                dense_conv.dg_full(t, w2, b2, R, co, H * c, H1 * c, dG, "dG")
-            dwcat = dense_conv.wcat_grad(G, t, R, H1 * c, co)
-    if part == "gemm":
-        return dwcat
-    blocks = (b * pair_lib.mcconv_bwd_pair_blocks(n, m, c) if other
-              else pair_lib.mcconv_bwd_pair_blocks(b, n, m, c))
-    part = torch.empty((blocks, 4, H), dtype=torch.float32, device=dev)
-    d_wf = torch.zeros((b, n, c), dtype=torch.float32, device=dev)
-    head = (ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1))
-    tail = (radius_sq(radius), float(radius), ptr(d_wf), ptr(part), stream)
-    if other:
-        err = pair_lib.mcconv_bwd_pair_launch(*head, ptr(dG), b, m, n, c, H, *tail)
-    else:
-        err = pair_lib.mcconv_bwd_pair_launch(*head, ptr(w2), ptr(b2), ptr(dG), b, m, n, c, H,
-                                              int(depthwise), *tail)
-    _build.check(err, "bwd pair")
-    w1b1 = torch.empty((4, H), dtype=torch.float32, device=dev)
-    _build.check(lib.mcconv_bwd_reduce_launch(ptr(part), blocks, 4 * H, ptr(w1b1), stream),
-                 "reduce")
-    return (d_wf, w1b1[:3], w1b1[3], *dense_conv._split_wcat(dwcat, H, c, co, w2, b2))
-
-
-def other_k1p(lib, params, smp, qmask, src, smask, wf, radius, co):
-    """The other checkout's K1p pair kernel, as its wrapper launched it, then
-    this checkout's projection: ``(out, cnt, G)``."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build
-
-    ptr = _build.ptr
-    b, m, _ = smp.shape
-    n, c = src.shape[1], wf.shape[-1]
-    G = torch.empty((b, m, H + 1, c), dtype=torch.float32, device=smp.device)
-    cnt = torch.empty((b, m), dtype=torch.float32, device=smp.device)
-    _build.check(lib.mcconv_planes_pair_launch(
-        ptr(smp), ptr(qmask), ptr(src), ptr(smask), ptr(wf), ptr(params.w1), ptr(params.b1),
-        b, m, n, c, H, radius_sq(radius), float(radius), ptr(G), ptr(cnt), _build.stream_of(smp)),
-        "other K1p")
-    return k1(None, False, params, smp, qmask, src, smask, wf, radius, co, part="project",
-              given=(cnt, G))
-
-
 def rel_diff(a: torch.Tensor, ref: torch.Tensor) -> float:
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def main_v1(other, dev) -> int:
-    """K1v1 / K2v1 of this checkout against ``other``'s at the zoo's 14 sites."""
-    from mccnn_tpu_torch.ops.cuda import dense_conv
-
-    from . import best_ms
-
-    gen = torch.Generator().manual_seed(SEED + 20)
-    total = np.zeros(4)  # K1v1 other, this; K2v1 other, this
-    for site in zoo_sites(B, dev):
-        name, _, _, radius, c, co = site
-        params, smp, qmask, src, smask, wf, dout = site_inputs(site, gen, dev)
-        fargs = (params, smp, qmask, src, smask, wf, radius, co)
-        with torch.no_grad():
-            o_out, o_cnt = other_k1v1(other, *fargs)
-            n_out, n_cnt = dense_conv._forward_cuda_v1(*fargs, False)
-            bargs = (params, smp, qmask, src, smask, wf, radius, n_cnt, dout)
-            o_bwd = other_k2v1(other, *bargs, co)
-            n_bwd = dense_conv.dense_mc_conv_v1_backward_cuda(*bargs, c_out=co)
-            torch.cuda.synchronize()
-            runs = {"K1v1": {"other": lambda: other_k1v1(other, *fargs),
-                             "this": lambda: dense_conv._forward_cuda_v1(*fargs, False)},
-                    "K2v1": {"other": lambda: other_k2v1(other, *bargs, co),
-                             "this": lambda: dense_conv.dense_mc_conv_v1_backward_cuda(
-                                 *bargs, c_out=co)}}
-            times = {}
-            for kid, fns in runs.items():
-                for who in ("other", "this", "this", "other"):
-                    # the best of 5 runs of 20 calls (host-bound calls are noisy),
-                    # of 3 runs of 3 where one call takes over 5 ms (the other K2v1)
-                    fast = best_ms(fns[who], iters=1, reps=1) < 5
-                    ms = best_ms(fns[who], iters=20 if fast else 3, reps=5 if fast else 3)
-                    times[kid, who] = min(times.get((kid, who), float("inf")), ms)
-        total += [times["K1v1", "other"], times["K1v1", "this"], times["K2v1", "other"],
-                  times["K2v1", "this"]]
-        grads = ", ".join(f"{g} {rel_diff(a, r):.3e}" for g, a, r in
-                          zip(("d_wf", "dw1", "db1", "dw2", "db2"), n_bwd, o_bwd))
-        print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
-              f"cnt_bit_equal={torch.equal(o_cnt, n_cnt)} out_bit_equal="
-              f"{torch.equal(o_out, n_out)} out_rel_diff={rel_diff(n_out, o_out):.3e}; K2v1 "
-              f"rel_diff {grads}; K1v1_ms other={times['K1v1', 'other']:.4f} "
-              f"this={times['K1v1', 'this']:.4f} K2v1_ms other={times['K2v1', 'other']:.4f} "
-              f"this={times['K2v1', 'this']:.4f}", flush=True)
-    print(f"over the {len(ZOO_SITES)} sites: K1v1_ms other={total[0]:.4f} this={total[1]:.4f} "
-          f"K2v1_ms other={total[2]:.4f} this={total[3]:.4f}", flush=True)
-    return 0
-
-
-def main_planes(other, dev) -> int:
-    """K1p of this checkout against ``other``'s at the zoo's 14 sites and
-    MCClassS's 3."""
-    from mccnn_tpu_torch.ops.cuda import dense_conv
-
-    from . import best_ms
-
-    gen = torch.Generator().manual_seed(SEED + 30)
-    total = np.zeros(3)  # K1p other, this; K1 this
-    sites = zoo_sites(B, dev) + mcclass_s_sites(B, dev)
-    for site in sites:
-        name, _, _, radius, c, co = site
-        params, smp, qmask, src, smask, wf, _ = site_inputs(site, gen, dev)
-        fargs = (params, smp, qmask, src, smask, wf, radius, co)
-        with torch.no_grad():
-            o_out, o_cnt, o_G = other_k1p(other, *fargs)
-            n_out, n_cnt, n_G = dense_conv.dense_mc_conv_planes_cuda(*fargs)
-            torch.cuda.synchronize()
-            fns = {"other": lambda: other_k1p(other, *fargs),
-                   "this": lambda: dense_conv.dense_mc_conv_planes_cuda(*fargs)}
-            times = {}
-            for who in ("other", "this", "this", "other"):
-                times[who] = min(times.get(who, float("inf")), best_ms(fns[who], iters=10))
-            k1_ms = best_ms(lambda: dense_conv._forward_cuda(*fargs, False), iters=10)
-        total += [times["other"], times["this"], k1_ms]
-        same = torch.equal(o_G, n_G)
-        print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
-              f"cnt_bit_equal={torch.equal(o_cnt, n_cnt)} G_bit_equal={same}"
-              + ("" if same else f" G_rel_diff={rel_diff(n_G, o_G):.3e}")
-              + f" out_bit_equal={torch.equal(o_out, n_out)}; K1p_ms other={times['other']:.4f} "
-              f"this={times['this']:.4f} K1_ms this={k1_ms:.4f}", flush=True)
-    print(f"over the {len(sites)} sites: K1p_ms other={total[0]:.4f} this={total[1]:.4f} "
-          f"K1_ms this={total[2]:.4f}", flush=True)
-    return 0
-
-
 def main_same(other_path: str, dev) -> int:
-    """K1 / K2, K1v1 / K2v1 and K1p through this checkout's wrappers on this
-    library and on ``other_path``'s, bit for bit, and each pair's device
-    time summed over the sites on both libraries."""
+    """K1 / K2, K1v1 / K2v1 and K1p at the dense sites, K5, K5p and K6 at the
+    tile sites and K9, K10 and K9a / K10a at the bucket sites, through this
+    checkout's wrappers on this library and on ``other_path``'s: bit for bit,
+    and each kind's device time summed over its sites on both libraries."""
     from mccnn_tpu_torch.ops.cuda import _build, dense_conv
 
     from . import device_ms
@@ -551,9 +251,31 @@ def main_same(other_path: str, dev) -> int:
                   + (f" (differ: {', '.join(differ)})" if differ else "") + "; device_ms "
                   + ", ".join(f"{k} other={times[k, 'other']:.4f} this={times[k, 'this']:.4f}"
                               for k in kinds), flush=True)
+        for name, runs in same_conv_runs(dev):
+            res, times = {}, {}
+            with torch.no_grad():
+                for who, lib in libs.items():
+                    _build._LIBRARY = lib
+                    res[who] = {k: fn() for k, fn in runs.items()}
+                    torch.cuda.synchronize()
+                for who in ("other", "this", "this", "other"):
+                    _build._LIBRARY = libs[who]
+                    for kind, fn in runs.items():
+                        ms = device_ms(fn, iters=3)
+                        times[kind, who] = min(times.get((kind, who), float("inf")), ms)
+            for key, ms in times.items():
+                total[key] = total.get(key, 0.0) + ms
+            differ = [k for k in runs if not all(
+                torch.equal(a, b) for a, b in zip(res["this"][k], res["other"][k]))]
+            every &= not differ
+            print(f"{name}: {' / '.join(runs)} outputs bit-equal: {not differ}"
+                  + (f" (differ: {', '.join(differ)})" if differ else "") + "; device_ms "
+                  + ", ".join(f"{k} other={times[k, 'other']:.4f} this={times[k, 'this']:.4f}"
+                              for k in runs), flush=True)
     finally:
         _build._LIBRARY = libs["this"]
-    print(f"over the {len(sites)} sites: every output bit-equal: {every}; device_ms "
+    kinds = list(dict.fromkeys(k for k, _ in total))
+    print(f"over every site: every output bit-equal: {every}; device_ms "
           + ", ".join(f"{k} other={total[k, 'other']:.4f} this={total[k, 'this']:.4f} "
                       f"(this / other {total[k, 'this'] / total[k, 'other']:.4f})"
                       for k in kinds), flush=True)
@@ -622,9 +344,9 @@ def init_params(gen, c, co, dev):
                            b2=0.1 * torch.randn(params.b2.shape, generator=gen).to(dev))
 
 
-def tile_bwd_sites(dev) -> list:
-    """``(name, run(lib), C, CO)`` at the four tile sites; ``run(None)`` is
-    this checkout's K6, ``run(lib)`` the other library's."""
+def tile_sites(dev) -> list:
+    """``(name, params, lay, wf, radius, c, co, cnt, dout)`` at the four tile
+    sites, with both step lists, the plain count and a seeded dout."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.ops.cuda import tile_conv
 
@@ -642,58 +364,24 @@ def tile_bwd_sites(dev) -> list:
                                     max_pairs=tile_pairs if 0 in (i, o) else 1 << 30)
         wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
         with torch.no_grad():
-            _, cnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, c_out=co)
+            _, cnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, radius, c_out=co)
         dout = torch.randn((smp.shape[0], lay.smp.shape[1], co or c), generator=gen).to(dev)
-        args = (params, lay, wf, radius, cnt, dout, co)
-        sites.append((name, lambda lib, a=args: (other_k6(lib, *a) if lib is not None else
-                                                 tile_conv._launch_k6(*a, False, False,
-                                                                      parts=True)),
-                      params, wf, c, co))
+        sites.append((name, params, lay, wf, radius, c, co, cnt, dout))
     return sites
 
 
-def other_k6(lib, params, lay, wf, radius, cnt, dout, co):
-    """The other checkout's K6 as its wrapper launched it: ``(out, w1part,
-    w2part)``, its dG GEMM at the full site by this checkout's kernel."""
-    from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build, dense_conv, tile_conv
-
-    ptr = _build.ptr
-    t = tile_conv._cotangent(lay, cnt, dout, False).contiguous()
-    st = lay.steps_b
-    B, NS, _ = lay.smp.shape
-    NP, C = wf.shape[1:]
-    CO = co or C
-    H1 = H + 1
-    ntp = NP // tile_conv.DEFAULT_TILE
-    CB = min(max(C, CO), OTHER_CB)
-    nb = -(-max(C, CO) // CB)
-    dev = wf.device
-    w1part = dense_conv.partials(B * ntp * nb, 4 * H, dev)
-    if co is None:
-        dG, out, w2part = t, torch.empty((B, NP, C), device=dev), dense_conv.partials(
-            B * ntp, H1 * C, dev)
-    else:
-        dG, out, w2part = torch.empty((B, NS, H1, C), device=dev), torch.empty(
-            (B, NP, H1, CO), device=dev), w1part
-        dense_conv.dg_full(t, params.w2, params.b2, B * NS, CO, H * C, H1 * C, dG, "other dG")
-    _build.check(lib.tile_conv_bwd_launch(
-        ptr(lay.smp), ptr(lay.smp_valid), ptr(lay.src), ptr(lay.src_valid), ptr(wf), ptr(t),
-        ptr(dG), ptr(st.j_ids), ptr(st.run), *(ptr(x) for x in params), B, NS, NP, C, CO, CB, H,
-        st.j_ids.shape[2], st.j_ids.shape[1], ntp, st.n_minor, st.Tm, radius_sq(radius),
-        float(radius), int(co is None), ptr(out), ptr(w1part), ptr(w2part),
-        _build.stream_of(wf)), "other K6")
-    return out, w1part, w2part
-
-
-def bucket_bwd_sites(dev) -> list:
-    """As ``tile_bwd_sites`` for K10: the four bucket sites and MCClassS's
-    conv_0_1 at 4096 points."""
+def bucket_sites(dev, with_32k: bool = False) -> list:
+    """``(name, params, gs, gp, wf, c, co, cnt, dout, active)`` at the four
+    bucket sites and MCClassS's conv_0_1 at 4096 points (and, with
+    ``with_32k``, ``tools.bucket_32k``'s scene): ``active`` holds the bricks
+    of a lossless NBA, every occupied one."""
     from mccnn_tpu_torch.api.builder import SpatialCache
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.data.datasets import _normalize_np
     from mccnn_tpu_torch.data.synthetic import classification_batch
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+
+    from . import bucket_32k
 
     pts, mask = (x.to(dev) for x in _scene_batch(SEED + 12))
     cloud, _ = classification_batch(np.random.default_rng(SEED + 17), B, 4096)
@@ -704,174 +392,216 @@ def bucket_bwd_sites(dev) -> list:
                                                              device=dev), RADII_2,
                                            global_level=True))
     gen = torch.Generator().manual_seed(SEED + 14)
-    sites = []
+    cases = []
     for cache, (name, i, o, radius, c, co) in [(seg, s) for s in SEG_SITES] + [(cls,
                                                                                 MODELNET_SITE)]:
         hier = cache.hierarchy
         src, smask = hier.levels[i].points, hier.levels[i].mask
-        gs, gp = cache.buckets(o, radius), cache.buckets(i, radius)
         params, feats, pdf = _seg_inputs(gen, src, smask, c, co, radius, dev)
+        cases.append((name, params, cache.buckets(o, radius), cache.buckets(i, radius), feats,
+                      pdf, c, co))
+    if with_32k:
+        s = bucket_32k.scene(dev, ACTIVE_CAP)
+        cases.append(("bucket_32k scene", s["params"], s["grid"], s["grid"], s["feats"],
+                      s["pdf"], s["feats"].shape[-1], None))
+    sites = []
+    for name, params, gs, gp, feats, pdf, c, co in cases:
         wf = torch.where(mk.kept_points(gp)[..., None], feats / pdf[..., None], 0.0)
         with torch.no_grad():
-            _, cnt = mk.bucket_conv_cuda(params, gs, gp, wf, c_out=co)
-        M = hier.levels[o].points.shape[1]
-        dout = torch.randn((src.shape[0], M, co or c), generator=gen).to(dev)
-        args = (params, gs, gp, wf, cnt, dout, co)
-        sites.append((name, lambda lib, a=args: (
-            other_k10(lib, *a) if lib is not None else
-            mk._conv_backward_cuda("K10", *a, False, None, parts=True)), params, wf, c, co))
+            _, cnt = mk.bucket_conv_reference(params, gs, gp, wf, c_out=co)
+        dout = torch.randn((wf.shape[0], cnt.shape[1], co or c), generator=gen).to(dev)
+        bz = mk.pick_bz(gp.res, min(gs.cap, gp.cap))
+        nba = max(int(mk.brick_occupancy(g, bz).sum(dim=-1).max()) for g in (gs, gp))
+        active = mk.ActiveBricks(mk._brick_activity(gs, bz, nba), mk._brick_activity(gp, bz, nba),
+                                 bz)
+        sites.append((name, params, gs, gp, wf, c, co, cnt, dout, active))
     return sites
 
 
-def other_k10(lib, params, gs, gp, wf, cnt, dout, co):
-    """The other checkout's K10 as its wrapper launched it: ``(out, w1part,
-    w2part)``."""
+def check_abi(names) -> None:
+    """Refuse to run where this checkout's entry points ``names`` take other
+    arguments than ``FWD_ABI`` declares (the other library is called with
+    them)."""
+    from mccnn_tpu_torch.ops.cuda import _build
+
+    moved = [n for n in names if _build.SIGNATURES[n] != FWD_ABI[n]]
+    if moved:
+        raise SystemExit(f"dense_ab: this checkout's {', '.join(moved)} take other arguments "
+                         "than FWD_ABI declares; declare the other checkout's")
+
+
+def k5_alone(lib, packed: bool, params, lay, wf, radius, co, rec):
+    """K5 (or, with ``packed``, K5p on the records ``rec``) of library
+    ``lib`` alone: a function that launches it and returns ``(out or G,
+    cnt)``, its outputs allocated once."""
     from mccnn_tpu_torch.core.grid import radius_sq
-    from mccnn_tpu_torch.ops.cuda import _build, dense_conv
+    from mccnn_tpu_torch.ops.cuda import _build, tile_conv
+
+    ptr = _build.ptr
+    st = lay.steps
+    b, ns, _ = lay.smp.shape
+    c = wf.shape[-1]
+    dst = torch.empty((b, ns, c) if co is None else (b, ns, H + 1, c), device=wf.device)
+    cnt = torch.empty((b, ns), device=wf.device)
+    weights = [ptr(x) for x in (st.j_ids, st.run, *params)]
+    tail = (b, ns, c, H, st.j_ids.shape[2], st.j_ids.shape[1], ns // tile_conv.DEFAULT_TILE,
+            st.n_minor, st.Tm, radius_sq(radius), float(radius), 0, int(co is None), ptr(dst),
+            ptr(cnt))
+
+    def run():
+        stream = _build.stream_of(wf)
+        if packed:
+            err = lib.tile_conv_packed_launch(ptr(lay.smp), ptr(lay.smp_valid), ptr(rec), *weights,
+                                              *tail, stream)
+        else:
+            err = lib.tile_conv_launch(ptr(lay.smp), ptr(lay.smp_valid), ptr(lay.src),
+                                       ptr(lay.src_valid), ptr(wf), *weights, lay.src.shape[1],
+                                       *tail, stream)
+        _build.check(err, "K5p" if packed else "K5")
+        return dst, cnt
+    return run
+
+
+def k9_alone(lib, active, params, gs, gp, wf, co):
+    """K9 (or, with ``active``, K9a over its sample bricks) of library
+    ``lib`` alone, as ``k5_alone``; its outputs zeroed once (rows of samples
+    the layout does not keep are not written)."""
+    from mccnn_tpu_torch.core.grid import radius_sq
+    from mccnn_tpu_torch.ops.cuda import _build
     from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
 
     ptr = _build.ptr
-    t = (dout * dense_conv._scale(cnt, mk.kept_points(gs), False)[..., None]).contiguous()
-    (w1, b1, w2, b2), smp, src = mk._kernel_inputs("other K10", params, gs, gp, wf, t)
-    B, M = gs.slot_of_point.shape
-    N, C = wf.shape[1:]
-    CO = co or C
-    H1 = H + 1
-    rows = min(gp.cap, OTHER_SLOTS)
-    chunks = -(-gp.cap // rows)
-    CB = min(max(C, CO), OTHER_CB)
-    n_cb = -(-max(C, CO) // CB)
-    blocks = B * gp.res**3 * chunks
-    dev = wf.device
-    w1part = dense_conv.partials(blocks * n_cb, 4 * H, dev)
-    if co is None:
-        dG, out, w2part = t, torch.zeros((B, N, C), device=dev), dense_conv.partials(
-            blocks, H1 * C, dev)
-    else:
-        dG, out, w2part = torch.empty((B, M, H1, C), device=dev), torch.zeros(
-            (B, N, H1, CO), device=dev), w1part
-        dense_conv.dg_full(t, w2, b2, B * M, CO, H * C, H1 * C, dG, "other dG")
-    _build.check(lib.bucket_conv_bwd_launch(
-        *(ptr(x) for x in (*smp, *src, wf, t, dG, w1, b1, w2, b2)), B, M, N, C, CO, H, gp.res,
-        gs.cap, gp.cap, rows, chunks, CB, radius_sq(gp.radius), float(gp.radius),
-        int(co is None), ptr(out), ptr(w1part), ptr(w2part), _build.stream_of(wf)), "other K10")
-    return out, w1part, w2part
+    b, m = gs.slot_of_point.shape
+    n, c = wf.shape[1:]
+    dst = torch.zeros((b, m, c) if co is None else (b, m, H + 1, c), device=wf.device)
+    cnt = torch.zeros((b, m), device=wf.device)
+    keep = (*mk._layout_tensors(gs), *mk._layout_tensors(gp), wf, *params)  # alive while run
+    head = [ptr(x) for x in keep]
+    tail = (radius_sq(gp.radius), float(gp.radius), 0, int(co is None), ptr(dst), ptr(cnt))
+    dims = (b, m, n, c, H, gs.res, gs.cap, gp.cap)
+
+    def run():
+        stream = _build.stream_of(wf)
+        if active is None:
+            err = lib.bucket_conv_launch(*head, *dims, *tail, stream)
+        else:
+            err = lib.bucket_conv_active_launch(*head, ptr(active.smp.ids), *dims,
+                                                active.smp.nba, active.bz, *tail, stream)
+        _build.check(err, "K9" if active is None else "K9a")
+        return dst, cnt
+    run.inputs = keep
+    return run
 
 
-def main_source_bwd(kid: str, other, sites) -> int:
-    """K6 or K10 (``kid``) on this library and ``other`` at ``sites``."""
-    from mccnn_tpu_torch.ops.cuda import tile_conv
+def main_fwd(kind: str, other_path: str, dev) -> int:
+    """K5 / K5p (``kind`` "tile") or K9 / K9a ("bucket") of this library and
+    ``other_path``'s at their sites: outputs bit-equal or not, and both
+    libraries' device times of each kernel alone."""
+    from mccnn_tpu_torch.ops.cuda import _build, tile_conv
 
     from . import device_ms
 
+    names = (("tile_conv_launch", "tile_conv_packed_launch") if kind == "tile" else
+             ("bucket_conv_launch", "bucket_conv_active_launch"))
+    check_abi(names)
+    kids = ("K5", "K5p") if kind == "tile" else ("K9", "K9a")
+    libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
     every = True
-    total = np.zeros(4)  # kernel other, this; whole backward other, this
-    for name, run, params, wf, c, co in sites:
-        libs = {"other": other, "this": None}
-        grads = lambda parts: tile_conv.source_grads(params, wf, *parts, co, kid)  # noqa: E731
+    total = {(k, who): 0.0 for k in kids for who in libs}
+    if kind == "tile":
+        sites = []
+        for name, params, lay, wf, radius, c, co, *_ in tile_sites(dev):
+            params = tuple(x.contiguous() for x in params)
+            rec = tile_conv.pack_minor_records(lay.src, lay.src_valid, wf, lay.steps.Tm,
+                                               lay.steps.n_minor)
+            sites.append((name, c, co, {
+                (kid, who): k5_alone(lib, kid == "K5p", params, lay, wf, radius, co, rec)
+                for kid in kids for who, lib in libs.items()}))
+    else:
+        sites = []
+        for name, params, gs, gp, wf, c, co, _, _, active in bucket_sites(dev, with_32k=True):
+            params = tuple(x.contiguous() for x in params)
+            sites.append((name, c, co, {
+                (kid, who): k9_alone(lib, active if kid == "K9a" else None, params, gs, gp, wf, co)
+                for kid in kids for who, lib in libs.items()}))
+    for name, c, co, runs in sites:
         with torch.no_grad():
-            parts = {who: run(lib) for who, lib in libs.items()}
-            res = {who: grads(p) for who, p in parts.items()}
+            outs = {key: tuple(x.clone() for x in fn()) for key, fn in runs.items()}
             torch.cuda.synchronize()
             times = {}
             for who in ("other", "this", "this", "other"):
-                fns = (lambda lib=libs[who]: run(lib),
-                       lambda lib=libs[who]: grads(run(lib)))
-                for k, fn in enumerate(fns):
-                    ms = device_ms(fn, iters=3)
-                    times[who, k] = min(times.get((who, k), float("inf")), ms)
-        same = torch.equal(parts["this"][0], parts["other"][0])
-        every &= same
-        diffs = ", ".join(f"{g} {rel_diff(a, r):.3e}" for g, a, r in
-                          zip(("dw1", "db1", "dw2", "db2"), res["this"][1:], res["other"][1:]))
-        total += [times["other", 0], times["this", 0], times["other", 1], times["this", 1]]
-        print(f"{kid} {name} C={c} CO={co}: {'X' if co else 'd_f~'}_bit_equal={same}"
-              + ("" if same else
-                 f" rel_diff={rel_diff(parts['this'][0], parts['other'][0]):.3e}")
-              + f"; rel_diff {diffs}; kernel device_ms other={times['other', 0]:.4f} "
-              f"this={times['this', 0]:.4f}; backward device_ms other={times['other', 1]:.4f} "
-              f"this={times['this', 1]:.4f}", flush=True)
-    print(f"{kid} over the {len(sites)} sites: kernel device_ms other={total[0]:.4f} "
-          f"this={total[1]:.4f}; backward device_ms other={total[2]:.4f} this={total[3]:.4f}; "
-          f"every kernel output bit-equal: {every}", flush=True)
+                for kid in kids:
+                    ms = device_ms(runs[kid, who], iters=3)
+                    times[kid, who] = min(times.get((kid, who), float("inf")), ms)
+        parts = []
+        for kid in kids:
+            same = all(torch.equal(a, b) for a, b in zip(outs[kid, "this"], outs[kid, "other"]))
+            every &= same
+            parts.append(f"{kid} {'out' if co is None else 'G'} and cnt bit_equal={same}"
+                         + ("" if same else
+                            f" rel_diff={rel_diff(outs[kid, 'this'][0], outs[kid, 'other'][0]):.3e}"))
+        for who in libs:
+            same = all(torch.equal(a, b) for a, b in zip(outs[kids[1], who], outs[kids[0], who]))
+            every &= same
+            parts.append(f"{kids[1]} == {kids[0]} on {who}: {same}")
+        for key, ms in times.items():
+            total[key] += ms
+        print(f"{name} C={c} CO={co}: {'; '.join(parts)}; kernel device_ms "
+              + ", ".join(f"{k} other={times[k, 'other']:.4f} this={times[k, 'this']:.4f}"
+                          for k in kids), flush=True)
+    print(f"over the {len(sites)} sites: every output bit-equal: {every}; kernel device_ms "
+          + ", ".join(f"{k} other={total[k, 'other']:.4f} this={total[k, 'this']:.4f} "
+                      f"(this / other {total[k, 'this'] / total[k, 'other']:.4f})"
+                      for k in kids), flush=True)
     return 0 if every else 1
 
 
-def main(argv=None) -> int:
-    from mccnn_tpu_torch.ops.cuda import _build
+def same_conv_runs(dev) -> list:
+    """``(name, runs)`` at the tile and bucket sites for ``main_same``: runs
+    maps a kind to a function of no arguments returning that kind's outputs
+    through this checkout's wrappers."""
+    from mccnn_tpu_torch.ops.cuda import mcconv_kernel as mk
+    from mccnn_tpu_torch.ops.cuda import tile_conv
 
-    from . import best_ms, card_line, require_card
+    sites = []
+    for name, params, lay, wf, radius, c, co, cnt, dout in tile_sites(dev):
+        kw = dict(c_out=co)
+        bargs = (params, lay, wf, radius, cnt, dout)
+        sites.append((f"tile {name} C={c} CO={co}", {
+            "K5": lambda p=params, l=lay, w=wf, r=radius, kw=kw: tile_conv.tile_conv_sorted_cuda(
+                p, l, w, r, **kw),
+            "K5p": lambda p=params, l=lay, w=wf, r=radius, kw=kw:
+                tile_conv.tile_conv_sorted_packed_cuda(p, l, w, r, **kw),
+            "K6": lambda a=bargs, kw=kw: tile_conv.tile_conv_backward_sorted_cuda(*a, **kw)}))
+    for name, params, gs, gp, wf, c, co, cnt, dout, active in bucket_sites(dev):
+        kw = dict(c_out=co)
+        fargs, bargs = (params, gs, gp, wf), (params, gs, gp, wf, cnt, dout)
+        sites.append((f"bucket {name} C={c} CO={co}", {
+            "K9": lambda a=fargs, kw=kw: mk.bucket_conv_cuda(*a, **kw),
+            "K10": lambda a=bargs, kw=kw: mk.bucket_conv_backward_cuda(*a, **kw),
+            "K9a + K10a": lambda a=fargs, b=bargs, x=active, kw=kw: (
+                *mk.bucket_conv_active_cuda(*a, x, **kw),
+                *mk.bucket_conv_backward_active_cuda(*b, x, **kw))}))
+    return sites
+
+
+def main(argv=None) -> int:
+    from . import card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
-    modes = ("--v1", "--planes", "--same", "--t1", "--tile-bwd", "--bucket-bwd")
-    mode = argv[0] if argv[:1] and argv[0] in modes else None
-    argv = argv[1:] if mode else argv
-    if len(argv) != 1 or not os.path.isdir(argv[0]):
+    modes = ("--tile-fwd", "--bucket-fwd", "--same", "--t1")
+    if len(argv) != 2 or argv[0] not in modes or not os.path.isdir(argv[1]):
         raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab "
-                         f"[{' | '.join(modes)}] OTHER_CHECKOUT")
+                         f"{{{' | '.join(modes)}}} OTHER_CHECKOUT")
+    mode, other = argv
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
-    if mode == "--v1":
-        return main_v1(other_library(argv[0], OTHER_V1_SIGNATURES), dev)
-    if mode == "--planes":
-        return main_planes(other_library(argv[0], OTHER_PLANES_SIGNATURES), dev)
+    path = other_library_path(other)
     if mode == "--same":
-        return main_same(other_library_path(argv[0]), dev)
+        return main_same(path, dev)
     if mode == "--t1":
-        return main_t1(other_library_path(argv[0]), dev)
-    if mode == "--tile-bwd":
-        return main_source_bwd("K6", other_library(argv[0], OTHER_TILE_SIGNATURES),
-                               tile_bwd_sites(dev))
-    if mode == "--bucket-bwd":
-        return main_source_bwd("K10", other_library(argv[0], OTHER_BUCKET_SIGNATURES),
-                               bucket_bwd_sites(dev))
-    this = _build.library()
-    other = other_library(argv[0], {**OTHER_SIGNATURES, "mcconv_bwd_pair_blocks": OTHER_BLOCKS})
-    gen = torch.Generator().manual_seed(SEED)
-    sites = mcclass_s_sites(B, dev) + shapenet_sites(B, dev)
-    for site in sites:
-        name, _, _, radius, c, co = site
-        params, smp, qmask, src, smask, wf, dout = site_inputs(site, gen, dev)
-        fargs = (params, smp, qmask, src, smask, wf, radius, co)
-        with torch.no_grad():
-            o_out, o_cnt, o_G = k1(other, True, *fargs)
-            n_out, n_cnt, n_G = k1(this, False, *fargs)
-            bargs = (params, smp, qmask, src, smask, wf, radius, n_G, n_cnt, dout, co)
-            o_bwd = k2(other, True, *bargs)
-            n_bwd = k2(this, False, *bargs)
-            torch.cuda.synchronize()
-            dG0 = torch.zeros_like(n_G)
-            times = {}
-            for who, lib, is_other in (("other", other, True), ("this", this, False),
-                                       ("this", this, False), ("other", other, True)):
-                ms1 = best_ms(lambda: k1(lib, is_other, *fargs), iters=10)
-                ms2 = best_ms(lambda: k2(lib, is_other, *bargs), iters=10)
-                ms3 = best_ms(lambda: k1(lib, is_other, *fargs, part="pair"), iters=10)
-                ms4 = best_ms(lambda: k2(lib, is_other, *bargs, part="pair", given=dG0),
-                              iters=10)
-                prev = times.get(who, (float("inf"),) * 4)
-                times[who] = tuple(min(a, x) for a, x in zip(prev, (ms1, ms2, ms3, ms4)))
-            proj = [best_ms(lambda: k1(lib, is_other, *fargs, part="project", given=(n_cnt, n_G)),
-                            iters=10) for lib, is_other in ((other, True), (this, False))]
-            gemm = [best_ms(lambda: k2(lib, is_other, *bargs, part="gemm"), iters=10)
-                    for lib, is_other in ((other, True), (this, False))]
-        same = {"G": torch.equal(o_G, n_G), "cnt": torch.equal(o_cnt, n_cnt),
-                "out": torch.equal(o_out, n_out), "d_wf": torch.equal(o_bwd[0], n_bwd[0]),
-                "dw2": torch.equal(o_bwd[3], n_bwd[3]), "db2": torch.equal(o_bwd[4], n_bwd[4])}
-        out_rel = float((o_out - n_out).abs().max()) / max(float(o_out.abs().max()), 1e-30)
-        dw1 = float((o_bwd[1] - n_bwd[1]).abs().max()) / max(float(o_bwd[1].abs().max()), 1e-30)
-        db1 = float((o_bwd[2] - n_bwd[2]).abs().max()) / max(float(o_bwd[2].abs().max()), 1e-30)
-        print(f"{name} B={smp.shape[0]} M={smp.shape[1]} N={src.shape[1]} C={c} CO={co}: "
-              f"bit_equal {same} out_rel_diff={out_rel:.3e} dw1_rel_diff={dw1:.3e} "
-              f"db1_rel_diff={db1:.3e} "
-              f"K1_ms other={times['other'][0]:.4f} this={times['this'][0]:.4f} "
-              f"K2_ms other={times['other'][1]:.4f} this={times['this'][1]:.4f}; "
-              f"pair kernels alone: K1 other={times['other'][2]:.4f} this={times['this'][2]:.4f} "
-              f"K2 (+ its reduction) other={times['other'][3]:.4f} "
-              f"this={times['this'][3]:.4f}; GEMM parts: K1 projection other={proj[0]:.4f} "
-              f"this={proj[1]:.4f} K2 dG + dW2 other={gemm[0]:.4f} this={gemm[1]:.4f}",
-              flush=True)
-    return 0
+        return main_t1(path, dev)
+    return main_fwd("tile" if mode == "--tile-fwd" else "bucket", path, dev)
 
 
 if __name__ == "__main__":

@@ -527,7 +527,10 @@ BUCKET_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale, n_src
     # crowded cells' lists fill and take several rounds, X kept between them),
     # the full site 1 -> 64, and 1-3 kept sources a cell
     (256, None, False, 32, 16, 1.0, 300), (384, None, True, 136, 136, 0.3, 300),
-    (1, 64, False, 32, 16, 1.0, 300), (64, None, False, 8, 16, 1.0, 48)]
+    (1, 64, False, 32, 16, 1.0, 300), (64, None, False, 8, 16, 1.0, 48),
+    # K9's full conv at C <= 4 spreads a sample's rows over threads, here with
+    # crowded cells whose lists fill (every window pair in radius)
+    (1, 128, True, 136, 136, 0.3, 300), (3, 16, False, 32, 16, 1.0, 300)]
 
 
 @pytest.mark.cuda
@@ -580,7 +583,8 @@ ACTIVE_CASES = [  # c_in, c_out, mean, cap_p, cap_s, scale, n_src
     (40, 3, True, 32, 16, 1.0, 300), (1, 16, False, 8, 16, 1.0, 300),
     (4, None, True, 136, 136, 0.3, 300), (2, 5, False, 136, 136, 0.3, 300),
     (256, None, False, 136, 136, 0.3, 300), (1, 64, True, 32, 16, 1.0, 300),
-    (64, None, False, 8, 16, 1.0, 48)]
+    (64, None, False, 8, 16, 1.0, 48), (384, None, True, 136, 136, 0.3, 300),
+    (1, 128, False, 136, 136, 0.3, 300)]
 
 
 def _bricks(gs, gp, nba):
@@ -660,9 +664,9 @@ def test_bucket_kernel_wrappers_refuse_cpu_tensors():
 # ------------------------------------------------------------ the tile kernels
 
 
-def _tile_conv_case(device, c_in, c_out, M=300, N=700):
+def _tile_conv_case(device, c_in, c_out, M=300, N=700, masked=20):
     src, smask = cloud(7, N=N, masked=60, device=device)
-    smp, qmask = cloud(8, N=M, masked=20, device=device)
+    smp, qmask = cloud(8, N=M, masked=masked, device=device)
     g = torch.Generator().manual_seed(9)
     params = init_mcconv_params(g, c_in, c_out, device=device)
     params = params._replace(b1=(0.1 * torch.randn(8, generator=g)).to(device))
@@ -671,23 +675,52 @@ def _tile_conv_case(device, c_in, c_out, M=300, N=700):
     return params, smp, qmask, src, smask, feats, pdf
 
 
+# K5's cases: c_in, c_out, mean, max_steps (a short budget drops steps),
+# radius, minor, step chunk, masked samples (of 300). Every case's clouds
+# (2 x 3 sample tiles) would not fill the card, so C > 4 splits the channels
+# over blocks; the full conv at C <= 4 spreads the rows over threads (1 -> 16,
+# 1 -> 64); C = 1024 at r = 0.5 takes three passes of 64 channels a slice
+# whose lists fill (a sample meets about 200 sources), so each pass sweeps
+# again; at r = 0.4 the 32-sample blocks' lists (C <= 32) fill and take
+# several rounds; chunk 16 makes steps of 2048 rows, two staged chunks a
+# step; 200 masked samples leave the last two tiles with no valid sample.
+TILE_FWD_CASES = [(1, 16, False, None, 0.2, "32", 8, 20), (8, None, True, None, 0.2, "32", 8, 20),
+                  (40, None, False, None, 0.2, "32", 8, 20), (8, 4, False, 2, 0.2, "32", 8, 20),
+                  (1, 64, False, None, 0.2, "32", 8, 20), (64, None, False, None, 0.2, "8", 8, 20),
+                  (256, None, True, None, 0.2, "128", 8, 20),
+                  (384, None, False, None, 0.4, "32", 16, 20),
+                  (1024, None, True, None, 0.5, "32", 8, 20),
+                  (8, None, False, None, 0.4, "8", 16, 200),
+                  (1, 64, True, None, 0.4, "128", 16, 200), (3, 5, True, 2, 0.4, "8", 8, 200)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_in,c_out,mean,max_steps", [(1, 16, False, None), (8, None, True, None),
-                                                      (40, None, False, None), (8, 4, False, 2)])
-def test_tile_conv_kernel_matches_plain_and_repeats_bitwise(cuda, c_in, c_out, mean, max_steps):
-    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, c_in, c_out)
-    lay = tile_conv.conv_layout(smp, qmask, src, smask, 0.2, max_pairs=1 << 30,
-                                max_steps=max_steps)
+@pytest.mark.parametrize("c_in,c_out,mean,max_steps,radius,minor,chunk,masked", TILE_FWD_CASES)
+def test_tile_conv_kernel_matches_plain_and_repeats_bitwise(cuda, monkeypatch, c_in, c_out, mean,
+                                                            max_steps, radius, minor, chunk,
+                                                            masked):
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    params, smp, qmask, src, smask, feats, pdf = _tile_conv_case(cuda, c_in, c_out,
+                                                                 masked=masked)
+    lay = tile_conv.conv_layout(smp, qmask, src, smask, radius, max_pairs=1 << 30,
+                                max_steps=max_steps, chunk=chunk)
+    assert lay.steps.Tm == int(minor) and lay.steps.j_ids.shape[1] * int(minor) == 128 * chunk
     wf = tile_conv._sorted_weighted_features(lay, feats, pdf)
     kw = dict(c_out=c_out, mean_normalize=mean)
-    before = tile_conv.launches
-    got, gcnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2, **kw)
-    again, _ = tile_conv.tile_conv_sorted_cuda(params, lay, wf, 0.2, **kw)
-    want, wcnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, 0.2, **kw)
+    before = (tile_conv.launches, tile_conv.packed_launches)
+    got, gcnt = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+    again, _ = tile_conv.tile_conv_sorted_cuda(params, lay, wf, radius, **kw)
+    packed, pcnt = tile_conv.tile_conv_sorted_packed_cuda(params, lay, wf, radius, **kw)
+    want, wcnt = tile_conv.tile_conv_sorted_reference(params, lay, wf, radius, **kw)
     torch.cuda.synchronize()
-    assert tile_conv.launches == before + 2
+    assert (tile_conv.launches, tile_conv.packed_launches) == (before[0] + 2, before[1] + 1)
     assert torch.equal(got, again)  # one writer per output, fixed order
+    assert torch.equal(packed, got) and torch.equal(pcnt, gcnt)  # K5p stages K5's values
     assert torch.equal(gcnt, wcnt)
+    if masked > 128:  # a whole tile of invalid samples: written, zero
+        dead = ~lay.smp_valid.reshape(2, -1, 128).any(dim=-1)
+        assert bool(dead.any())
+        assert bool((got.reshape(2, -1, 128, got.shape[-1])[dead] == 0).all())
     scale = float(want.abs().max())
     # fp32 sums over the step list's pairs and channels in another order
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
@@ -835,7 +868,8 @@ def _tile_variant_case(device, c_in, c_out, mean, max_steps=None):
 @pytest.mark.parametrize("c_in,c_out,mean,minor", [(1, 16, False, "32"), (8, None, True, "32"),
                                                    (40, None, False, "8"), (3, 5, True, "64"),
                                                    (256, None, False, "8"), (1, 64, True, "128"),
-                                                   (384, None, True, "32")])
+                                                   (384, None, True, "32"), (64, None, True, "128"),
+                                                   (1024, None, False, "16")])
 def test_packed_tile_kernels_are_bit_equal_to_k5_and_k6(cuda, monkeypatch, c_in, c_out, mean,
                                                         minor):
     monkeypatch.setattr(tile_conv, "_MINOR", minor)
@@ -1033,7 +1067,9 @@ def test_planes_route_runs_k1p_forward_and_k2_backward(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("probe", ["noop", "planes", "mm"])
 @pytest.mark.parametrize("c_in,c_out,mean,minor", [(1, 16, False, "32"), (8, None, True, "8"),
-                                                   (40, None, False, "16"), (3, 5, True, "128")])
+                                                   (40, None, False, "16"), (3, 5, True, "128"),
+                                                   (1, 64, False, "8"), (64, None, True, "128"),
+                                                   (384, None, False, "32")])
 def test_tile_probe_kernels_match_plain_and_repeat_bitwise(cuda, monkeypatch, probe, c_in, c_out,
                                                            mean, minor):
     monkeypatch.setattr(tile_conv, "_MINOR", minor)

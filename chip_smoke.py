@@ -24,7 +24,10 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
 3. Holds each forward kernel (K1 dense MC conv, K3 Poisson sweep, K4 KDE)
    against its plain PyTorch version on the card, at every shape the MCClassS
    serving path (B=8 clouds of N=1024 points) and training path (B=32, the
-   trainer's batch) give it, and times both with CUDA events.
+   trainer's batch) give it, and times both with CUDA events. K4 runs both
+   its bodies (culled and all pairs) at every site it is checked at, each
+   within KDE_RTOL, bitwise on repeat, and with the weight off each
+   query's in-radius count exactly the plain one.
 4. Holds K2 (the dense MC-conv backward) against its plain version at the
    three conv sites of a B=8 and of a B=32 training batch (N=1024
    hierarchies: the row splits and partial sums differ with B), checks that
@@ -50,9 +53,10 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    sampler's cover count) against its plain version at each of the 27 colours
    of the level-0 sweep, and the sweep's selection against the dense plain
    sampler; K7 (tile KDE) against its plain version at the two level-0 radii
-   of the whole scene, and against K4 at 8192; K5 (tile MC conv) at the four
-   tile sites of the block batch (stem, enc_0_1, dec_2_1, dec_1_0). Each
-   repeats bit for bit; times, bounds and plain times are printed.
+   of the whole scene, and against K4 at 8192; K4 at the block hierarchy's
+   seven KDE sites (levels 0-3); K5 (tile MC conv) at the four tile sites of
+   the block batch (stem, enc_0_1, dec_2_1, dec_1_0). Each repeats bit for
+   bit; times, bounds and plain times are printed.
    K6 (the tile MC-conv backward) at the same four sites of the batch,
    with a seeded dout: d_wf and every parameter gradient against the plain
    version, bitwise repetition, call and device times, candidate and
@@ -190,7 +194,8 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    ``64 0`` as child processes, whose counters must show K9a / K10a and not
    K9 / K10, and the reverse.
 31. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
-   B=32, and K1 / K2 again at ShapeNet's three 1024 -> 1024 sites, K5-K10,
+   B=32, K1 / K2 again at ShapeNet's three 1024 -> 1024 sites, K4 again at
+   the ScanNet block hierarchy's seven KDE sites, K5-K10,
    K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed over the
    zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
    two sweeps at B=32, K1p over the 17 dense sites at B=32, the probes over
@@ -477,6 +482,56 @@ def wcat(params, c, co):
     return torch.cat([params.w2.reshape(H * c, co), params.b2.reshape(c, co)]).contiguous()
 
 
+def check_kde_site(name, pts, mask, radius) -> tuple:
+    """K4 at one site: both bodies against the plain version (KDE_RTOL), the
+    body ``pick_body`` takes bit for bit on repeat, each body's in-radius
+    counts (the weight off) exactly the plain ones; timed, with the bound of
+    the in-radius pairs' operations. The row of the kernels line."""
+    from mccnn_tpu_torch.core.grid import pair_d2, radius_sq
+    from mccnn_tpu_torch.ops.cuda import density_kernel
+
+    body = density_kernel.pick_body(pts.shape[1])
+    want = density_kernel.kde_density_reference(pts, mask, radius)
+    r2 = radius_sq(radius)
+    counts = torch.zeros(mask.shape, device=pts.device)
+    for i0 in range(0, pts.shape[1], 1024):
+        inr = (pair_d2(pts[:, i0:i0 + 1024].contiguous(), pts) <= r2) & mask[:, None, :]
+        counts[:, i0:i0 + 1024] = inr.sum(-1).float()
+    counts = torch.where(mask, counts, 1.0)
+    errs, times = {}, {}
+    for bd in ("culled", "all_pairs"):
+        got = density_kernel.kde_density_cuda(pts, mask, radius, body=bd)
+        again = density_kernel.kde_density_cuda(pts, mask, radius, body=bd)
+        cnt = density_kernel._launch(pts, mask, r2, 0.0, 1.0, bd)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(got, again)), f"K4 ({bd}) differs between two calls at {name}")
+        require(bool(torch.equal(cnt, counts)),
+                f"K4 ({bd}) drops or adds an in-radius pair at {name}")
+        require(bool(torch.allclose(got, want, rtol=KDE_RTOL, atol=0.0)),
+                f"K4 ({bd}) disagrees with its plain version at {name}")
+        errs[bd] = (float((got - want).abs().max()),
+                    float(((got - want).abs() / want.abs()).max()))
+        times[bd] = time_ms(lambda: density_kernel.kde_density_cuda(pts, mask, radius, body=bd))
+    pms = time_ms(lambda: density_kernel.kde_density_reference(pts, mask, radius), iters=3)
+    inr = int((counts * mask).sum())
+    bms, by = bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4), 12 * inr)
+    print(f"K4 {name}: body={body} max_abs_err={errs[body][0]:.3e} "
+          f"max_rel_err={errs[body][1]:.3e} (culled {errs['culled'][1]:.3e}, all_pairs "
+          f"{errs['all_pairs'][1]:.3e}) bitwise_repeatable=True counts_exact=True "
+          f"in_radius_pairs={inr} kernel_ms={times[body]:.4f} (culled "
+          f"{times['culled']:.4f}, all_pairs {times['all_pairs']:.4f}) plain_ms={pms:.4f} "
+          f"bound_ms={bms:.6f} ({by})", flush=True)
+    return (errs[body][0], times[body], pms, bms, by, None)
+
+
+def check_kde_levels(dev, lv) -> list:
+    """K4 at MCSeg's seven KDE sites of the block batch (``SEG_KDE_SITES``)."""
+    from mccnn_tpu_torch.tools.dense_ab import SEG_KDE_SITES
+
+    return [check_kde_site(f"ScanNet B={lv[i][0].shape[0]} level {i} N={lv[i][0].shape[1]} "
+                           f"r={radius}", *lv[i], radius) for i, radius in SEG_KDE_SITES]
+
+
 def check_kernels(dev, b: int) -> dict:
     """Kernel vs plain version at the shapes a batch of ``b`` clouds gives them."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
@@ -491,22 +546,9 @@ def check_kernels(dev, b: int) -> dict:
         pdfs = {}
         for lvl, radius in ((0, 0.2), (1, 0.8), (2, GLOBAL_RADIUS)):
             pts, mask = lv[lvl]
-            got = density_kernel.kde_density_cuda(pts, mask, radius)
-            want = density_kernel.kde_density_reference(pts, mask, radius)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            rel = float(((got - want).abs() / want.abs()).max())
-            ms = time_ms(lambda: density_kernel.kde_density_cuda(pts, mask, radius))
-            pms = time_ms(lambda: density_kernel.kde_density_reference(pts, mask, radius))
-            valid, inr = pair_counts(pts, mask, pts, mask, radius)
-            bms, by = bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4), 8 * valid + 4 * inr)
-            print(f"K4 B={b} N={pts.shape[1]} r={radius:.4f}: max_abs_err={err:.3e} "
-                  f"max_rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"bound_ms={bms:.6f} ({by})", flush=True)
-            require(bool(torch.allclose(got, want, rtol=KDE_RTOL, atol=0.0)),
-                    f"K4 disagrees with its plain version at N={pts.shape[1]}")
-            results["K4"].append((err, ms, pms, bms, by, None))
-            pdfs[(lvl, radius)] = want
+            results["K4"].append(check_kde_site(f"B={b} N={pts.shape[1]} r={radius:.4f}", pts,
+                                                mask, radius))
+            pdfs[(lvl, radius)] = density_kernel.kde_density_reference(pts, mask, radius)
 
         for lvl, radius in ((0, 0.1), (1, 0.4)):
             pts, mask = lv[lvl]
@@ -963,17 +1005,6 @@ def scene_batch(seed: int, b: int) -> dict:
     return next(src.batches(b, SEG_N, np.random.default_rng(seed)))
 
 
-def whole_scene(seed: int):
-    """One synthetic scene normalised and padded to SEG_CAP points, B = 1."""
-    from mccnn_tpu_torch.data.datasets import _normalize_np
-    from mccnn_tpu_torch.tasks.scannet import SyntheticSceneSource
-
-    scene = SyntheticSceneSource(1, SEG_CLASSES, seed)._src.scenes[0]
-    pts = np.zeros((1, SEG_CAP, 3), np.float32)
-    pts[0, : len(scene)] = _normalize_np(scene)
-    return pts, (np.arange(SEG_CAP) < len(scene))[None]
-
-
 def inr_pairs(smp, qmask, src, smask, radius, cand=None) -> int:
     """Valid pairs within ``radius`` (with a flagged candidate, when given),
     counted in chunks of samples."""
@@ -995,34 +1026,18 @@ def check_cover_sweep(dev, pts, mask, tile_pairs, timed: bool = True) -> tuple:
     from mccnn_tpu_torch.core import sampling
     from mccnn_tpu_torch.core.grid import cell_color27, linear_cell_ids
     from mccnn_tpu_torch.ops.cuda import poisson_kernel, tile_conv
+    from mccnn_tpu_torch.tools.dense_ab import cover_colours
 
     radius = SEG_RADII[0]
     B, N, _ = pts.shape
-    coords, res = sampling._sampler_grid(pts, radius)
-    cids, colors = linear_cell_ids(coords, res), cell_color27(coords)
-    order = sampling._cell_hilbert_order(coords, mask, res)
-    sweep = tile_conv.make_cover_sweep(pts, mask, radius, max_pairs=tile_pairs, order=order)
+    sweep, flags, sel = cover_colours(
+        pts, mask, radius, tile_pairs, lambda lay, f: tile_conv.cover_counts_cuda(lay, f, radius))
     lay = sweep.layout
     rows = sweep.valid.shape[1]
-
-    def sort1(x):
-        s = torch.gather(x, 1, order)
-        return torch.cat([s, s.new_full((B, rows - N), -1)], dim=1)
-
-    s_cids, s_colors, s_mask = sort1(cids), sort1(colors), sweep.valid
-    seg_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
-                           s_cids[:, 1:] != s_cids[:, :-1]], dim=1)
-    selected = torch.zeros((B, rows), dtype=torch.bool, device=dev)
-    covered = torch.zeros_like(selected)
     err = ms = pms = bms = 0.0
     flagged_pairs = 0
     bounds = []
-    for c in range(27):
-        uncovered = s_mask & ~covered
-        u = uncovered.to(torch.int32)
-        excl = torch.cumsum(u, dim=1, dtype=torch.int32) - u
-        base = torch.cummax(torch.where(seg_start, excl, -1), dim=1).values
-        cand = uncovered & (excl == base) & (s_colors == c)
+    for c, cand in enumerate(flags):
         got = tile_conv.cover_counts_cuda(lay, cand, radius)
         again = tile_conv.cover_counts_cuda(lay, cand, radius)
         want = tile_conv.cover_counts_reference(lay, cand, radius)
@@ -1037,10 +1052,8 @@ def check_cover_sweep(dev, pts, mask, tile_pairs, timed: bool = True) -> tuple:
             flagged_pairs += pairs
             bounds.append(bound(B * rows * (12 + 1 + 1 + 4), 8 * pairs))
             bms += bounds[-1][0]
-        selected |= cand
-        covered |= got > 0
-    sel = torch.empty((B, N), dtype=torch.bool, device=dev)
-    sel.scatter_(1, order, selected[:, :N])
+    coords, res = sampling._sampler_grid(pts, radius)
+    cids, colors = linear_cell_ids(coords, res), cell_color27(coords)
     path, ovf = sampling._poisson_tiles(pts, mask, coords, cids, colors, radius, res, tile_pairs)
     dense = (poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
              if timed else sel)
@@ -1065,6 +1078,7 @@ def check_cover_sweep(dev, pts, mask, tile_pairs, timed: bool = True) -> tuple:
 def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
     """K7 at the whole scene's two level-0 radii, and K7 against K4 at 8192."""
     from mccnn_tpu_torch.ops.cuda import density_kernel, tile_conv
+    from mccnn_tpu_torch.tools.dense_ab import whole_scene
 
     pts, mask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 6))
     err = ms = pms = bms = 0.0
@@ -1357,6 +1371,7 @@ def check_tile_minors(dev, hier, block) -> None:
     that minor; the hierarchy is the default minor's (the tile sampler's
     selection does not depend on it)."""
     from mccnn_tpu_torch.ops.cuda import tile_conv
+    from mccnn_tpu_torch.tools.dense_ab import whole_scene
 
     pts, mask = block
     wpts, wmask = (torch.from_numpy(a).to(dev) for a in whole_scene(SEED + 6))
@@ -1384,6 +1399,7 @@ def check_tile_kernels(dev) -> dict:
     minor sizes and the K5 / K6 probes."""
     from mccnn_tpu_torch.api.hierarchy import build_hierarchy
     from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
+    from mccnn_tpu_torch.tools.dense_ab import whole_scene
 
     batch = scene_batch(SEED + 5, SEG_B)
     pts, mask = (torch.from_numpy(batch[k]).to(dev) for k in ("points", "mask"))
@@ -1399,6 +1415,7 @@ def check_tile_kernels(dev) -> dict:
         lv = [(l.points, l.mask) for l in hier.levels]
         print("MCSeg levels:", [tuple(p.shape[:2]) for p, _ in lv], "valid per cloud:",
               [int(m.sum(1).min()) for _, m in lv], flush=True)
+        results["K4 ScanNet"] = check_kde_levels(dev, lv)
         results["K5"] = check_tile_conv(dev, lv, tile_pairs)
     results["K6"] = check_tile_backward(dev, lv, tile_pairs)
     results |= check_tile_switch_kernels(dev, lv, tile_pairs)
@@ -1590,6 +1607,7 @@ def profile_mcseg(dev) -> None:
     from mccnn_tpu_torch.models import MCSeg
     from mccnn_tpu_torch.tasks.common import auto_tile_steps, maybe_auto_tile_pairs
     from mccnn_tpu_torch.ops.cuda.tile_conv import auto_tile_pairs
+    from mccnn_tpu_torch.tools.dense_ab import whole_scene
 
     blocks = scene_batch(SEED + 9, SEG_B)
     model = MCSeg(SEG_CLASSES, grow=SEG_GROW, radii=SEG_RADII,
@@ -3525,6 +3543,23 @@ def main() -> int:
             "bound_by": max(rows, key=lambda r: r[3])[4],
             "library_ms": sum(r[5] for r in rows),
         })
+    rows = tile_results["K4 ScanNet"]  # MCSeg's seven KDE sites of the block batch
+    k4_paths = {k: v["K4"] for k, v in {**seg_launches, **bucket_launches}.items()
+                if k != "modelnet_4096"}
+    name, source, replaces = meta["K4"]
+    kernels.append({
+        "name": f"K4 {name} (ScanNet block levels)", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(k4_paths.values()),
+        "launches_by_path": k4_paths,
+        "batch": SEG_B,
+        "max_abs_err": max(r[0] for r in rows),
+        "ms": sum(r[1] for r in rows),
+        "plain_ms": sum(r[2] for r in rows),
+        "bound_ms": sum(r[3] for r in rows),
+        "bound_by": max(rows, key=lambda r: r[3])[4],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,8 @@ F = ctypes.c_float
 # C entry points: name -> argument types (restype is always int).
 SIGNATURES = {
     "kde_density_launch": [P, P, I, I, F, F, F, P, P],
+    "kde_density_culled_launch": [P, P, I, I, F, F, F, P, P, P],
+    "kde_culled_scratch_bytes": [I, I],
     "poisson_sweep_launch": [P, P, P, P, I, I, F, P, P],
     "poisson_sweep_v2_launch": [P, P, P, P, I, I, F, P, P, P],
     "poisson_sweep_v3_launch": [P, P, P, P, P, P, I, I, I, F, P, P],

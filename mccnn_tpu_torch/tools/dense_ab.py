@@ -5,6 +5,7 @@ in one process on the card.
     python -m mccnn_tpu_torch.tools.dense_ab --bucket-fwd OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --same OTHER_CHECKOUT
     python -m mccnn_tpu_torch.tools.dense_ab --t1 OTHER_CHECKOUT
+    python -m mccnn_tpu_torch.tools.dense_ab --sweeps OTHER_CHECKOUT
 
 The other checkout's kernel library is built there (its own
 ``ops/cuda/_build.py``, in a child process) and loaded beside this one's,
@@ -12,6 +13,8 @@ with this checkout's argument types (``_build.SIGNATURES``). A mode runs only
 the entry points whose arguments it names: ``--tile-fwd`` and
 ``--bucket-fwd`` declare the ABI of K5 / K5p and K9 / K9a (``FWD_ABI``, the
 arguments since their ports) and refuse to run where this checkout's
+``_build.SIGNATURES`` differ from it; ``--sweeps`` declares those of K4's
+all-pairs body and K8 (``SWEEP_ABI``) and also refuses another checkout whose
 ``_build.SIGNATURES`` differ from it; ``--same`` and ``--t1`` are for a
 checkout whose library has this checkout's entry points and arguments.
 
@@ -42,12 +45,28 @@ alone), and prints for each whether the outputs are bit-equal and both
 libraries' call and device times (``best_ms``, ``device_ms``; order other,
 this, this, other).
 
+With ``--sweeps`` it runs K8 (``tile_cover_launch``, through this
+checkout's wrapper) on both libraries at the 27 colours of the tile
+sampler's level-0 sweep, on ``chip_smoke.py``'s block batch (8 x 8192) and
+its 40960-point scene, the colours' flags those of the sampler's own replay,
+and prints whether every count is bit-equal and both libraries' device times
+of a whole sweep (27 launches). Then K4 at ScanNet MCSeg's seven KDE sites
+of that block batch (level 0 at r = 0.05 and 0.1, level 1 at 0.1 and 0.3,
+level 2 at 0.3 and 0.8, level 3 at 0.8) and at MCClassS's three (B = 8 and
+32): the other library's ``kde_density_launch`` alone against this
+checkout's ``kde_density_cuda`` (the body ``pick_body`` takes, its sort
+included), with both of this checkout's bodies beside them; per site the
+largest relative difference from the other's output, whether this all-pairs
+body is bit-equal to it, and the device times (order other, this, this,
+other).
+
 It refuses to run without a CUDA device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -69,6 +88,12 @@ FWD_ABI = {
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
     "bucket_conv_active_launch": [P] * 12 + [I] * 10 + [F, F, I, I] + [P] * 3,
 }
+# The arguments of K4's all-pairs body and K8, unchanged since their ports:
+# a checkout with these takes `--sweeps`.
+SWEEP_ABI = {
+    "kde_density_launch": [P, P, I, I, F, F, F, P, P],
+    "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
+}
 ACTIVE_CAP, ACTIVE_NBA = 64, 784  # tools.bucket_32k's scene: every occupied brick
 
 RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
@@ -77,6 +102,11 @@ RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
 # the tile conv's with a tile capacity and the bucket conv's without one; and
 # MCClassS's conv_0_1 at 4096 points, the bucket site of tasks.modelnet.
 SEG_B, SEG_N, SEG_CLASSES, SEG_RADII, SEG_NEIGHBOR_K = 8, 8192, 8, (0.05, 0.15, 0.4), 32
+SEG_CAP = 40960  # the whole scene's padded size (chip_smoke.py)
+# MCSeg's KDE sites at those defaults (level, radius): each conv's source
+# level at its radius. The block batch's levels hold 8192, 1944, 224 and 40
+# points, all within the dense KDE's bound: K4 at every one.
+SEG_KDE_SITES = [(0, 0.05), (0, 0.1), (1, 0.1), (1, 0.3), (2, 0.3), (2, 0.8), (3, 0.8)]
 SEG_SITES = [("stem", 0, 0, 0.05, 1, 64), ("enc_0_1", 0, 1, 0.1, 64, None),
              ("dec_2_1", 2, 1, 0.3, 384, None), ("dec_1_0", 1, 0, 0.1, 256, None)]
 MODELNET_SITE = ("MCClassS conv_0_1 at 4096", 0, 1, 0.2, 1, 128)
@@ -344,6 +374,58 @@ def init_params(gen, c, co, dev):
                            b2=0.1 * torch.randn(params.b2.shape, generator=gen).to(dev))
 
 
+def whole_scene(seed: int):
+    """One synthetic scene normalised and padded to SEG_CAP points, B = 1
+    (numpy points and mask)."""
+    from mccnn_tpu_torch.data.datasets import _normalize_np
+    from mccnn_tpu_torch.tasks.scannet import SyntheticSceneSource
+
+    scene = SyntheticSceneSource(1, SEG_CLASSES, seed)._src.scenes[0]
+    pts = np.zeros((1, SEG_CAP, 3), np.float32)
+    pts[0, : len(scene)] = _normalize_np(scene)
+    return pts, (np.arange(SEG_CAP) < len(scene))[None]
+
+
+def cover_colours(pts, mask, radius, tile_pairs, counts) -> tuple:
+    """The tile sampler's level-0 sweep replayed colour by colour, as
+    ``core/sampling.py::_poisson_tiles`` runs it: ``(sweep, flags, selected)``,
+    the 27 colours' candidate flags over sorted rows and the selection in the
+    original order. ``counts(layout, flags)`` gives a colour's cover counts."""
+    from mccnn_tpu_torch.core import sampling
+    from mccnn_tpu_torch.core.grid import cell_color27, linear_cell_ids
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+
+    B, N, _ = pts.shape
+    coords, res = sampling._sampler_grid(pts, radius)
+    cids, colors = linear_cell_ids(coords, res), cell_color27(coords)
+    order = sampling._cell_hilbert_order(coords, mask, res)
+    sweep = tile_conv.make_cover_sweep(pts, mask, radius, max_pairs=tile_pairs, order=order)
+    rows = sweep.valid.shape[1]
+
+    def sort1(x):
+        s = torch.gather(x, 1, order)
+        return torch.cat([s, s.new_full((B, rows - N), -1)], dim=1)
+
+    s_cids, s_colors = sort1(cids), sort1(colors)
+    seg_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=pts.device),
+                           s_cids[:, 1:] != s_cids[:, :-1]], dim=1)
+    selected = torch.zeros((B, rows), dtype=torch.bool, device=pts.device)
+    covered = torch.zeros_like(selected)
+    flags = []
+    for c in range(27):
+        uncovered = sweep.valid & ~covered
+        u = uncovered.to(torch.int32)
+        excl = torch.cumsum(u, dim=1, dtype=torch.int32) - u
+        base = torch.cummax(torch.where(seg_start, excl, -1), dim=1).values
+        cand = uncovered & (excl == base) & (s_colors == c)
+        flags.append(cand)
+        selected |= cand
+        covered |= counts(sweep.layout, cand) > 0
+    sel = torch.empty((B, N), dtype=torch.bool, device=pts.device)
+    sel.scatter_(1, order, selected[:, :N])
+    return sweep, flags, sel
+
+
 def tile_sites(dev) -> list:
     """``(name, params, lay, wf, radius, c, co, cnt, dout)`` at the four tile
     sites, with both step lists, the plain count and a seeded dout."""
@@ -418,16 +500,24 @@ def bucket_sites(dev, with_32k: bool = False) -> list:
     return sites
 
 
-def check_abi(names) -> None:
-    """Refuse to run where this checkout's entry points ``names`` take other
-    arguments than ``FWD_ABI`` declares (the other library is called with
-    them)."""
+def check_abi(abi: dict, other: str | None = None) -> None:
+    """Refuse to run where this checkout's entry points of ``abi`` (or, given
+    ``other``, that checkout's) take other arguments than it declares: the
+    other library is called with this checkout's argument types."""
     from mccnn_tpu_torch.ops.cuda import _build
 
-    moved = [n for n in names if _build.SIGNATURES[n] != FWD_ABI[n]]
+    names = {n: [t.__name__ for t in ts] for n, ts in abi.items()}
+    sigs = [{n: [t.__name__ for t in _build.SIGNATURES[n]] for n in abi}]
+    if other is not None:
+        code = ("import json; from mccnn_tpu_torch.ops.cuda import _build; print(json.dumps("
+                f"{{n: [t.__name__ for t in _build.SIGNATURES.get(n, [])] for n in {sorted(abi)!r}}}))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=other, capture_output=True,
+                             text=True, check=True)
+        sigs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    moved = sorted({n for s in sigs for n in abi if s[n] != names[n]})
     if moved:
-        raise SystemExit(f"dense_ab: this checkout's {', '.join(moved)} take other arguments "
-                         "than FWD_ABI declares; declare the other checkout's")
+        raise SystemExit(f"dense_ab: {', '.join(moved)} take other arguments than the mode "
+                         "declares; declare the other checkout's")
 
 
 def k5_alone(lib, packed: bool, params, lay, wf, radius, co, rec):
@@ -503,7 +593,7 @@ def main_fwd(kind: str, other_path: str, dev) -> int:
 
     names = (("tile_conv_launch", "tile_conv_packed_launch") if kind == "tile" else
              ("bucket_conv_launch", "bucket_conv_active_launch"))
-    check_abi(names)
+    check_abi({n: FWD_ABI[n] for n in names})
     kids = ("K5", "K5p") if kind == "tile" else ("K9", "K9a")
     libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
     every = True
@@ -585,18 +675,126 @@ def same_conv_runs(dev) -> list:
     return sites
 
 
+def kde_sites(dev) -> list:
+    """``(name, points, mask, radius)`` of K4 at MCSeg's seven KDE sites of
+    the block batch and at MCClassS's three (B = 8 and 32)."""
+    from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS, build_hierarchy
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+
+    pts, mask = (x.to(dev) for x in _scene_batch(SEED + 5))
+    tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+    with torch.no_grad():
+        hier = build_hierarchy(pts, mask, SEG_RADII, tile_pairs=tile_pairs)
+    sites = [(f"ScanNet level {lv} r={r}", hier.levels[lv].points, hier.levels[lv].mask, r)
+             for lv, r in SEG_KDE_SITES]
+    for b in (8, B):
+        lv = _levels(_clouds(SEED + b, b), np.ones((b, 1024), bool), RADII_2, True, dev)
+        sites += [(f"MCClassS B={b} level {i} r={r:.4f}", *lv[i], r)
+                  for i, r in ((0, 0.2), (1, 0.8), (2, GLOBAL_RADIUS))]
+    return sites
+
+
+def main_sweeps(other_path: str, dev) -> int:
+    """K8 at the 27 colours of the block batch's and the scene's level-0
+    sweeps, and K4 at the ScanNet and MCClassS KDE sites, on this library and
+    ``other_path``'s: K8 bit for bit, K4's largest relative difference, and
+    both device times."""
+    from mccnn_tpu_torch.ops.cuda import _build, density_kernel, tile_conv
+
+    from . import device_ms
+
+    libs = {"this": _build.library(), "other": _build.KernelLibrary(other_path, 0.0, "")}
+    every = True
+    try:
+        block = [x.to(dev) for x in _scene_batch(SEED + 5)]
+        scene = [torch.from_numpy(x).to(dev) for x in whole_scene(SEED + 6)]
+        for name, (pts, mask) in (("block batch 8 x 8192", block), ("scene 40960", scene)):
+            tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+            with torch.no_grad():
+                sweep, flags, _ = cover_colours(pts, mask, SEG_RADII[0], tile_pairs,
+                                                lambda lay, f: tile_conv.cover_counts_cuda(
+                                                    lay, f, SEG_RADII[0]))
+
+                def run(lay=sweep.layout, flags=flags):
+                    return [tile_conv.cover_counts_cuda(lay, f, SEG_RADII[0]) for f in flags]
+
+                outs, dms = {}, {}
+                for who in ("other", "this", "this", "other"):
+                    _build._LIBRARY = libs[who]
+                    outs.setdefault(who, run())
+                    torch.cuda.synchronize()
+                    dms[who] = min(dms.get(who, float("inf")), device_ms(run, iters=3))
+            same = all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"]))
+            every &= same
+            print(f"K8 {name} Tm={sweep.layout.steps.Tm} (27 colours, "
+                  f"{sum(int(f.sum()) for f in flags)} flags): every count bit-equal: {same}; "
+                  f"device_ms a sweep other={dms['other']:.4f} this={dms['this']:.4f} "
+                  f"(this / other {dms['this'] / dms['other']:.4f})", flush=True)
+        _build._LIBRARY = libs["this"]
+
+        def other_k4(pts, mask, radius):
+            r2, neg, norm = density_kernel._constants(radius, 0.25)
+            out = torch.empty(mask.shape, dtype=torch.float32, device=dev)
+            b, n = mask.shape
+            _build.check(libs["other"].kde_density_launch(
+                _build.ptr(pts), _build.ptr(mask), b, n, r2, neg, norm, _build.ptr(out),
+                _build.stream_of(pts)), "the other K4")
+            return out
+
+        total = {}
+        for name, pts, mask, radius in kde_sites(dev):
+            pts, mask = pts.contiguous(), mask.contiguous()
+            runs = {"other": lambda p=pts, m=mask, r=radius: other_k4(p, m, r),
+                    "this": lambda p=pts, m=mask, r=radius: density_kernel.kde_density_cuda(
+                        p, m, r)}
+            for body in ("culled", "all_pairs"):
+                runs[body] = lambda p=pts, m=mask, r=radius, bd=body: \
+                    density_kernel.kde_density_cuda(p, m, r, body=bd)
+            with torch.no_grad():
+                outs = {k: fn() for k, fn in runs.items()}
+                torch.cuda.synchronize()
+                dms = {}
+                for who in ("other", "this", "culled", "all_pairs", "all_pairs", "culled",
+                            "this", "other"):
+                    dms[who] = min(dms.get(who, float("inf")), device_ms(runs[who], iters=5))
+            rel = {k: float(((outs[k] - outs["other"]).abs() / outs["other"].abs()).max())
+                   for k in ("this", "culled")}
+            plain_bits = torch.equal(outs["all_pairs"], outs["other"])
+            every &= plain_bits and rel["this"] <= 1e-4 and rel["culled"] <= 1e-4
+            for k, ms in dms.items():
+                total[k] = total.get(k, 0.0) + ms
+            print(f"K4 {name} B={mask.shape[0]} N={mask.shape[1]}: body "
+                  f"{density_kernel.pick_body(mask.shape[1])}; largest relative difference "
+                  f"from the other this={rel['this']:.3e} culled={rel['culled']:.3e}; "
+                  f"all_pairs bit-equal to the other: {plain_bits}; device_ms "
+                  f"other={dms['other']:.4f} this={dms['this']:.4f} "
+                  f"(this / other {dms['this'] / dms['other']:.4f}) "
+                  f"culled={dms['culled']:.4f} all_pairs={dms['all_pairs']:.4f}", flush=True)
+        print(f"K4 over the sites: device_ms other={total['other']:.4f} "
+              f"this={total['this']:.4f} culled={total['culled']:.4f} "
+              f"all_pairs={total['all_pairs']:.4f}", flush=True)
+    finally:
+        _build._LIBRARY = libs["this"]
+    print(f"K8 and K4 against the other: every check held: {every}", flush=True)
+    return 0 if every else 1
+
+
 def main(argv=None) -> int:
     from . import card_line, require_card
 
     argv = sys.argv[1:] if argv is None else argv
-    modes = ("--tile-fwd", "--bucket-fwd", "--same", "--t1")
+    modes = ("--tile-fwd", "--bucket-fwd", "--same", "--t1", "--sweeps")
     if len(argv) != 2 or argv[0] not in modes or not os.path.isdir(argv[1]):
         raise SystemExit("usage: python -m mccnn_tpu_torch.tools.dense_ab "
                          f"{{{' | '.join(modes)}}} OTHER_CHECKOUT")
     mode, other = argv
     dev = require_card("dense_ab")
     print("card:", card_line(), flush=True)
+    if mode == "--sweeps":
+        check_abi(SWEEP_ABI, other)
     path = other_library_path(other)
+    if mode == "--sweeps":
+        return main_sweeps(path, dev)
     if mode == "--same":
         return main_same(path, dev)
     if mode == "--t1":

@@ -17,6 +17,7 @@ import torch
 from mccnn_tpu_torch.api.builder import SpatialCache
 from mccnn_tpu_torch.api.hierarchy import HierarchyLevel, PointHierarchy
 from mccnn_tpu_torch.core.buckets import build_buckets
+from mccnn_tpu_torch.core.grid import pair_d2, radius_sq
 from mccnn_tpu_torch.core.mcconv import init_mcconv_params
 from mccnn_tpu_torch.core.pdf import kde_density
 from mccnn_tpu_torch.core.sampling import poisson_disk, sweep_cells
@@ -56,6 +57,49 @@ def test_kde_kernel_matches_plain(cuda, N, radius):
     want = density_kernel.kde_density_reference(pts, mask, radius)
     # fp32 sums in another order, expf vs exp
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+
+
+def clustered_cloud(seed, B, N, masked, device):
+    """``B`` clouds of ``N`` points in 64 clusters (sigma 0.03) in the unit
+    cube, like a scan's surfaces, the last ``masked`` points masked."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0.1, 0.9, size=(B, 64, 3))
+    which = rng.integers(0, 64, size=(B, N))
+    pts = np.take_along_axis(centres, which[..., None], axis=1)
+    pts = (pts + rng.normal(0.0, 0.03, size=(B, N, 3))).astype(np.float32)
+    mask = torch.ones((B, N), dtype=torch.bool)
+    mask[:, N - masked:] = False
+    return torch.from_numpy(pts).to(device), mask.to(device)
+
+
+K4_CASES = [(8, 8192, 0.05, 0), (8, 8192, 0.1, 0),  # ScanNet's level 0
+            (4, 40, math.sqrt(3.0) + 0.1, 3),  # a global level: every group kept
+            (2, 1944, 0.3, 1000)]  # a masked tail past half the rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["culled", "all_pairs"])
+@pytest.mark.parametrize("B,N,radius,masked", K4_CASES)
+def test_kde_bodies_match_plain_and_repeat(cuda, body, B, N, radius, masked):
+    """Both K4 bodies within rtol 1e-4 of the plain version (fp32 sums in
+    another order, expf vs exp), bit for bit on repeat, and with the weight
+    off (a count) exactly the plain in-radius count: no in-radius pair falls
+    in a culled group."""
+    pts, mask = clustered_cloud(20 + N, B, N, masked, cuda)
+    got = density_kernel.kde_density_cuda(pts, mask, radius, body=body)
+    again = density_kernel.kde_density_cuda(pts, mask, radius, body=body)
+    want = density_kernel.kde_density_reference(pts, mask, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    counts = density_kernel._launch(pts, mask, radius_sq(radius), 0.0, 1.0, body)
+    inr = (pair_d2(pts, pts) <= radius_sq(radius)) & mask[:, None, :]
+    assert torch.equal(counts, torch.where(mask, inr.sum(-1).float(), 1.0))
+
+
+def test_kde_body_by_shape():
+    assert density_kernel.pick_body(density_kernel.CULL_MIN_N) == "culled"
+    assert density_kernel.pick_body(density_kernel.CULL_MIN_N - 1) == "all_pairs"
 
 
 @pytest.mark.cuda
@@ -843,6 +887,53 @@ def test_cover_kernel_is_bit_equal_to_plain_and_sampler_to_dense(cuda, N, radius
     cids, colors = sweep_cells(pts, radius)
     dense = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius) & mask
     assert torch.equal(sel, dense)
+
+
+def _sampler_sweep(pts, mask, radius):
+    """The tile sampler's cover sweep of ``pts`` and, per sorted row, its cell
+    id, colour and whether it starts its cell's run (the sampler's order)."""
+    from mccnn_tpu_torch.core import sampling
+    from mccnn_tpu_torch.core.grid import cell_color27, linear_cell_ids
+
+    coords, res = sampling._sampler_grid(pts, radius)
+    order = sampling._cell_hilbert_order(coords, mask, res)
+    sweep = tile_conv.make_cover_sweep(pts, mask, radius, max_pairs=1 << 30, order=order)
+    B, N = mask.shape
+    pad = sweep.valid.shape[1] - N
+
+    def sort1(x):
+        s = torch.gather(x, 1, order)
+        return torch.cat([s, s.new_full((B, pad), -1)], dim=1)
+
+    s_cids, s_colors = sort1(linear_cell_ids(coords, res)), sort1(cell_color27(coords))
+    first = torch.cat([torch.ones_like(s_cids[:, :1], dtype=torch.bool),
+                       s_cids[:, 1:] != s_cids[:, :-1]], dim=1)
+    return sweep, s_colors, first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("minor", ["8", "32", "128"])
+@pytest.mark.parametrize("kind", ["sampler", "none", "all", "invalid"])
+def test_cover_kernel_flag_patterns_are_bit_equal_to_plain(cuda, monkeypatch, minor, kind):
+    """K8 bit for bit against its plain version and on repeat: a colour's
+    sampler-like flags (the first point of each of its cells), no flag, every
+    row flagged (invalid rows too), and flags on invalid rows only."""
+    monkeypatch.setattr(tile_conv, "_MINOR", minor)
+    pts, mask = clustered_cloud(13, 2, 3000, 300, cuda)
+    sweep, s_colors, first = _sampler_sweep(pts, mask, 0.05)
+    flag_sets = {"sampler": [first & (s_colors == c) & sweep.valid for c in (0, 13, 26)],
+                 "none": [torch.zeros_like(sweep.valid)],
+                 "all": [torch.ones_like(sweep.valid)],
+                 "invalid": [~sweep.valid]}[kind]
+    for flags in flag_sets:
+        got = tile_conv.cover_counts_cuda(sweep.layout, flags, 0.05)
+        again = tile_conv.cover_counts_cuda(sweep.layout, flags, 0.05)
+        want = tile_conv.cover_counts_reference(sweep.layout, flags, 0.05)
+        torch.cuda.synchronize()
+        assert sweep.layout.steps.Tm == int(minor)
+        assert torch.equal(got, want) and torch.equal(got, again)
+        if kind in ("none", "invalid"):
+            assert int(got.abs().sum()) == 0
 
 
 # ------------------------------------------------------------ the tile switches' kernels

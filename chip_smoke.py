@@ -27,7 +27,11 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    trainer's batch) give it, and times both with CUDA events. K4 runs both
    its bodies (culled and all pairs) at every site it is checked at, each
    within KDE_RTOL, bitwise on repeat, and with the weight off each
-   query's in-radius count exactly the plain one.
+   query's in-radius count exactly the plain one. K3 is also held bit for
+   bit at the dense sweeps of the other default paths
+   (``tools.dense_ab.poisson_sites``): ScanNet's levels 1 and 2 of a block
+   batch (B=8) and of the 40960 scene (B=1), ShapeNet's levels 0-2 (r=0.025,
+   0.1, 0.4) and ``tasks.modelnet --points 4096``'s levels 0-1.
 4. Holds K2 (the dense MC-conv backward) against its plain version at the
    three conv sites of a B=8 and of a B=32 training batch (N=1024
    hierarchies: the row splits and partial sums differ with B), checks that
@@ -53,7 +57,8 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    sampler's cover count) against its plain version at each of the 27 colours
    of the level-0 sweep, and the sweep's selection against the dense plain
    sampler; K7 (tile KDE) against its plain version at the two level-0 radii
-   of the whole scene, and against K4 at 8192; K4 at the block hierarchy's
+   of the whole scene (with its layout's real and inert steps), and against
+   K4 at 8192; K4 at the block hierarchy's
    seven KDE sites (levels 0-3); K5 (tile MC conv) at the four tile sites of
    the block batch (stem, enc_0_1, dec_2_1, dec_1_0). Each repeats bit for
    bit; times, bounds and plain times are printed.
@@ -195,7 +200,9 @@ K5p / K6p, and the bucket conv over active bricks (K9a / K10a) with
    K9 / K10, and the reverse.
 31. Prints one JSON line of kernel results (K1-K4 at the trainer's batch,
    B=32, K1 / K2 again at ShapeNet's three 1024 -> 1024 sites, K4 again at
-   the ScanNet block hierarchy's seven KDE sites, K5-K10,
+   the ScanNet block hierarchy's seven KDE sites, K3 again at every level
+   of ScanNet's block batch, its scene, ShapeNet and ``--points 4096``
+   that it samples (a row each), K5-K10,
    K5p, K6p and K6v1 at the ScanNet shapes, K1v1 / K2v1 summed over the
    zoo's 14 sites at B=32, K3v2 / K3v3 / K3v4 summed over MCNorm's
    two sweeps at B=32, K1p over the 17 dense sites at B=32, the probes over
@@ -532,11 +539,57 @@ def check_kde_levels(dev, lv) -> list:
                            f"r={radius}", *lv[i], radius) for i, radius in SEG_KDE_SITES]
 
 
+def check_poisson_site(name, pts, mask, radius) -> tuple:
+    """K3 at one site: bit for bit its plain version, timed, with the bound
+    of its bytes and of the d2 that coverage needs (8 operations an
+    in-radius pair of a selected point and a valid point: a point is
+    covered by the selected points within r of it). The row of the kernels
+    line."""
+    from mccnn_tpu_torch.core.sampling import sweep_cells
+    from mccnn_tpu_torch.ops.cuda import poisson_kernel
+
+    cids, colors = sweep_cells(pts, radius)  # int32, as the kernel takes them
+    args = (pts, mask, cids, colors, radius)
+    got = poisson_kernel.poisson_sweep_cuda(*args)
+    want = poisson_kernel.poisson_sweep_reference(*args)
+    torch.cuda.synchronize()
+    diff = int((got != want).sum())
+    B, N = mask.shape
+    ms = time_ms(lambda: poisson_kernel.poisson_sweep_cuda(*args))
+    pms = time_ms(lambda: poisson_kernel.poisson_sweep_reference(*args),
+                  iters=5 if B * N <= 32 * 1024 else 2)
+    _, inr = pair_counts(pts, mask & want, pts, mask, radius)
+    bms, by = bound(B * N * (12 + 1 + 4 + 4 + 1), 8 * inr)
+    print(f"K3 {name} B={B} N={N} r={radius}: selected={int(got.sum())} "
+          f"differing_flags={diff} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+          f"bound_ms={bms:.6f} ({by})", flush=True)
+    require(diff == 0, f"K3 selection differs from its plain version at {name} (N={N})")
+    return (float(diff), ms, pms, bms, by, None)
+
+
+K3_PATHS = ("ScanNet block batch", "ScanNet scene", "ShapeNet", "--points 4096")
+
+
+def check_poisson_sites(dev) -> dict:
+    """K3 at the dense sweeps of the other default paths
+    (``dense_ab.poisson_sites`` but MCClassS's, which ``check_kernels``
+    holds), by path (``K3_PATHS``): ScanNet's levels 1 and 2 in the block
+    batch (B = 8) and the scene (B = 1), ShapeNet's levels 0-2 and
+    ``--points 4096``'s levels 0-1."""
+    from mccnn_tpu_torch.tools.dense_ab import poisson_sites
+
+    rows = {path: [] for path in K3_PATHS}
+    with torch.no_grad():
+        for path, name, pts, mask, radius in poisson_sites(dev):
+            if path in rows:
+                rows[path].append(check_poisson_site(name, pts, mask, radius))
+    return rows
+
+
 def check_kernels(dev, b: int) -> dict:
     """Kernel vs plain version at the shapes a batch of ``b`` clouds gives them."""
     from mccnn_tpu_torch.api.hierarchy import GLOBAL_RADIUS
-    from mccnn_tpu_torch.core.sampling import sweep_cells
-    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel, poisson_kernel
+    from mccnn_tpu_torch.ops.cuda import dense_conv, density_kernel
 
     rng = np.random.default_rng(SEED + b)
     lv = levels(request(rng, b), dev)
@@ -551,22 +604,7 @@ def check_kernels(dev, b: int) -> dict:
             pdfs[(lvl, radius)] = density_kernel.kde_density_reference(pts, mask, radius)
 
         for lvl, radius in ((0, 0.1), (1, 0.4)):
-            pts, mask = lv[lvl]
-            cids, colors = sweep_cells(pts, radius)  # int32, as the kernel takes them
-            got = poisson_kernel.poisson_sweep_cuda(pts, mask, cids, colors, radius)
-            want = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius)
-            torch.cuda.synchronize()
-            diff = int((got != want).sum())
-            ms = time_ms(lambda: poisson_kernel.poisson_sweep_cuda(pts, mask, cids, colors, radius))
-            pms = time_ms(lambda: poisson_kernel.poisson_sweep_reference(
-                pts, mask, cids, colors, radius), iters=5)
-            _, inr = pair_counts(pts, mask, pts, mask, radius)
-            bms, by = bound(pts.shape[0] * pts.shape[1] * (12 + 1 + 4 + 4 + 1), 8 * inr)
-            print(f"K3 B={b} N={pts.shape[1]} r={radius}: selected={int(got.sum())} "
-                  f"differing_flags={diff} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"bound_ms={bms:.6f} ({by})", flush=True)
-            require(diff == 0, f"K3 selection differs from its plain version at N={pts.shape[1]}")
-            results["K3"].append((float(diff), ms, pms, bms, by, None))
+            results["K3"].append(check_poisson_site(f"MCClassS level {lvl}", *lv[lvl], radius))
 
         gen = torch.Generator().manual_seed(SEED)
         sites = [  # (in level, out level, radius, C, CO, main path?)
@@ -1098,8 +1136,9 @@ def check_tile_kde(dev, tile_pairs_whole, block) -> tuple:
         p_ms = time_ms(lambda: tile_conv.tile_kde_sums_reference(lay, radius), iters=2)
         pairs = inr_pairs(lay.pts, lay.valid, lay.pts, lay.valid, radius)
         b_ms, by = bound(SEG_CAP * (12 + 1 + 4), 12 * pairs)
+        real, inert = tile_conv.real_steps(lay.steps)
         print(f"K7 B=1 N={SEG_CAP} (valid {int(mask.sum())}) r={radius} Tm={lay.steps.Tm} "
-              f"S={lay.S}: "
+              f"S={lay.S} (real steps {int(real.sum())}, inert {int(inert.sum())}): "
               f"max_abs_err={e:.3e} max_rel_err={rel:.3e} bitwise_repeatable=True "
               f"in_radius_pairs={pairs} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
               f"bound_ms={b_ms:.6f} ({by})", flush=True)
@@ -3350,6 +3389,7 @@ def main() -> int:
 
     check_kernels(dev, SERVE_B)
     results = check_kernels(dev, TRAIN_B)
+    k3_rows = check_poisson_sites(dev)
     check_backward(dev, SERVE_B)
     results["K2"] = check_backward(dev, TRAIN_B)
     shapenet_rows = check_shapenet_sites(dev)
@@ -3524,42 +3564,42 @@ def main() -> int:
             "bound_by": max(rows, key=lambda r: r[3])[4],
             "library_ms": sum(lib_ms) if lib_ms else None,
         })
-    for kid, name, source, replaces in (
-            ("K1", "dense_mc_conv", "mccnn_tpu_torch/csrc/dense_conv.cu",
-             "mccnn_tpu/ops/pallas/dense_conv.py:360"),
-            ("K2", "dense_mc_conv_backward", "mccnn_tpu_torch/csrc/dense_conv_bwd.cu",
-             "mccnn_tpu/ops/pallas/dense_conv.py:422")):
-        rows = shapenet_rows[kid]  # ShapeNet's three 1024 -> 1024 sites at the trainer's batch
-        kernels.append({
-            "name": f"{kid} {name} (ShapeNet stem, enc_0_1, dec_1_0)", "route": "cuda",
-            "source": source, "replaces": replaces,
-            "launches": norm_launches["shapenet_train"][kid],
-            "launches_by_path": {"shapenet_train": norm_launches["shapenet_train"][kid]},
-            "batch": TRAIN_B,
-            "max_abs_err": max(r[0] for r in rows),
-            "ms": sum(r[1] for r in rows),
-            "plain_ms": sum(r[2] for r in rows),
-            "bound_ms": sum(r[3] for r in rows),
-            "bound_by": max(rows, key=lambda r: r[3])[4],
-            "library_ms": sum(r[5] for r in rows),
-        })
-    rows = tile_results["K4 ScanNet"]  # MCSeg's seven KDE sites of the block batch
-    k4_paths = {k: v["K4"] for k, v in {**seg_launches, **bucket_launches}.items()
-                if k != "modelnet_4096"}
-    name, source, replaces = meta["K4"]
-    kernels.append({
-        "name": f"K4 {name} (ScanNet block levels)", "route": "cuda", "source": source,
-        "replaces": replaces,
-        "launches": sum(k4_paths.values()),
-        "launches_by_path": k4_paths,
-        "batch": SEG_B,
-        "max_abs_err": max(r[0] for r in rows),
-        "ms": sum(r[1] for r in rows),
-        "plain_ms": sum(r[2] for r in rows),
-        "bound_ms": sum(r[3] for r in rows),
-        "bound_by": max(rows, key=lambda r: r[3])[4],
-        "library_ms": None,
-    })
+    def line(name, source, replaces, rows, paths, batch) -> dict:
+        """A row of the kernels line from ``rows`` of (err, ms, plain ms,
+        bound ms, bound by, library ms) and the launches by path."""
+        lib_ms = [r[5] for r in rows if r[5] is not None]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(paths.values()), "launches_by_path": paths, "batch": batch,
+                "max_abs_err": max(r[0] for r in rows), "ms": sum(r[1] for r in rows),
+                "plain_ms": sum(r[2] for r in rows), "bound_ms": sum(r[3] for r in rows),
+                "bound_by": max(rows, key=lambda r: r[3])[4],
+                "library_ms": sum(lib_ms) if lib_ms else None}
+
+    shapenet_paths = {"shapenet_train": norm_launches["shapenet_train"]}
+    for kid in ("K1", "K2"):  # ShapeNet's three 1024 -> 1024 sites at the trainer's batch
+        name, source, replaces = meta[kid]
+        kernels.append(line(f"{kid} {name} (ShapeNet stem, enc_0_1, dec_1_0)", source, replaces,
+                            shapenet_rows[kid], {k: v[kid] for k, v in shapenet_paths.items()},
+                            TRAIN_B))
+    seg_paths = {k: v for k, v in {**seg_launches, **bucket_launches}.items()
+                 if k != "modelnet_4096"}
+    name, source, replaces = meta["K4"]  # MCSeg's seven KDE sites of the block batch
+    kernels.append(line(f"K4 {name} (ScanNet block levels)", source, replaces,
+                        tile_results["K4 ScanNet"], {k: v["K4"] for k, v in seg_paths.items()},
+                        SEG_B))
+    name, source, replaces = meta["K3"]  # the other default paths' dense sweeps, every level
+    scannet = "levels 1-2: N = 1944, r = 0.15; N = 224, r = 0.4"
+    for path, where, paths, batch in (
+            ("ScanNet block batch", f"ScanNet block batch {scannet}",
+             {k: v for k, v in seg_paths.items() if k != "scannet_whole"}, SEG_B),
+            ("ScanNet scene", f"ScanNet scene {scannet}",
+             {"scannet_whole": seg_launches["scannet_whole"]}, 1),
+            ("ShapeNet", "ShapeNet levels 0-2: N = 1024, r = 0.025; N = 1024, r = 0.1; "
+             "N = 496, r = 0.4", shapenet_paths, TRAIN_B),
+            ("--points 4096", "tasks.modelnet --points 4096 levels 0-1: N = 4096, r = 0.1; "
+             "N = 496, r = 0.4", {"modelnet_4096": bucket_launches["modelnet_4096"]}, TRAIN_B)):
+        kernels.append(line(f"K3 {name} ({where})", source, replaces, k3_rows[path],
+                            {k: v["K3"] for k, v in paths.items()}, batch))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,7 @@
 // exp where in radius); the bytes (positions in, one float out) are
 // negligible.
 
+#include "block_sort.cuh"
 #include "common.cuh"
 
 namespace {
@@ -105,13 +106,11 @@ constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kMaxCulledN = 8192;              // points a cloud the layout block sorts
 constexpr int kHilbertBits = 7;                // 128 cells an axis over the cloud's box
 constexpr unsigned kMaskedKey = 1u << (3 * kHilbertBits);  // after every cell
-constexpr int kDigitBits = 8;
 constexpr int kPasses = 3;                     // 8 + 8 + 6 key bits
-constexpr int kDigits = 1 << kDigitBits;
 constexpr int kWarps = 4;                      // warps a block of the sweep
 constexpr int kWindow = 256;                   // groups culled into one list
-constexpr size_t kLayoutSmem =
-    2 * kMaxCulledN * (sizeof(unsigned) + sizeof(unsigned short)) + kDigits * kSortWarps * 4;
+constexpr size_t kLayoutSmem = 2 * kMaxCulledN * (sizeof(unsigned) + sizeof(unsigned short)) +
+                               block_sort::counter_ints(kSortThreads) * sizeof(int);
 
 __device__ __forceinline__ float warp_min(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
@@ -151,30 +150,6 @@ __device__ __forceinline__ unsigned hilbert3(int x0, int x1, int x2, int bits) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) code = (code << 1) | (((X[i] ^ t) >> b) & 1);
   return code;
-}
-
-// Block-wide exclusive scan of one value a thread (blockDim == kSortThreads).
-__device__ __forceinline__ int block_exclusive_scan(int v, int* partial) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) partial[w] = incl;
-  __syncthreads();
-  if (w == 0) {
-    int s = partial[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += u;
-    }
-    partial[lane] = s - partial[lane];  // exclusive over the warps
-  }
-  __syncthreads();
-  const int out = partial[w] + incl - v;
-  __syncthreads();  // partial may be reused
-  return out;
 }
 
 // One block a cloud (N <= kMaxCulledN): the valid points' box and count; each
@@ -270,56 +245,8 @@ kde_layout_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mas
   }
   __syncthreads();
 
-  // stable LSD radix sort: warp w owns items [w * per, (w + 1) * per)
-  const int per = (N + 32 * kSortWarps - 1) / (32 * kSortWarps) * 32;
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const unsigned* kin = keys[pass & 1];
-    const unsigned short* iin = idx[pass & 1];
-    unsigned* kout = keys[(pass + 1) & 1];
-    unsigned short* iout = idx[(pass + 1) & 1];
-    const int shift = pass * kDigitBits;
-    for (int d = threadIdx.x; d < kDigits * kSortWarps; d += kSortThreads) cnt[d] = 0;
-    __syncthreads();
-    for (int r = 0; r < per / 32; ++r) {
-      const int i = w * per + r * 32 + lane;
-      if (i < N) atomicAdd(&cnt[((kin[i] >> shift) & (kDigits - 1)) * kSortWarps + w], 1);
-    }
-    __syncthreads();
-    // exclusive prefix over (digit, warp), digit-major: kDigits * kSortWarps
-    // counters, 8 a thread
-    constexpr int kPerThread = kDigits * kSortWarps / kSortThreads;
-    int local[kPerThread], sum = 0;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      local[k] = cnt[threadIdx.x * kPerThread + k];
-      sum += local[k];
-    }
-    int run = block_exclusive_scan(sum, partial);
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      cnt[threadIdx.x * kPerThread + k] = run;
-      run += local[k];
-    }
-    __syncthreads();
-    for (int r = 0; r < per / 32; ++r) {
-      const int i = w * per + r * 32 + lane;
-      const bool active = i < N;
-      const unsigned key = active ? kin[i] : 0u;
-      const int digit = active ? (int)((key >> shift) & (kDigits - 1)) : kDigits + lane;
-      const unsigned peers = __match_any_sync(kFull, digit);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      int* slot = &cnt[(active ? digit : 0) * kSortWarps + w];
-      if (active) {
-        const int dst = *slot + rank;
-        kout[dst] = key;
-        iout[dst] = iin[i];
-      }
-      __syncwarp();
-      if (active && rank == 0) *slot += __popc(peers);
-      __syncwarp();
-    }
-    __syncthreads();
-  }
+  // the stable LSD radix sort (block_sort.cuh)
+  block_sort::radix_sort(keys, idx, N, kPasses, cnt, partial);
   const unsigned short* sorted = idx[kPasses & 1];
 
   // the sorted rows, their original indices and the groups' boxes

@@ -47,6 +47,7 @@ SIGNATURES = {
     "kde_density_culled_launch": [P, P, I, I, F, F, F, P, P, P],
     "kde_culled_scratch_bytes": [I, I],
     "poisson_sweep_launch": [P, P, P, P, I, I, F, P, P],
+    "poisson_sweep_probe_launch": [P, P, P, P, I, I, F, P, P, P],
     "poisson_sweep_v2_launch": [P, P, P, P, I, I, F, P, P, P],
     "poisson_sweep_v3_launch": [P, P, P, P, P, P, I, I, I, F, P, P],
     "poisson_sweep_v4_launch": [P, P, P, P, I, I, I, F, P, P],

@@ -5,9 +5,10 @@ K3 replaces ``mccnn_tpu/ops/pallas/poisson_kernel.py::_sweep_kernel`` (the
 default v1, reached through ``poisson_sweep_pallas`` from
 ``core/sampling.py::poisson_disk``). Its kernel is
 ``mccnn_tpu_torch/csrc/poisson_kernel.cu``: one block per cloud, the cloud's
-whole state in shared memory, 27 colour steps separated by barriers. It is
-bound by the latency of that dependent chain, not by bytes or arithmetic (see
-the source's header). Its limit is ``MAX_N = 4096`` points per cloud.
+whole state in shared memory, sorted once by (colour, cell, index), then 27
+colour steps separated by barriers. It is bound by the latency of that
+dependent chain, not by bytes or arithmetic (see the source's header). Its
+limit is ``MAX_N = 4096`` points per cloud.
 
 The reference's three variants of the same selection, which
 ``MCCNN_POISSON_SWEEP`` switches on (``poisson_kernel.py:434-515``):
@@ -53,7 +54,8 @@ import torch
 from ...core.grid import pair_d2, radius_sq
 from . import _build
 
-MAX_N = 4096  # shared-memory bound of K3 (32 bytes a point)
+MAX_N = 4096  # shared-memory bound of K3 (156 KB at 4096 points)
+PROBE_STAMPS = 64  # clock64 stamps a block of K3's probe build (csrc kStamps)
 VARIANT_MAX_N = 1024  # the variants' kernels, and the reference's MAX_N (:32)
 SWEEP_WINDOW = 256  # the v3 window (:290)
 _V3_ALIGN = 128  # v3 window starts are multiples of this (:470)
@@ -277,6 +279,23 @@ def poisson_sweep_cuda(
     _build.check(err, "poisson_sweep_kernel")
     launches += 1
     return sel
+
+
+def poisson_sweep_probe_cuda(points, mask, cids, colors, radius):
+    """Launch K3's probe build: K3's selection and (B, PROBE_STAMPS) int64
+    clock64 stamps a block (the phases' ends, ``csrc/poisson_kernel.cu``).
+    Not counted: only ``tools.poisson_split`` calls it."""
+    _check_inputs("poisson_sweep_probe_cuda", points, mask, cids, colors, MAX_N)
+    B, N, _ = points.shape
+    sel = torch.empty((B, N), dtype=torch.bool, device=points.device)
+    stamps = torch.zeros((B, PROBE_STAMPS), dtype=torch.int64, device=points.device)
+    lib = _build.library()
+    err = lib.poisson_sweep_probe_launch(
+        _build.ptr(points), _build.ptr(mask), _build.ptr(cids), _build.ptr(colors),
+        B, N, radius_sq(radius), _build.ptr(sel), _build.ptr(stamps), _build.stream_of(points),
+    )
+    _build.check(err, "poisson_sweep_kernel (probe)")
+    return sel, stamps
 
 
 def poisson_sweep_v2_cuda(points, mask, cids, colors, radius) -> torch.Tensor:

@@ -397,6 +397,15 @@ def _step_list(adj, S, G, Tm) -> StepList:
                     _needed_steps(adj, G), Tm)
 
 
+def real_steps(steps: StepList) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) real and inert steps of a list: a real step's minors come first,
+    so slot 0 tells them apart. The inert ones pad the list to its budget,
+    all in the last tile's run and after its real steps: K7 and K8 stop a
+    run at its first inert step."""
+    real = (steps.j_ids[:, 0, :] != steps.n_minor).sum(dim=1)
+    return real, steps.j_ids.shape[2] - real
+
+
 def _walk_steps(steps: StepList, T: int):
     """Yield, per chunk of steps of the plain versions: the major rows (B, Sc,
     T), the candidate rows (B, Sc, G*Tm), whether each candidate row is a

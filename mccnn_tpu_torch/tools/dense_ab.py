@@ -14,8 +14,8 @@ the entry points whose arguments it names: ``--tile-fwd`` and
 ``--bucket-fwd`` declare the ABI of K5 / K5p and K9 / K9a (``FWD_ABI``, the
 arguments since their ports) and refuse to run where this checkout's
 ``_build.SIGNATURES`` differ from it; ``--sweeps`` declares those of K4's
-all-pairs body and K8 (``SWEEP_ABI``) and also refuses another checkout whose
-``_build.SIGNATURES`` differ from it; ``--same`` and ``--t1`` are for a
+all-pairs body, K8, K7 and K3 (``SWEEP_ABI``) and also refuses another
+checkout whose ``_build.SIGNATURES`` differ from it; ``--same`` and ``--t1`` are for a
 checkout whose library has this checkout's entry points and arguments.
 
 With ``--tile-fwd`` it runs K5 and K5p (``tile_conv_launch`` /
@@ -58,7 +58,14 @@ checkout's ``kde_density_cuda`` (the body ``pick_body`` takes, its sort
 included), with both of this checkout's bodies beside them; per site the
 largest relative difference from the other's output, whether this all-pairs
 body is bit-equal to it, and the device times (order other, this, this,
-other).
+other). Then K7 (``tile_kde_launch``, through this checkout's wrapper) at
+the 40960 scene's two level-0 radii on ``chip_smoke.py``'s layouts: its
+real and inert steps, whether the sums are bit-equal (else the largest
+relative difference, held to TILE_RTOL), whether this one is bitwise on
+repeat, and both device times, each radius and summed; and K3
+(``poisson_sweep_launch``) at ``poisson_sites``, every dense sweep of a
+default path: whether the selection is bit-equal and both device times,
+each site and summed over each path's sites.
 
 It refuses to run without a CUDA device.
 """
@@ -88,12 +95,15 @@ FWD_ABI = {
     "bucket_conv_launch": [P] * 11 + [I] * 8 + [F, F, I, I] + [P] * 3,
     "bucket_conv_active_launch": [P] * 12 + [I] * 10 + [F, F, I, I] + [P] * 3,
 }
-# The arguments of K4's all-pairs body and K8, unchanged since their ports:
-# a checkout with these takes `--sweeps`.
+# The arguments of K4's all-pairs body, K8, K7 and K3, unchanged since their
+# ports: a checkout with these takes `--sweeps`.
 SWEEP_ABI = {
     "kde_density_launch": [P, P, I, I, F, F, F, P, P],
     "tile_cover_launch": [P, P, P, P, P, I, I, I, I, I, I, F, P, P],
+    "tile_kde_launch": [P, P, P, P, I, I, I, I, I, I, F, F, P, P],
+    "poisson_sweep_launch": [P, P, P, P, I, I, F, P, P],
 }
+TILE_RTOL = 1e-4  # K7 against another body of the same sums (chip_smoke.py's tolerance)
 ACTIVE_CAP, ACTIVE_NBA = 64, 784  # tools.bucket_32k's scene: every occupied brick
 
 RADII_3, RADII_2 = (0.1, 0.2, 0.4), (0.1, 0.4)
@@ -694,6 +704,49 @@ def kde_sites(dev) -> list:
     return sites
 
 
+def poisson_sites(dev) -> list:
+    """``(path, name, points, mask, radius)`` of K3 at every dense sweep of
+    a default path, ``path`` naming the forward the site belongs to:
+    MCClassS's level 0 (N = 1024, r = 0.1) and level 1 (496, 0.4) at B = 8
+    and 32; ScanNet MCSeg's level 1 (1944, 0.15) and level 2 (224, 0.4) of
+    the block batch (B = 8) and of the 40960 scene (B = 1); ShapeNet MCSeg's
+    levels 0 (1024, 0.025), 1 (1024, 0.1) and 2 (496, 0.4) at B = 32; and
+    MCClassS's levels 0 (4096, 0.1) and 1 (496, 0.4) at ``tasks.modelnet
+    --points 4096``, B = 32."""
+    from mccnn_tpu_torch.api.hierarchy import build_hierarchy
+    from mccnn_tpu_torch.data.datasets import _normalize_np
+    from mccnn_tpu_torch.data.synthetic import classification_batch
+    from mccnn_tpu_torch.ops.cuda import tile_conv
+    from mccnn_tpu_torch.tasks.shapenet import SyntheticSegSource
+
+    def levels(path, lv, radii, which=None):
+        return [(path, f"{path} level {i}", *lv[i], radii[i])
+                for i in (range(len(radii)) if which is None else which)]
+
+    sites = []
+    for b in (8, B):
+        lv = _levels(_clouds(SEED + b, b), np.ones((b, 1024), bool), RADII_2, True, dev)
+        sites += levels(f"MCClassS B={b}", lv, RADII_2)
+    block = [x.to(dev) for x in _scene_batch(SEED + 5)]
+    scene = [torch.from_numpy(x).to(dev) for x in whole_scene(SEED + 6)]
+    for path, (pts, mask) in (("ScanNet block batch", block), ("ScanNet scene", scene)):
+        tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+        with torch.no_grad():
+            hier = build_hierarchy(pts, mask, SEG_RADII, tile_pairs=tile_pairs)
+        lv = [(h.points, h.mask) for h in hier.levels]
+        sites += levels(path, lv, SEG_RADII, which=(1, 2))  # level 0 is the tile sampler's
+    batch = next(SyntheticSegSource(B, SHAPENET_PARTS, SHAPENET_CATS, SEED + 52).batches(
+        B, 1024, np.random.default_rng(SEED + 52)))
+    sites += levels("ShapeNet", _levels(batch["points"], batch["mask"], SHAPENET_RADII, False,
+                                        dev), SHAPENET_RADII)
+    pts, _ = classification_batch(np.random.default_rng(SEED + 4096), B, 4096)
+    pts = torch.from_numpy(np.stack([_normalize_np(p) for p in pts])).to(dev)
+    with torch.no_grad():  # on the device: the plain sweep at 32 x 4096 is slow on the host
+        hier = build_hierarchy(pts, torch.ones((B, 4096), dtype=torch.bool, device=dev), RADII_2)
+    sites += levels("--points 4096", [(h.points, h.mask) for h in hier.levels], RADII_2)
+    return [(path, name, p.contiguous(), m.contiguous(), r) for path, name, p, m, r in sites]
+
+
 def main_sweeps(other_path: str, dev) -> int:
     """K8 at the 27 colours of the block batch's and the scene's level-0
     sweeps, and K4 at the ScanNet and MCClassS KDE sites, on this library and
@@ -773,10 +826,83 @@ def main_sweeps(other_path: str, dev) -> int:
         print(f"K4 over the sites: device_ms other={total['other']:.4f} "
               f"this={total['this']:.4f} culled={total['culled']:.4f} "
               f"all_pairs={total['all_pairs']:.4f}", flush=True)
+        every &= sweeps_k7_k3(libs, scene, dev)
     finally:
         _build._LIBRARY = libs["this"]
-    print(f"K8 and K4 against the other: every check held: {every}", flush=True)
+    print(f"K8, K4, K7 and K3 against the other: every check held: {every}", flush=True)
     return 0 if every else 1
+
+
+def _ab(libs, run, iters: int) -> tuple[dict, dict]:
+    """``run`` on both libraries: its first outputs and the best device
+    times, in the order other, this, this, other."""
+    from mccnn_tpu_torch.ops.cuda import _build
+
+    from . import device_ms
+
+    outs, dms = {}, {}
+    for who in ("other", "this", "this", "other"):
+        _build._LIBRARY = libs[who]
+        outs.setdefault(who, run())
+        torch.cuda.synchronize()
+        dms[who] = min(dms.get(who, float("inf")), device_ms(run, iters=iters))
+    _build._LIBRARY = libs["this"]
+    return outs, dms
+
+
+def sweeps_k7_k3(libs, scene, dev) -> bool:
+    """K7 at the 40960 scene's two level-0 radii (``chip_smoke.py``'s
+    layouts) and K3 at ``poisson_sites``, on both libraries: K7 bit-equal
+    or within TILE_RTOL, K3 bit for bit; both device times."""
+    from mccnn_tpu_torch.core.sampling import sweep_cells
+    from mccnn_tpu_torch.ops.cuda import poisson_kernel, tile_conv
+
+    every = True
+    pts, mask = scene
+    tile_pairs = tile_conv.auto_tile_pairs(pts, mask, 2 * SEG_RADII[0])
+    total = {"this": 0.0, "other": 0.0}
+    for radius in (SEG_RADII[0], 2 * SEG_RADII[0]):
+        with torch.no_grad():
+            lay = tile_conv.self_layout(pts, mask, radius, max_pairs=tile_pairs)
+            outs, dms = _ab(libs, lambda lay=lay, r=radius: tile_conv.tile_kde_sums_cuda(lay, r),
+                            iters=5)
+            repeat = bool(torch.equal(tile_conv.tile_kde_sums_cuda(lay, radius), outs["this"]))
+        same = bool(torch.equal(outs["this"], outs["other"]))
+        diff = (outs["this"] - outs["other"]).abs() / outs["other"].abs().clamp_min(1e-30)
+        rel = float(diff[lay.valid].max())
+        every &= repeat and (same or rel <= TILE_RTOL)
+        real, inert = tile_conv.real_steps(lay.steps)
+        for k in total:
+            total[k] += dms[k]
+        print(f"K7 scene 40960 r={radius} Tm={lay.steps.Tm} S={lay.S} (real steps "
+              f"{int(real.sum())}, inert {int(inert.sum())}): bit-equal to the other: {same}; "
+              f"largest relative difference {rel:.3e}; bitwise on repeat: {repeat}; device_ms "
+              f"other={dms['other']:.4f} this={dms['this']:.4f} (this / other "
+              f"{dms['this'] / dms['other']:.4f})",
+              flush=True)
+    print(f"K7 over the scene's two radii: device_ms other={total['other']:.4f} "
+          f"this={total['this']:.4f} (this / other {total['this'] / total['other']:.4f})",
+          flush=True)
+    total = {}
+    for path, name, pts, mask, radius in poisson_sites(dev):
+        cids, colors = sweep_cells(pts, radius)
+        args = (pts, mask, cids, colors, radius)
+        with torch.no_grad():
+            outs, dms = _ab(libs, lambda a=args: poisson_kernel.poisson_sweep_cuda(*a), iters=10)
+        same = bool(torch.equal(outs["this"], outs["other"]))
+        every &= same
+        for k in dms:
+            total.setdefault(path, {}).setdefault(k, 0.0)
+            total[path][k] += dms[k]
+        print(f"K3 {name} B={mask.shape[0]} N={mask.shape[1]} r={radius}: selected "
+              f"{int(outs['this'].sum())}, bit-equal to the other: {same}; device_ms "
+              f"other={dms['other']:.4f} this={dms['this']:.4f} (this / other "
+              f"{dms['this'] / dms['other']:.4f})", flush=True)
+    for path, dms in total.items():
+        print(f"K3 {path}, its sites summed: device_ms other={dms['other']:.4f} "
+              f"this={dms['this']:.4f} (this / other {dms['this'] / dms['other']:.4f})",
+              flush=True)
+    return every
 
 
 def main(argv=None) -> int:

@@ -102,10 +102,31 @@ def test_kde_body_by_shape():
     assert density_kernel.pick_body(density_kernel.CULL_MIN_N - 1) == "all_pairs"
 
 
+def crowded_cloud(seed, B, N, masked, device):
+    """``B`` clouds of ``N`` points in 6 tight clusters (sigma 0.004): long
+    same-cell runs; the last ``masked`` points masked."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0.2, 0.8, size=(B, 6, 3))
+    which = rng.integers(0, 6, size=(B, N))
+    pts = np.take_along_axis(centres, which[..., None], axis=1)
+    pts = np.clip(pts + rng.normal(0.0, 0.004, size=(B, N, 3)), 0.0, 1.0).astype(np.float32)
+    mask = torch.ones((B, N), dtype=torch.bool)
+    mask[:, N - masked:] = False
+    return torch.from_numpy(pts).to(device), mask.to(device)
+
+
+K3_CASES = [(2, 256, 0.1, False), (2, 1024, 0.1, False), (2, 300, 0.4, False),
+            (2, 1944, 0.15, False),  # ScanNet's level 1
+            (1, 4096, 0.1, False),  # tasks.modelnet --points 4096: four points a thread
+            (2, 1024, 0.025, False),  # ShapeNet: about 19 bits of cell id
+            (2, 2000, 0.1, True)]  # long same-cell runs and a masked tail
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,radius", [(256, 0.1), (1024, 0.1), (300, 0.4)])
-def test_poisson_kernel_is_bit_equal_to_plain(cuda, N, radius):
-    pts, mask = cloud(1, N=N, device=cuda)
+@pytest.mark.parametrize("B,N,radius,crowded", K3_CASES)
+def test_poisson_kernel_is_bit_equal_to_plain(cuda, B, N, radius, crowded):
+    pts, mask = (crowded_cloud(1, B, N, 300, cuda) if crowded
+                 else cloud(1, B=B, N=N, device=cuda))
     cids, colors = sweep_cells(pts, radius)
     got = poisson_kernel.poisson_sweep_cuda(pts, mask, cids, colors, radius)
     want = poisson_kernel.poisson_sweep_reference(pts, mask, cids, colors, radius)
@@ -854,10 +875,11 @@ def test_loss_backward_through_tile_mc_conv_launches_k5_and_k6(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,radius", [(700, 0.2), (2100, 0.1)])
-def test_tile_kde_kernel_matches_plain_and_dense(cuda, N, radius):
+@pytest.mark.parametrize("N,radius,chunk", [(700, 0.2, 8), (2100, 0.1, 8),
+                                            (2100, 0.05, 1)])  # 200-odd inert steps a cloud
+def test_tile_kde_kernel_matches_plain_and_dense(cuda, N, radius, chunk):
     pts, mask = cloud(10, N=N, masked=50, device=cuda)
-    lay = tile_conv.self_layout(pts, mask, radius, max_pairs=1 << 30)
+    lay = tile_conv.self_layout(pts, mask, radius, max_pairs=1 << 30, chunk=chunk)
     before = tile_conv.kde_launches
     got = tile_conv.tile_kde_sums_cuda(lay, radius)
     again = tile_conv.tile_kde_sums_cuda(lay, radius)
@@ -865,6 +887,14 @@ def test_tile_kde_kernel_matches_plain_and_dense(cuda, N, radius):
     torch.cuda.synchronize()
     assert tile_conv.kde_launches == before + 2 and torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    # the same real steps without the budget's inert padding: the same bits
+    real, inert = tile_conv.real_steps(lay.steps)
+    tight = tile_conv.self_layout(pts, mask, radius, max_pairs=1 << 30, chunk=chunk,
+                                  max_steps=int(real.max()))
+    assert int(tight.overflow.max()) == 0
+    assert torch.equal(tile_conv.tile_kde_sums_cuda(tight, radius), got)
+    if chunk == 1:
+        assert int(inert.min()) > 100
     dens = tile_conv.tile_kde(pts, mask, radius, max_pairs=1 << 30)
     torch.testing.assert_close(dens, density_kernel.kde_density_cuda(pts, mask, radius),
                                rtol=1e-4, atol=0.0)

@@ -290,6 +290,26 @@ def test_tile_kde_plain_matches_jax_interpret_and_dense():
     assert (got.numpy()[~mask] == 1.0).all()
 
 
+@pytest.mark.parametrize("radius", [0.1, 0.2])
+def test_inert_steps_trail_the_last_tiles_run(radius):
+    """K7 and K8 stop a tile's run at its first inert step (slot 0 holds the
+    sentinel): the real steps are a prefix of the list, the padding after
+    them lies in the last tile's run, and ``real_steps`` counts both."""
+    pts, mask = cloud(13, N=700)
+    lay = P.self_layout(torch.from_numpy(pts), torch.from_numpy(mask), radius,
+                        max_pairs=1 << 30, chunk=1)  # 4 minors a step: the budget pads
+    st = lay.steps
+    real, inert = P.real_steps(st)
+    assert torch.equal(real, st.need) and int(inert.min()) > 0
+    assert torch.equal(real + inert, torch.full_like(real, lay.S))
+    slot0 = st.j_ids[:, 0, :] != st.n_minor
+    n_major = st.run.shape[1] - 1
+    for b, k in enumerate(real.tolist()):
+        assert bool(slot0[b, :k].all()) and not bool(slot0[b, k:].any())
+        assert bool((st.i_ids[b, k:] == n_major - 1).all())
+        assert int(st.run[b, n_major - 1]) <= k and int(st.run[b, n_major]) == lay.S
+
+
 # ------------------------------------------------------------ K8 and the tile sampler
 
 
